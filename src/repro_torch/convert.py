@@ -34,10 +34,19 @@ def _convert(tree: Any, device: torch.device) -> Any:
     return _tensor(tree, device)
 
 
+def _leaves(tree: Params, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def params_from_jax(tree: Params, cfg: ModelConfig, *,
                     device: str | torch.device = "cuda") -> Params:
     """The reference's params (leaves as numpy) -> the port's params on
-    ``device``. Checks the embedding and the stacking against ``cfg``."""
+    ``device``. Checks the embedding, and that every leaf of every block
+    stack has ``n_repeats`` along its leading axis, against ``cfg``."""
     check_supported(cfg)
     p = _convert(tree, resolve_device(device))
     if tuple(p["embed"].shape) != (cfg.vocab, cfg.d_model):
@@ -45,10 +54,11 @@ def params_from_jax(tree: Params, cfg: ModelConfig, *,
     if len(p["blocks"]) != cfg.pattern_period:
         raise ValueError(f"{len(p['blocks'])} block stacks, pattern period "
                          f"{cfg.pattern_period}")
-    for block in p["blocks"]:
-        lead = block["mixer"]["wq"].shape[0]
-        if lead != cfg.n_repeats:
-            raise ValueError(f"blocks stacked over {lead}, n_repeats {cfg.n_repeats}")
+    for i, block in enumerate(p["blocks"]):
+        for name, leaf in _leaves(block):
+            if leaf.dim() == 0 or leaf.shape[0] != cfg.n_repeats:
+                raise ValueError(f"block stack {i} leaf {name} {tuple(leaf.shape)} is not "
+                                 f"stacked over n_repeats {cfg.n_repeats}")
     if cfg.tie_embeddings == ("lm_head" in p):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but lm_head "
                          f"{'present' if 'lm_head' in p else 'absent'}")

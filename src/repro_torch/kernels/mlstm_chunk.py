@@ -1,0 +1,73 @@
+"""Chunkwise mLSTM as a CUDA C++ kernel (``csrc/mlstm_chunk.cu``).
+
+Replaces the Pallas TPU kernel ``repro.kernels.linear_attention.mlstm_chunk``:
+gated linear attention over chunks of at most 64 positions, carrying the
+matrix state C (hd, hd) and the normaliser n (hd) in fp32. Unlike the TPU
+kernel it takes an initial state, returns the final one and masks a
+ragged last chunk itself. fp32 only, as the TPU kernel's signature and the
+model's casts (``models/ssm.mlstm``). Launch through ``ops.mlstm_chunk``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (32, 64, 512)  # reduced xlstm, the 64-wide check, xlstm-350m
+MAX_CHUNK = 64  # positions per chunk (csrc/mlstm_chunk.cu, CM)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _fn():
+    fn = _build.library("mlstm_chunk").mlstm_chunk_fwd
+    fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+           i_gate: torch.Tensor, *, chunk: int,
+           state: tuple[torch.Tensor, torch.Tensor] | None
+           ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """q/k/v (B,S,H,hd), gates (B,S,H), state (C (B,H,hd,hd), n (B,H,hd)) or
+    None, all fp32 on one CUDA device -> (y (B,S,H,hd), (C, n))."""
+    B, S, H, hd = q.shape
+    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate)]
+    if state is not None:
+        named += [("C", state[0]), ("n", state[1])]
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"mlstm_chunk: {name} on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"mlstm_chunk: {name} is {t.dtype}, need torch.float32")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"mlstm_chunk: {name} is not contiguous and 16-byte aligned")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"mlstm_chunk: head dim {hd} not in {HEAD_DIMS}")
+    if (k.shape != q.shape or v.shape != q.shape or log_f.shape != (B, S, H)
+            or i_gate.shape != (B, S, H) or 0 in (B, S, H)):
+        raise ValueError(f"mlstm_chunk: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, gates {tuple(log_f.shape)}/"
+                         f"{tuple(i_gate.shape)}: need q = k = v = (B,S,H,hd), "
+                         f"gates (B,S,H), none empty")
+    if state is not None and (state[0].shape != (B, H, hd, hd) or state[1].shape != (B, H, hd)):
+        raise ValueError(f"mlstm_chunk: state {tuple(state[0].shape)}/"
+                         f"{tuple(state[1].shape)}, need ({B},{H},{hd},{hd})/({B},{H},{hd})")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"mlstm_chunk: chunk {chunk} not in [1, {MAX_CHUNK}]")
+    y = torch.empty_like(q)
+    C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
+    n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    C0, n0 = (None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
+                    i_gate.data_ptr(), C0, n0, y.data_ptr(), C.data_ptr(), n.data_ptr(),
+                    B, S, H, hd, chunk, stream)
+    _build.check(err, "mlstm_chunk_fwd")
+    return y, (C, n)

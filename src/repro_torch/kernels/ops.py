@@ -1,4 +1,4 @@
-"""Public wrappers of the attention kernels, named as in ``repro.kernels.ops``.
+"""Public wrappers of the kernels, named as in ``repro.kernels.ops``.
 
 The device of the input decides what runs: a CPU tensor goes to the plain
 PyTorch version in ``ref``; a CUDA tensor launches the hand-written CUDA
@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
+from repro_torch.kernels import mlstm_chunk as _ml
+from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref, mlstm_chunk_ref
 
 _count_lock = threading.Lock()  # engine tasks may call from several threads
 
@@ -50,5 +51,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out
 
 
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+                i_gate: torch.Tensor, *, chunk: int = 64,
+                state: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """q/k/v (B,S,H,hd) fp32, log_f/i_gate (B,S,H) fp32, state (C (B,H,hd,hd),
+    n (B,H,hd)) fp32 or None (zeros) -> (y (B,S,H,hd), final (C, n)).
+    The chunk is clamped to S, as in the reference wrapper."""
+    chunk = min(chunk, q.shape[1])
+    if _on_cpu(q, k, v, log_f, i_gate, *(state or ())):
+        return mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=chunk, state=state)
+    out = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state)
+    with _count_lock:
+        mlstm_chunk.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 decode_attention.launches = 0
+mlstm_chunk.launches = 0

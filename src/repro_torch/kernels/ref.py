@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
-Same layouts and arithmetic as ``repro.kernels.ref``: logits in fp32 from
-the inputs' exact products, masked entries at -1e30. On a CPU tensor the
-wrappers in ``ops`` run these; on the card ``chip_smoke.py`` holds each
-CUDA kernel against them.
+Same layouts and arithmetic as ``repro.kernels.ref``: attention logits in
+fp32 from the inputs' exact products, masked entries at -1e30; the mLSTM
+recurrence in fp32 chunk by chunk. On a CPU tensor the wrappers in
+``ops`` run these; on the card ``chip_smoke.py`` holds each CUDA kernel
+against them.
 """
 from __future__ import annotations
 
@@ -56,3 +57,57 @@ def decode_attention_ref(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def mlstm_chunk_ref(
+    q: torch.Tensor,            # (B, S, H, hd) fp32
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_f: torch.Tensor,        # (B, S, H) log forget gates (<= 0)
+    i_gate: torch.Tensor,       # (B, S, H) input gates in (0, 1]
+    chunk: int = 64,
+    state: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Chunkwise mLSTM / gated linear attention, ``repro.kernels.ref``'s
+    oracle with two generalisations: an initial state ``(C (B,H,hd,hd),
+    n (B,H,hd))`` (zeros when None) and the final state as a second output.
+
+    A ragged last chunk is padded with positions that leave the state
+    unchanged (log_f = 0, i = 0, q = k = v = 0); their outputs are dropped.
+    With zero state and ``S % chunk == 0`` this is exactly the reference.
+    """
+    B, S, H, hd = q.shape
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        log_f, i_gate = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (log_f, i_gate))
+    if state is None:
+        C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device)
+        nv = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+    else:
+        C, nv = state
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    ys = []
+    for j in range(n_chunks):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        qc, kc, vc, fc, ic = q[:, sl], k[:, sl], v[:, sl], log_f[:, sl], i_gate[:, sl]
+        fcum = torch.cumsum(fc, dim=1)                       # (B, c, H)
+        ftot = fcum[:, -1]                                   # (B, H)
+        qd = qc * torch.exp(fcum)[..., None]
+        y_inter = torch.einsum("bshk,bhkv->bshv", qd, C)
+        n_inter = torch.einsum("bshk,bhk->bsh", qd, nv)
+        # D[s,t] = exp(fcum_s - fcum_t) * i_t for t <= s. Above the diagonal
+        # rel > 0 can overflow exp, so those entries are -inf before it.
+        rel = fcum[:, :, None, :] - fcum[:, None, :, :]      # (B, s, t, H)
+        D = torch.exp(rel.masked_fill(~mask[None, :, :, None], float("-inf")))
+        D = D * ic[:, None, :, :]
+        scores = torch.einsum("bshk,bthk->bsth", qc, kc) * D
+        y = y_inter + torch.einsum("bsth,bthv->bshv", scores, vc)
+        nrm = n_inter + scores.sum(dim=2)
+        ys.append(y / torch.clamp(nrm.abs(), min=1.0)[..., None])
+        decay_k = torch.exp(ftot[:, None, :] - fcum)         # (B, c, H)
+        kd = kc * (ic * decay_k)[..., None]
+        C = torch.exp(ftot)[..., None, None] * C + torch.einsum("bshk,bshv->bhkv", kd, vc)
+        nv = torch.exp(ftot)[..., None] * nv + kd.sum(dim=1)
+    return torch.cat(ys, dim=1)[:, :S], (C, nv)

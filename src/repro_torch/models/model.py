@@ -1,13 +1,15 @@
 """Decoder-only LM in PyTorch: init / forward / cache / decode.
 
-Port of ``repro.models.model`` for ``attn+dense`` block patterns (smollm,
-llama3, qwen2, nemotron, chameleon). Parameters keep the reference's
-pytree as plain dictionaries: per pattern position, each leaf stacked over
-``n_repeats`` along a leading axis. ``jax.lax.scan`` over the stack
-becomes a Python loop over the repeats.
+Port of ``repro.models.model`` for blocks whose mixer is ``attn``,
+``mlstm`` or ``slstm`` and whose MLP is ``dense`` or absent: the
+``attn+dense`` decoders (smollm, llama3, qwen2, nemotron, chameleon) and
+xLSTM's alternating ``mlstm`` / ``slstm`` blocks. Parameters keep the
+reference's pytree as plain dictionaries: per pattern position, each leaf
+stacked over ``n_repeats`` along a leading axis. ``jax.lax.scan`` over the
+stack becomes a Python loop over the repeats.
 
-Other mixers, MoE MLPs and the encoder-decoder raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+Mamba, MoE MLPs and the encoder-decoder raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings them.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Params,
@@ -30,38 +33,45 @@ from repro_torch.models.layers import (
 )
 
 _NOT_PORTED = {
-    "mamba": "ROADMAP.md queue 1 item 8 (recurrent mixers)",
-    "mlstm": "ROADMAP.md queue 1 item 8 (recurrent mixers)",
-    "slstm": "ROADMAP.md queue 1 item 8 (recurrent mixers)",
+    "mamba": "ROADMAP.md queue 1 item 8 (recurrent mixers: mamba)",
     "moe": "ROADMAP.md queue 1 item 7 (MoE)",
     "enc_dec": "ROADMAP.md queue 1 item 9 (encoder-decoder)",
 }
+_MIXERS = ("attn", "mlstm", "slstm")
+_MLPS = ("dense", None)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every block is ``attn+dense``."""
+    """Raise ``NotImplementedError`` unless every block's mixer is ported
+    (``attn``, ``mlstm``, ``slstm``) and its MLP is ``dense`` or absent."""
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet; "
             f"{_NOT_PORTED['enc_dec']} brings them")
     for entry in cfg.block_pattern:
         mixer, mlp_kind = cfg.mixer_of(entry), cfg.mlp_of(entry)
-        for part in (mixer, mlp_kind):
-            if part not in ("attn", "dense"):
+        for part, ported in ((mixer, _MIXERS), (mlp_kind, _MLPS)):
+            if part not in ported:
                 where = _NOT_PORTED.get(part, "ROADMAP.md queue 1")
                 raise NotImplementedError(
-                    f"{cfg.name}: block {entry!r} is not ported yet (only "
-                    f"'attn+dense'); {where} brings {part!r}")
+                    f"{cfg.name}: block {entry!r} is not ported yet; {where} "
+                    f"brings {part!r}")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
+_INIT_MIXER = {"attn": init_attention, "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+
+
+def _init_block(gen: torch.Generator, entry: str, cfg: ModelConfig) -> Params:
     dev = gen.device
-    return {"norm1": init_rmsnorm(cfg, dev), "mixer": init_attention(gen, cfg),
-            "norm2": init_rmsnorm(cfg, dev), "mlp": init_mlp(gen, cfg)}
+    p = {"norm1": init_rmsnorm(cfg, dev), "mixer": _INIT_MIXER[cfg.mixer_of(entry)](gen, cfg)}
+    if cfg.mlp_of(entry) == "dense":
+        p["norm2"] = init_rmsnorm(cfg, dev)
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
 
 
 def _stack(trees: list[Params]) -> Params:
@@ -81,8 +91,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     dt = dtype_of(cfg)
     p: Params = {"embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                                        device=dev) * 0.02).to(dt)}
-    p["blocks"] = [_stack([_init_block(gen, cfg) for _ in range(cfg.n_repeats)])
-                   for _ in range(cfg.pattern_period)]
+    p["blocks"] = [_stack([_init_block(gen, entry, cfg) for _ in range(cfg.n_repeats)])
+                   for entry in cfg.block_pattern]
     p["final_norm"] = init_rmsnorm(cfg, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab), generator=gen,
@@ -103,18 +113,27 @@ def _head(p: Params, cfg: ModelConfig) -> torch.Tensor:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _block_fwd(bp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = x + attention(bp["mixer"], rmsnorm(bp["norm1"], x, cfg.norm_eps), cfg,
-                      causal=True)
-    return x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps), cfg)
+def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> torch.Tensor:
+    mixer = cfg.mixer_of(entry)
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    if mixer == "attn":
+        y = attention(bp["mixer"], h, cfg, causal=True)
+    elif mixer == "mlstm":
+        y, _ = ssm.mlstm(bp["mixer"], h, cfg)
+    else:
+        y, _ = ssm.slstm(bp["mixer"], h, cfg)
+    x = x + y
+    if cfg.mlp_of(entry) == "dense":
+        x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps), cfg)
+    return x
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token logits for training / prefill: (B, S) ints -> (B, S, vocab) fp32."""
     x = p["embed"][tokens].to(dtype_of(cfg))
     for r in range(cfg.n_repeats):
-        for block in p["blocks"]:
-            x = _block_fwd(_layer(block, r), x, cfg)
+        for block, entry in zip(p["blocks"], cfg.block_pattern):
+            x = _block_fwd(_layer(block, r), x, entry, cfg)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return (x @ _head(p, cfg)).float()
 
@@ -131,14 +150,54 @@ def _attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                device: str | torch.device = "cuda") -> list[dict[str, torch.Tensor]]:
-    """Zeroed KV cache: one ``{"k", "v"}`` entry per pattern position, each
-    (n_repeats, batch, S, K, hd) with S = min(seq_len, sliding_window)."""
+    """Zeroed decode state: one entry per pattern position, each leaf stacked
+    over n_repeats. Attention: ``{"k", "v"}`` (R, batch, S, K, hd) in the
+    model dtype, S = min(seq_len, sliding_window); mLSTM: ``{"C", "n"}``
+    (R, batch, H, hd, hd) and (R, batch, H, hd) fp32; sLSTM: ``{"c", "h"}``
+    (R, batch, d) fp32."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_repeats, batch, _attn_cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
-             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=dev)}
-            for _ in cfg.block_pattern]
+    R = cfg.n_repeats
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    cache = []
+    for entry in cfg.block_pattern:
+        mixer = cfg.mixer_of(entry)
+        if mixer == "attn":
+            shape = (R, batch, _attn_cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
+            cache.append({"k": zeros(*shape, dtype=dtype_of(cfg)),
+                          "v": zeros(*shape, dtype=dtype_of(cfg))})
+        elif mixer == "mlstm":
+            _, H, hd = ssm.mlstm_dims(cfg)
+            cache.append({"C": zeros(R, batch, H, hd, hd), "n": zeros(R, batch, H, hd)})
+        else:
+            cache.append({"c": zeros(R, batch, cfg.d_model), "h": zeros(R, batch, cfg.d_model)})
+    return cache
+
+
+def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tensor,
+                  pos: int, entry: str, cfg: ModelConfig) -> torch.Tensor:
+    """One block of one decode step on repeat ``r``; updates ``c`` in place."""
+    mixer = cfg.mixer_of(entry)
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    if mixer == "attn":
+        rotating = cfg.sliding_window is not None and c["k"].shape[2] <= cfg.sliding_window
+        y, _, _ = attention_decode(bp["mixer"], h, c["k"][r], c["v"][r], pos, cfg,
+                                   rotating=rotating)
+    elif mixer == "mlstm":
+        y, (C, n) = ssm.mlstm_decode_step(bp["mixer"], h, cfg, (c["C"][r], c["n"][r]))
+        c["C"][r].copy_(C)
+        c["n"][r].copy_(n)
+    else:
+        y, (cc, hh) = ssm.slstm(bp["mixer"], h, cfg, state=(c["c"][r], c["h"][r]))
+        c["c"][r].copy_(cc)
+        c["h"][r].copy_(hh)
+    x = x + y
+    if cfg.mlp_of(entry) == "dense":
+        x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps), cfg)
+    return x
 
 
 def decode_step(
@@ -149,18 +208,13 @@ def decode_step(
     pos: int,                   # its position
 ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
     """One serving step: append ``token`` at ``pos`` and return next-token
-    logits (B, vocab) fp32 and the cache. The cache is updated in place
-    (the returned list is ``cache`` itself)."""
+    logits (B, vocab) fp32 and the cache. The cache is updated in place:
+    attention writes the new key and value into its slot, the recurrent
+    mixers copy their new state over the old (the returned list is
+    ``cache`` itself)."""
     x = p["embed"][token][:, None, :].to(dtype_of(cfg))      # (B, 1, d)
     for r in range(cfg.n_repeats):
-        for block, c in zip(p["blocks"], cache):
-            bp = _layer(block, r)
-            rotating = cfg.sliding_window is not None and \
-                c["k"].shape[2] <= cfg.sliding_window
-            h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-            y, _, _ = attention_decode(bp["mixer"], h, c["k"][r], c["v"][r], pos,
-                                       cfg, rotating=rotating)
-            x = x + y
-            x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps), cfg)
+        for block, c, entry in zip(p["blocks"], cache, cfg.block_pattern):
+            x = _block_decode(_layer(block, r), c, r, x, pos, entry, cfg)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return (x[:, 0, :] @ _head(p, cfg)).float(), cache

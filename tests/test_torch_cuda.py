@@ -6,14 +6,19 @@ installed; ``tests/conftest.py`` imports JAX, so on such a machine run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 2e-5, bf16 2e-2 (tests/test_kernels.py), against the
-plain version computed in f32 from the same inputs.
+Tolerances: attention f32 2e-5, bf16 2e-2; mLSTM atol 5e-5, rtol 5e-4
+(tests/test_kernels.py), against the plain version computed in f32 from
+the same inputs.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
+from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    flash_attention_ref,
+    mlstm_chunk_ref,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -58,3 +63,49 @@ def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
     torch.cuda.synchronize()
     ref = decode_attention_ref(q.float(), k.float(), v.float(), lens)
     torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,chunk,with_state", [
+    (2, 128, 2, 32, 64, False), (1, 256, 4, 64, 64, True),
+    (2, 100, 3, 64, 32, False),       # ragged S, smaller chunk
+    (1, 50, 2, 64, 64, True),         # S < chunk: the chunk clamps to S
+    (1, 200, 2, 32, 64, False),
+    (2, 512, 4, 512, 64, False),      # xlstm-350m's mLSTM shape
+    (2, 300, 4, 512, 64, True),       # ragged, with a state
+])
+def test_mlstm_kernel_on_card(cuda, B, S, H, hd, chunk, with_state):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    q, k, v = randn(B, S, H, hd) * hd ** -0.5, randn(B, S, H, hd), randn(B, S, H, hd)
+    log_f = torch.nn.functional.logsigmoid(randn(B, S, H) + 2.0)
+    i_gate = torch.sigmoid(randn(B, S, H))
+    state = (randn(B, H, hd, hd) * 0.1, randn(B, H, hd)) if with_state else None
+    n = ops.mlstm_chunk.launches
+    y, (C, nv) = ops.mlstm_chunk(q, k, v, log_f, i_gate, chunk=chunk, state=state)
+    torch.cuda.synchronize()
+    assert ops.mlstm_chunk.launches == n + 1
+    ry, (rC, rn) = mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=min(chunk, S), state=state)
+    for got, want in ((y, ry), (C, rC), (nv, rn)):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    g = torch.zeros((1, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.mlstm_chunk(q.bfloat16(), q.bfloat16(), q.bfloat16(), g, g)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.mlstm_chunk(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                        q[..., :48].contiguous(), g, g)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mlstm_chunk(torch.zeros((1, 128, 2, 64), device=cuda),
+                        torch.zeros((1, 128, 2, 64), device=cuda),
+                        torch.zeros((1, 128, 2, 64), device=cuda),
+                        torch.zeros((1, 128, 2), device=cuda),
+                        torch.zeros((1, 128, 2), device=cuda), chunk=128)

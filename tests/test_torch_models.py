@@ -4,8 +4,8 @@ Parameters come from JAX ``init_model`` (never from re-seeding torch),
 go through numpy into ``repro_torch.convert.params_from_jax``, and both
 models see the same numpy tokens. Tolerances: forward relative max error
 1e-4; step-by-step decode logits and cache 1e-4 relative; decode against
-forward 1e-3 (tests/test_models.py). On the CPU the port's attention runs
-the plain versions of its kernels.
+forward 1e-3 (tests/test_models.py). On the CPU the port's attention and
+mLSTM run the plain versions of their kernels.
 """
 import dataclasses
 import functools
@@ -24,7 +24,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import model as M
 
 ARCHS = ["smollm_360m", "llama3_405b", "qwen2_72b", "nemotron_4_340b", "chameleon_34b",
-         "smollm_360m_g3", "smollm_360m_window8"]
+         "smollm_360m_g3", "smollm_360m_window8", "xlstm_350m"]
 B, S = 2, 16
 
 
@@ -98,7 +98,8 @@ def test_decode_step_matches_jax_step_by_step(arch):
                                    torch.from_numpy(c["tokens"][:, t]), t)
         assert rel_err(tl.numpy(), jl) <= 1e-4, t
         for jc, tc in zip(jcache, tcache):
-            for name in ("k", "v"):
+            assert tc.keys() == jc.keys()
+            for name in jc:
                 assert rel_err(tc[name].numpy(), jc[name]) <= 1e-4, (t, name)
 
 
@@ -144,7 +145,7 @@ def _flatten(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("xlstm_350m", "item 8"), ("jamba_1_5_large_398b", "item 8"),
+    ("jamba_1_5_large_398b", "item 8"),
     ("mixtral_8x7b", "item 7"), ("whisper_large_v3", "item 9"),
 ])
 def test_unported_blocks_raise_with_roadmap_item(arch, item):
@@ -164,3 +165,29 @@ def test_params_from_jax_checks_layout():
     np.testing.assert_array_equal(
         bf16["embed"].float().numpy(),
         np.asarray(jnp.asarray(tree["embed"], jnp.bfloat16).astype(jnp.float32)))
+
+
+def test_params_from_jax_checks_every_leaf_of_recurrent_blocks():
+    """sLSTM mixers have no ``wq``: the stacking check reads every leaf."""
+    c = case("xlstm_350m")
+    tree = jax.tree.map(np.asarray, c["jparams"])
+    p = params_from_jax(tree, c["tcfg"], device="cpu")
+    assert set(p["blocks"][1]["mixer"]) == {"w_gates", "r_gates", "b_gates", "w_out"}
+    assert "mlp" not in p["blocks"][0] and "norm2" not in p["blocks"][0]
+    wrong = dataclasses.replace(c["tcfg"], n_layers=6)
+    with pytest.raises(ValueError, match="n_repeats"):
+        params_from_jax(tree, wrong, device="cpu")
+    tree["blocks"][1]["mixer"]["r_gates"] = tree["blocks"][1]["mixer"]["r_gates"][:1]
+    with pytest.raises(ValueError, match="r_gates"):
+        params_from_jax(tree, c["tcfg"], device="cpu")
+
+
+def test_init_cache_layout_of_recurrent_blocks():
+    tcfg = reduced(get_config("xlstm_350m"))
+    cache = M.init_cache(tcfg, 3, 16, device="cpu")
+    R, H, d = tcfg.n_repeats, tcfg.n_heads, tcfg.d_model
+    hd = int(tcfg.mlstm_proj_factor * d) // H
+    assert {k: tuple(v.shape) for k, v in cache[0].items()} == {
+        "C": (R, 3, H, hd, hd), "n": (R, 3, H, hd)}
+    assert {k: tuple(v.shape) for k, v in cache[1].items()} == {"c": (R, 3, d), "h": (R, 3, d)}
+    assert all(v.dtype == torch.float32 for c in cache for v in c.values())

@@ -1,8 +1,8 @@
 """Serving through the port's engine copy, and the copy itself.
 
-- The port's serving path (``repro_torch.launch.serve``, reduced smollm on
-  the CPU) gives the same greedy tokens as the JAX ``decode_step`` loop on
-  the same prompts and converted params.
+- The port's serving path (``repro_torch.launch.serve``, reduced smollm
+  and xlstm on the CPU) gives the same greedy tokens as the JAX
+  ``decode_step`` loop on the same prompts and converted params.
 - A faulted numpy DAG gives identical results, ``charged_ms`` and
   ``kv_stats`` through ``repro.core`` and ``repro_torch.core``.
 - Every copied engine file equals its original after the import rewrite.
@@ -48,12 +48,12 @@ def test_copied_file_equals_original_after_import_rewrite(rel):
         _RENAME.sub(r"repro_torch.\1", original)
 
 
-def test_serve_greedy_tokens_match_jax_decode_loop():
-    jcfg = jax_reduced(jax_get_config("smollm_360m"))
-    tcfg = reduced(get_config("smollm_360m"))
+def _serve_matches_jax_decode_loop(arch, requests=2, batch=2, prompt_len=5, gen_len=6,
+                                   seed=11):
+    jcfg = jax_reduced(jax_get_config(arch))
+    tcfg = reduced(get_config(arch))
     jparams, _ = JM.init_model(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
-    requests, batch, prompt_len, gen_len, seed = 2, 2, 5, 6, 11
     rep = tserve.serve(tcfg, tparams, requests=requests, batch=batch,
                        prompt_len=prompt_len, gen_len=gen_len, seed=seed, device="cpu")
     assert rep.results["summary"]["n"] == requests
@@ -74,6 +74,14 @@ def test_serve_greedy_tokens_match_jax_decode_loop():
         np.testing.assert_array_equal(got, np.stack(generated, axis=1))
 
 
+def test_serve_greedy_tokens_match_jax_decode_loop():
+    _serve_matches_jax_decode_loop("smollm_360m")
+
+
+def test_serve_xlstm_greedy_tokens_match_jax_decode_loop():
+    _serve_matches_jax_decode_loop("xlstm_350m", requests=2, batch=3, prompt_len=6, gen_len=8)
+
+
 def test_serve_main_runs_on_cpu():
     rep = tserve.main(["--device", "cpu", "--requests", "2", "--batch", "2",
                        "--prompt-len", "3", "--gen-len", "3", "--seed", "4"])
@@ -82,6 +90,15 @@ def test_serve_main_runs_on_cpu():
     for got, want in zip(rep.results["summary"]["tokens"],
                          again.results["summary"]["tokens"], strict=True):
         np.testing.assert_array_equal(got, want)
+
+
+def test_serve_main_runs_xlstm_on_cpu():
+    rep = tserve.main(["--arch", "xlstm_350m", "--device", "cpu", "--requests", "2",
+                       "--batch", "2", "--prompt-len", "3", "--gen-len", "4", "--seed", "4"])
+    summary = rep.results["summary"]
+    assert summary["n"] == 2
+    for got in summary["tokens"]:
+        assert got.shape == (2, 4) and got.min() >= 0 and got.max() < 256
 
 
 def _fan_in_dag(core):
