@@ -8,10 +8,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc;
 3. kernel checks: each CUDA kernel against its plain PyTorch version on
-   the card at smollm-360m's shapes (tolerance f32 2e-5, bf16 2e-2), timed
-   with CUDA events (median of 30, L2 flushed before each run) beside the
-   plain version, ``torch.nn.functional.scaled_dot_product_attention`` as
-   a yardstick only, and the card's bound for the same work;
+   the card at smollm-360m's shapes (tolerance f32 2e-5, bf16 2e-2), plus
+   flash at qwen2-72b's attention width (hd 128, G = 8) and decode over
+   one 8192-key request, timed with CUDA events (median of 30, L2 flushed
+   before each run) beside the plain version,
+   ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
+   only (its ratio recorded), and the card's bound for the same work; for
+   the attention kernels and SDPA also the kernels' own device time from
+   ``torch.profiler`` (``kernel_ms``: the call without its launch gaps);
 4. forward: full-width smollm-360m in bf16 at B=2, S=512; logits finite,
    one flash launch per layer;
 5. decode vs forward: full width over 64 positions, f32 weights
@@ -110,6 +114,25 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def kernels_ms(self, fn, reps: int = 10) -> float | None:
+        """Mean device time per call of the kernels ``fn`` launches
+        (``torch.profiler``), each call after an L2 flush whose own kernel
+        is left out: the call's time without its launch gaps. None when the
+        trace holds no kernel of ``fn`` (not measured)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "fill" not in e.key.lower())
+        return total / 1e3 / reps if total > 0 else None
+
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -124,6 +147,8 @@ def max_err(out, ref, dtype) -> float:
 
 
 def check_decode(ops, ref, timer, dev, dtype, B, S, lens, H=15, K=5, hd=64, seed=0):
+    from repro_torch.kernels import decode_attention as decode_kernel
+
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
     kc, vc = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
@@ -138,17 +163,22 @@ def check_decode(ops, ref, timer, dev, dtype, B, S, lens, H=15, K=5, hd=64, seed
     elt = q.element_size()
     nbytes = (2 * n_valid * K * hd + 2 * B * H * hd) * elt + 4 * B
     t_bound, by = bound(nbytes, 4.0 * n_valid * H * hd, dtype)
-    return {
-        "shape": f"B={B} S={S} H={H} K={K} hd={hd} kv_len={lens}", "dtype": DT_NAME[dtype],
+    mine = lambda: ops.decode_attention(q, kc, vc, kv_len)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)  # noqa: E731
+    return with_ratio({
+        "shape": f"B={B} S={S} H={H} K={K} hd={hd} kv_len={_lens(lens)}",
+        "dtype": DT_NAME[dtype], "n_split": decode_kernel.split_plan(B, K, S)[0],
         "max_abs_err": err, "tol": TOL[dtype],
-        "ms": timer(lambda: ops.decode_attention(q, kc, vc, kv_len)),
+        "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.decode_attention_ref(q, kc, vc, kv_len)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+        "library_ms": timer(lib), "library_kernel_ms": timer.kernels_ms(lib),
         "bound_ms": t_bound, "bound_by": by,
-    }
+    })
 
 
 def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd=64, seed=1):
+    from repro_torch.kernels import flash_attention as flash_kernel
+
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
     k, v = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
@@ -170,14 +200,28 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
         lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)  # noqa: E731
     nbytes = 2 * B * S * (H + K) * hd * q.element_size()
     t_bound, by = bound(nbytes, 4.0 * B * H * hd * n_pairs, dtype)
-    return {
+    mine = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+    return with_ratio({
         "shape": f"B={B} S={S} H={H} K={K} hd={hd} causal={causal} window={window}",
-        "dtype": DT_NAME[dtype], "max_abs_err": err, "tol": TOL[dtype],
-        "ms": timer(lambda: ops.flash_attention(q, k, v, causal=causal, window=window)),
+        "dtype": DT_NAME[dtype],
+        "kernel": "wgmma" if flash_kernel.uses_tensor_cores(dtype, hd) else "fma",
+        "max_abs_err": err, "tol": TOL[dtype],
+        "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                           window=window)),
-        "library_ms": timer(lib), "bound_ms": t_bound, "bound_by": by,
-    }
+        "library_ms": timer(lib), "library_kernel_ms": timer.kernels_ms(lib),
+        "bound_ms": t_bound, "bound_by": by,
+    })
+
+
+def with_ratio(case: dict) -> dict:
+    """``case`` with its time over the library call's (below 1: faster)."""
+    return {**case, "ms_over_library": case["ms"] / case["library_ms"]}
+
+
+def _lens(lens: list) -> str:
+    """kv_len for a shape string: a run of one value as value x count."""
+    return f"{lens[0]}x{len(lens)}" if len(set(lens)) == 1 else str(lens)
 
 
 def check_mlstm(ops, ref, timer, dev, B, S, H, hd, with_state, seed=2, chunk=64):
@@ -274,6 +318,10 @@ def main() -> int:
         flash_cases.append(check_flash(ops, ref, timer, dev, dtype, 2, 1024, True, None))
         flash_cases.append(check_flash(ops, ref, timer, dev, dtype, 2, 1000, True, None))
         flash_cases.append(check_flash(ops, ref, timer, dev, dtype, 2, 1024, True, 256))
+    # one long request; qwen2-72b's attention per layer (64 heads over 8, hd 128)
+    decode_cases.append(check_decode(ops, ref, timer, dev, torch.bfloat16, 1, 8192, [8191]))
+    flash_cases.append(check_flash(ops, ref, timer, dev, torch.bfloat16, 1, 2048, True, None,
+                                   H=64, K=8, hd=128))
     # xlstm-350m's mLSTM: B=2, S=512, H=4, hd = 2·1024/4 = 512
     mlstm_cases = [check_mlstm(ops, ref, timer, dev, 2, 512, 4, 512, False),
                    check_mlstm(ops, ref, timer, dev, 2, 300, 4, 512, True),
@@ -325,7 +373,8 @@ def main() -> int:
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         # bf16 at hd 64/128 (the main path); the f32 cases run csrc/flash_attention.cu
+         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention.py:97",
          "launches": fwd_counts["flash_attention"], **_headline(flash_cases[0]),
          "cases": flash_cases},

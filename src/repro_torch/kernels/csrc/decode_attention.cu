@@ -1,6 +1,7 @@
-// Decode attention for Hopper (sm_90a): one new query token per sequence
-// against a preallocated KV cache, per-sequence valid length, grouped-query
-// heads, fp32 or bf16 inputs, fp32 softmax and accumulator.
+// Decode attention for Hopper (sm_90a), split over the kv axis: one new
+// query token per sequence against a preallocated KV cache, per-sequence
+// valid length, grouped-query heads, fp32 or bf16 inputs, fp32 softmax and
+// accumulator.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py,
 // function decode_attention (body _decode_kernel). It computes, for q
@@ -13,16 +14,31 @@
 // What bounds it on the H100: every valid cache byte is read once per
 // step and used for only 2·G FLOPs per element pair, so the bound is
 // Σ_b kv_len[b]·K·hd·2 (k and v) elements at 3.35 TB/s. What the design
-// does: one block per (b, kv head) loads the G query rows once and
-// streams K and V in 64-key tiles through shared memory up to kv_len[b],
-// so each cache byte is read once for the whole group (the GQA point of
-// the TPU kernel) and no tile past kv_len is touched; each thread issues
-// all its 16-byte loads of a tile before it uses any (load_rows), so the
-// tile's bytes are in flight together. With B·K blocks it
-// fills few of the 132 SMs at small batch; splitting the kv axis across
-// blocks with a combine pass is later work.
+// does about it:
+// - the kv axis of each sequence is cut into n_split ranges of split_len
+//   keys (whole 64-key tiles), chosen on the host from B, K and S alone so
+//   that a small batch still fills the 132 SMs; the grid is
+//   (n_split, K, B) and kv_len never leaves the device. A block whose range
+//   starts past kv_len[b] writes an empty partial;
+// - each block's 4 warps work alone: warp w takes keys w·16 .. w·16+15 of
+//   every 64-key tile of the range and streams them through its own
+//   cp.async ring, 2 to 4 tiles deep (about 16 KB in flight per warp; each
+//   lane copies, and later reads, the same 16-byte vectors, so no barrier
+//   is needed), so the next tiles are in flight while this one is used;
+//   the first are issued before q is staged; each K/V vector serves all
+//   G heads;
+// - a lane holds one 16-byte vector of a key's row: a score is VEC
+//   multiply-adds and a shuffle reduction over the hd/VEC lanes of the key,
+//   p·v is G·VEC independent accumulators per lane, and the running max
+//   of a warp is rescaled only when it grows;
+// - at the end the 4 warps merge by the log-sum-exp rule in shared memory.
+//   With one split the block writes the output in q's type; otherwise it
+//   writes (m, l, acc[G, hd]) in fp32 to scratch and decode_combine_kernel
+//   merges the splits of each (b, kv head).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -30,147 +46,330 @@ namespace {
 
 using repro::from_f32;
 using repro::kNegInf;
-using repro::load_rows;
 using repro::to_f32;
 
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // 4 warps
-constexpr int MAX_G = 16;     // query heads per kv head
+constexpr int BK = 64;          // keys per tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int KPW = BK / WARPS;  // keys of a tile per warp
+constexpr int MAX_G = 16;       // query heads per kv head
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
-constexpr int smem_floats() {
-  return MAX_G * HD        // Qs
-         + BK * (HD + 1)   // Ks, padded against bank conflicts
-         + BK * HD         // Vs
-         + MAX_G * BK      // Ps
-         + 3 * MAX_G;      // running max, running sum, rescale factor
+template <typename T, int HD, int GMAX>
+struct Cfg {
+  static constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte vector
+  static constexpr int LPK = HD / VEC;          // lanes per key
+  static constexpr int R = 32 / LPK;            // keys per warp step
+  static constexpr int STEPS = KPW / R;         // steps per tile
+  // steps whose scores are held at once (GMAX·P of them, at most 32)
+  static constexpr int P = STEPS < 32 / GMAX ? STEPS : (32 / GMAX < 1 ? 1 : 32 / GMAX);
+  static constexpr int ROW = HD * sizeof(T);    // bytes of one cache row
+  static constexpr int STAGE = 2 * KPW * ROW;   // K then V rows of one warp's tile
+  // ring depth: about 16 KB of each warp's keys in flight, 2 to 4 tiles
+  static constexpr int NSTAGE = 16384 / STAGE < 2 ? 2 : (16384 / STAGE > 4 ? 4 : 16384 / STAGE);
+  // shared memory: q (GMAX × HD fp32), the per-warp rings, the merge area
+  static constexpr int Q_BYTES = GMAX * HD * 4;
+  static constexpr int RING_BYTES = WARPS * NSTAGE * STAGE;
+  static constexpr int MERGE_BYTES = WARPS * GMAX * (HD + 2) * 4;
+  static constexpr int SMEM = Q_BYTES + RING_BYTES + MERGE_BYTES;
+  static_assert(LPK <= 32 && 32 % LPK == 0 && KPW % R == 0 && STEPS % P == 0,
+                "head dim out of range");
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// 16-byte asynchronous copy; with `valid` false it writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[VEC]) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) out[j] = to_f32(e[j]);
+}
+
+template <typename T, int HD, int GMAX>
+__global__ void __launch_bounds__(THREADS)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const int* __restrict__ kv_len,
+                    T* __restrict__ o, float* __restrict__ part, int S, int K, int G,
+                    int split_len, float scale_log2) {
+  using C = Cfg<T, HD, GMAX>;
+  constexpr int VEC = C::VEC, LPK = C::LPK, R = C::R, NSTAGE = C::NSTAGE, P = C::P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + C::Q_BYTES;
+  float* Wm = reinterpret_cast<float*>(smem + C::Q_BYTES + C::RING_BYTES);  // WARPS × GMAX
+  float* Wl = Wm + WARPS * GMAX;                                          // WARPS × GMAX
+  float* Wacc = Wl + WARPS * GMAX;                                        // WARPS × GMAX × HD
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
+  const int H = K * G;
+  const int n = min(max(kv_len[b], 0), S);
+  const int k_lo = split * split_len;
+  const int k_hi = min(k_lo + split_len, n);
+
+  float m[GMAX], l[GMAX], acc[GMAX][VEC];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[g][j] = 0.f;
+  }
+
+  if (k_lo < k_hi) {
+    const size_t kv_row = (size_t)K * HD;
+    const T* kb = kc + (size_t)b * S * kv_row + (size_t)kh * HD;
+    const T* vb = vc + (size_t)b * S * kv_row + (size_t)kh * HD;
+    const int slot = lane / LPK;  // which key of a step this lane holds
+    const int vec = lane % LPK;   // which 16-byte vector of the row
+    const uint32_t ring0 = static_cast<uint32_t>(__cvta_generic_to_shared(ring)) +
+                           warp * NSTAGE * C::STAGE;
+    const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
+
+    // one commit group per tile, empty past the last, so that "all but the
+    // newest NSTAGE-1 groups have landed" always means "tile t has landed"
+    auto issue = [&](int t) {
+      if (t < n_tiles) {
+        const uint32_t st = ring0 + (t % NSTAGE) * C::STAGE;
+#pragma unroll
+        for (int s = 0; s < C::STEPS; ++s) {
+          const int r = s * R + slot;                     // row of the warp's tile
+          const int key = k_lo + t * BK + warp * KPW + r;
+          const bool ok = key < k_hi;
+          const size_t off = (size_t)(ok ? key : 0) * kv_row + vec * VEC;
+          cp_async16(st + r * C::ROW + vec * 16, kb + off, ok);
+          cp_async16(st + KPW * C::ROW + r * C::ROW + vec * 16, vb + off, ok);
+        }
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+
+#pragma unroll
+    for (int t = 0; t < NSTAGE - 1; ++t) issue(t);
+    // q, scaled to base 2, while the first tiles are in flight
+    const T* qb = q + ((size_t)b * H + (size_t)kh * G) * HD;
+    // heads G .. GMAX-1 are zeros: every lane runs all GMAX chains, no branches
+    for (int e = tid; e < GMAX * HD; e += THREADS)
+      Qs[e] = e < G * HD ? to_f32(qb[e]) * scale_log2 : 0.f;
+    __syncthreads();
+    for (int t = 0; t < n_tiles; ++t) {
+      issue(t + NSTAGE - 1);  // into the stage that tile t-1 used
+      asm volatile("cp.async.wait_group %0;" :: "n"(NSTAGE - 1) : "memory");
+      const unsigned char* st = ring + (warp * NSTAGE + t % NSTAGE) * C::STAGE;
+      const int key0 = k_lo + t * BK + warp * KPW + slot;  // this lane's key of step 0
+#pragma unroll
+      for (int s0 = 0; s0 < C::STEPS; s0 += P) {
+        // scores of P steps for every head: GMAX·P independent chains
+        float sc[P][GMAX];
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+          float kv[VEC];
+          unpack<T, VEC>(*reinterpret_cast<const uint4*>(st + ((s0 + s) * R + slot) * C::ROW +
+                                                        vec * 16), kv);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+            const float4* qv = reinterpret_cast<const float4*>(Qs + g * HD + vec * VEC);
+            float a = 0.f, c = 0.f;
+#pragma unroll
+            for (int j = 0; j < VEC / 4; ++j) {
+              const float4 qq = qv[j];
+              a = fmaf(qq.x, kv[4 * j], a);
+              c = fmaf(qq.y, kv[4 * j + 1], c);
+              a = fmaf(qq.z, kv[4 * j + 2], a);
+              c = fmaf(qq.w, kv[4 * j + 3], c);
+            }
+            sc[s][g] = a + c;
+          }
+        }
+        // sum over the LPK lanes of a key, mask, and the max over the warp's keys
+        float mx[GMAX];
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) mx[g] = kNegInf;
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+          const bool ok = key0 + (s0 + s) * R < k_hi;
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+#pragma unroll
+            for (int off = 1; off < LPK; off <<= 1)
+              sc[s][g] += __shfl_xor_sync(0xffffffffu, sc[s][g], off);
+            sc[s][g] = ok ? sc[s][g] : kNegInf;
+            mx[g] = fmaxf(mx[g], sc[s][g]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+#pragma unroll
+          for (int off = LPK; off < 32; off <<= 1)
+            mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
+          if (mx[g] > m[g]) {  // the same in every lane of the warp
+            const float alpha = fast_exp2(m[g] - mx[g]);
+            l[g] *= alpha;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[g][j] *= alpha;
+            m[g] = mx[g];
+          }
+        }
+        // p·v: GMAX·VEC independent accumulators
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+          float vv[VEC];
+          unpack<T, VEC>(*reinterpret_cast<const uint4*>(
+                             st + (KPW + (s0 + s) * R + slot) * C::ROW + vec * 16), vv);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+            const float p = sc[s][g] == kNegInf ? 0.f : fast_exp2(sc[s][g] - m[g]);
+            l[g] += p;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
+          }
+        }
+      }
+    }
+  }
+
+  // this warp's sums over its key slots, then the 4 warps merged by log-sum-exp
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g >= G) break;
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+    }
+    if (lane == 0) {
+      Wm[warp * GMAX + g] = m[g];
+      Wl[warp * GMAX + g] = l[g];
+    }
+    if (lane < LPK) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) Wacc[(warp * GMAX + g) * HD + lane * VEC + j] = acc[g][j];
+    }
+  }
+  __syncthreads();
+
+  const size_t bk = (size_t)b * K + kh;
+  for (int e = tid; e < G * HD; e += THREADS) {
+    const int g = e / HD, d = e % HD;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, Wm[w * GMAX + g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = fast_exp2(Wm[w * GMAX + g] - M);
+      L = fmaf(Wl[w * GMAX + g], wt, L);
+      A = fmaf(Wacc[(w * GMAX + g) * HD + d], wt, A);
+    }
+    if (n_split == 1) {
+      o[(bk * G + g) * HD + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      // partial (b, kh, split): m and l for each head, then acc (G × HD)
+      float* pp = part + (bk * n_split + split) * G * (HD + 2);
+      pp[2 * G + e] = A;
+      if (d == 0) {
+        pp[2 * g] = M;
+        pp[2 * g + 1] = L;
+      }
+    }
+  }
+}
+
+// Merges the n_split partials of each (b, kv head) by the log-sum-exp rule:
+// a warp per head finds the largest m and each split's weight exp2(m - M)
+// (into shared memory) and the weighted sum of l; then each thread sums its
+// output elements over the splits, whose loads are independent.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ kv_len,
-              T* __restrict__ o, int S, int K, int G, float sm_scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + MAX_G * HD;
-  float* Vs = Ks + BK * (HD + 1);
-  float* Ps = Vs + BK * HD;
-  float* Ms = Ps + MAX_G * BK;
-  float* Ls = Ms + MAX_G;
-  float* As = Ls + MAX_G;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int b = blockIdx.x / K;
-  const int kh = blockIdx.x % K;
-  const int H = K * G;
-  const size_t kv_row = (size_t)K * HD;
-  const T* qb = q + ((size_t)b * H + (size_t)kh * G) * HD;
-  const T* kb = kc + (size_t)b * S * kv_row + (size_t)kh * HD;
-  const T* vb = vc + (size_t)b * S * kv_row + (size_t)kh * HD;
-  T* ob = o + ((size_t)b * H + (size_t)kh * G) * HD;
-  const int n = min(kv_len[b], S);
-
-  for (int idx = tid; idx < G * HD; idx += THREADS) Qs[idx] = to_f32(qb[idx]);
-  if (tid < G) {
-    Ms[tid] = kNegInf;
-    Ls[tid] = 0.f;
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o, int K, int G,
+                      int n_split) {
+  extern __shared__ float wsm[];  // G × n_split weights, then G sums
+  float* Ls = wsm + G * n_split;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t bk = (size_t)blockIdx.y * K + blockIdx.x;
+  const int stride = G * (HD + 2);  // floats of one split's partial
+  const float* pb = part + bk * n_split * stride;
+  for (int g = warp; g < G; g += WARPS) {
+    float M = kNegInf;
+    for (int s = lane; s < n_split; s += 32) M = fmaxf(M, pb[s * stride + 2 * g]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.f;
+    for (int s = lane; s < n_split; s += 32) {
+      const float wt = fast_exp2(pb[s * stride + 2 * g] - M);
+      wsm[g * n_split + s] = wt;
+      L = fmaf(pb[s * stride + 2 * g + 1], wt, L);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+    if (lane == 0) Ls[g] = L;
   }
-  // accumulator: element e = tid + THREADS*i of the (G, HD) output tile
-  constexpr int ACC = (MAX_G * HD + THREADS - 1) / THREADS;
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and Qs, Ms, Ls written)
-    load_rows<T, HD, BK, THREADS>(Ks, HD + 1, kb, kv_row, k0, n);
-    load_rows<T, HD, BK, THREADS>(Vs, HD, vb, kv_row, k0, n);  // zeros past n: p·v stays finite
-    __syncthreads();
-
-    // scores: thread -> key c, query heads g = tid/BK, tid/BK + 2, ...
-    {
-      const int c = tid % BK;
-      for (int g = tid / BK; g < G; g += THREADS / BK) {
-        float s = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) s = fmaf(Qs[g * HD + d], Ks[c * (HD + 1) + d], s);
-        Ps[g * BK + c] = k0 + c < n ? s * sm_scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head row, two keys per lane
-    for (int g = warp; g < G; g += THREADS / 32) {
-      const float s0 = Ps[g * BK + lane], s1 = Ps[g * BK + lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = k0 + lane < n ? expf(s0 - m_new) : 0.f;
-      const float p1 = k0 + lane + 32 < n ? expf(s1 - m_new) : 0.f;
-      Ps[g * BK + lane] = p0;
-      Ps[g * BK + lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        As[g] = alpha;
-        Ls[g] = Ls[g] * alpha + sum;
-        Ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int e = tid + THREADS * i;
-      if (e < G * HD) {
-        const int g = e / HD, d = e % HD;
-        float a = acc[i] * As[g];
+  __syncthreads();
+  for (int e = threadIdx.x; e < G * HD; e += THREADS) {
+    const int g = e / HD;
+    const float* ws = wsm + g * n_split;
+    const float* pa = pb + 2 * G + e;
+    float A = 0.f;
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) a = fmaf(Ps[g * BK + kk], Vs[kk * HD + d], a);
-        acc[i] = a;
-      }
-    }
-  }
-  __syncthreads();  // Ls final (also when n <= 0 and no tile ran)
-
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int e = tid + THREADS * i;
-    if (e < G * HD) ob[e] = from_f32<T>(acc[i] / fmaxf(Ls[e / HD], 1e-30f));
+    for (int s = 0; s < n_split; ++s) A = fmaf(pa[s * stride], ws[s], A);
+    o[bk * G * HD + e] = from_f32<T>(A / fmaxf(Ls[g], 1e-30f));
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* kv_len, void* o, int B, int S, int K, int G,
+template <typename T, int HD, int GMAX>
+cudaError_t launch(const void* q, const void* kc, const void* vc, const int* kv_len, void* o,
+                   float* part, int B, int S, int K, int G, int n_split, int split_len,
                    float sm_scale, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  decode_kernel<T, HD><<<B * K, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), kv_len, static_cast<T*>(o), S, K, G, sm_scale);
+  using C = Cfg<T, HD, GMAX>;
+  if constexpr (C::SMEM > 48 * 1024) {  // set once: it costs host time on every call
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        decode_split_kernel<T, HD, GMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (attr != cudaSuccess) return attr;
+  }
+  decode_split_kernel<T, HD, GMAX><<<dim3(n_split, K, B), THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), kv_len,
+      static_cast<T*>(o), part, S, K, G, split_len, sm_scale * kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int merge_smem = G * (n_split + 1) * (int)sizeof(float);
+  if (merge_smem > 48 * 1024) return cudaErrorInvalidValue;  // n_split > 750: not planned
+  decode_combine_kernel<T, HD><<<dim3(K, B), THREADS, merge_smem, stream>>>(
+      part, static_cast<T*>(o), K, G, n_split);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t dispatch_g(const void* q, const void* kc, const void* vc, const int* kv_len,
+                       void* o, float* part, int B, int S, int K, int G, int n_split,
+                       int split_len, float sm_scale, cudaStream_t st) {
+  if (G <= 4)
+    return launch<T, HD, 4>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+  if (G <= 8)
+    return launch<T, HD, 8>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+  return launch<T, HD, 16>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+}
+
 template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* kc, const void* vc,
-                        const int* kv_len, void* o, int B, int S, int K, int G,
-                        int hd, float sm_scale, cudaStream_t stream) {
+cudaError_t dispatch_hd(const void* q, const void* kc, const void* vc, const int* kv_len,
+                        void* o, float* part, int B, int S, int K, int G, int hd,
+                        int n_split, int split_len, float sm_scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, kc, vc, kv_len, o, B, S, K, G, sm_scale, stream);
-    case 32: return launch<T, 32>(q, kc, vc, kv_len, o, B, S, K, G, sm_scale, stream);
-    case 64: return launch<T, 64>(q, kc, vc, kv_len, o, B, S, K, G, sm_scale, stream);
-    case 128: return launch<T, 128>(q, kc, vc, kv_len, o, B, S, K, G, sm_scale, stream);
+    case 16: return dispatch_g<T, 16>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 32: return dispatch_g<T, 32>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 64: return dispatch_g<T, 64>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 128: return dispatch_g<T, 128>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -178,19 +377,27 @@ cudaError_t dispatch_hd(const void* q, const void* kc, const void* vc,
 }  // namespace
 
 // q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32, o (B,H,hd), all
-// contiguous; q, caches and o of one dtype. Returns cudaGetLastError().
-extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
-                                    const void* v_cache, const void* kv_len,
-                                    void* o, int dtype, int B, int S, int H,
-                                    int K, int hd, float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || H / K > MAX_G)
+// contiguous; q, caches and o of one dtype. The kv axis is cut into
+// n_split ranges of split_len keys (a multiple of 64, n_split·split_len >= S);
+// with n_split > 1, `part` is fp32 scratch of B·K·n_split·G·(hd+2) floats,
+// otherwise it is not read. Returns cudaGetLastError().
+extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
+                                    const void* kv_len, void* o, void* part, int dtype, int B,
+                                    int S, int H, int K, int hd, int n_split, int split_len,
+                                    float sm_scale, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || H / K > MAX_G || n_split <= 0 ||
+      split_len <= 0 || split_len % BK != 0 || (long long)n_split * split_len < S ||
+      (n_split > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   const int G = H / K;
   const int* len = static_cast<const int*>(kv_len);
+  float* scratch = static_cast<float*>(part);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(q, k_cache, v_cache, len, o, B, S, K, G, hd, sm_scale, st);
+    return dispatch_hd<float>(q, k_cache, v_cache, len, o, scratch, B, S, K, G, hd, n_split,
+                              split_len, sm_scale, st);
   if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k_cache, v_cache, len, o, B, S, K, G, hd, sm_scale, st);
+    return dispatch_hd<__nv_bfloat16>(q, k_cache, v_cache, len, o, scratch, B, S, K, G, hd,
+                                      n_split, split_len, sm_scale, st);
   return cudaErrorInvalidValue;
 }

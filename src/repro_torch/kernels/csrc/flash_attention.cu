@@ -2,7 +2,10 @@
 // grouped-query heads, fp32 or bf16 inputs, fp32 softmax and accumulator.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py,
-// function flash_attention (body _flash_kernel). It computes
+// function flash_attention (body _flash_kernel), for the cases the wrapper
+// sends here: f32 at every head dim (16, 32, 64, 128) and bf16 at hd 16 and
+// 32; bf16 at hd 64 and 128 runs on the tensor cores
+// (flash_attention_wgmma.cu). It computes
 // softmax(q·kᵀ·hd^-½ + mask)·v for q (B,S,H,hd), k/v (B,S,K,hd), where
 // query head h reads kv head h / (H/K); masks col <= row (causal) and
 // col > row - window (window), and, unlike the TPU kernel, col < S: a
@@ -13,8 +16,8 @@
 // 4·S²·hd FLOPs per head (halved by the causal mask) against
 // 2·S·hd·(H+2K) input bytes, far above the card's 295 FLOP/byte ridge in
 // bf16, so the bound is the bf16 tensor-core rate (989 TFLOP/s; fp32:
-// 67 TFLOP/s). This first kernel does not reach it: it runs both products
-// as fp32 FMAs on the CUDA cores. What the design does: one block per
+// 67 TFLOP/s). This kernel does not reach it: it runs both products as
+// fp32 FMAs on the CUDA cores (TF32 would break f32's 2e-5 tolerance). What the design does: one block per
 // (64-row q tile, b·h) keeps its q tile, one 64-row K and V tile, and
 // the 64×64 probabilities in shared memory; each of 128 threads owns a
 // 4-row × 8-column score tile and the same 4 rows of the fp32
@@ -22,10 +25,11 @@
 // registers of the 8 lanes that share it (warp shuffles, no shared
 // memory round trip); kv tiles past the causal diagonal or before the
 // window are never loaded; tiles arrive by 16-byte loads that each thread
-// issues all at once (load_rows). wgmma, TMA and a warp-specialised pipeline
-// are later work.
+// issues all at once (load_rows).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -191,6 +195,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
+// bf16 at hd 64 and 128 is flash_attention_wgmma.cu's
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int K, int hd, int causal,
@@ -198,10 +203,12 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
-    default: return cudaErrorInvalidValue;
   }
+  if constexpr (std::is_same_v<T, float>) {
+    if (hd == 64) return launch<T, 64>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
+    if (hd == 128) return launch<T, 128>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,0 +1,617 @@
+// Flash attention forward for Hopper (sm_90a) on the tensor cores: bf16
+// inputs at head dim 64 or 128, causal / sliding-window masks,
+// grouped-query heads, fp32 softmax and accumulator, bf16 output.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py,
+// function flash_attention (body _flash_kernel), for the cases the
+// wrapper sends here: bf16 with hd 64 (smollm-360m) or 128 (llama3, qwen2,
+// chameleon, mixtral). Every other dtype and head dim runs the FMA kernel
+// in flash_attention.cu (f32 has no tensor-core path within its 2e-5
+// tolerance). It computes softmax(q·kᵀ·hd^-½ + mask)·v for q (B,S,H,hd),
+// k/v (B,S,K,hd), query head h reading kv head h / (H/K), with the masks
+// col <= row (causal), col > row - window (window) and col < S (a ragged S
+// needs no padding). Masked logits are -1e30, the denominator is clamped
+// at 1e-30, probabilities are rounded to bf16 before p·v as in the plain
+// version.
+//
+// What bounds it on the H100: at long S, 4·hd FLOPs per unmasked
+// query-key pair and head against 2·S·hd·(H+2K) bytes, far above the
+// card's ridge of 295 FLOP/byte in bf16, so the bound is the bf16
+// tensor-core rate (989 TFLOP/s); at smollm's S=512 the bytes bound it.
+// What the design does:
+// - both products are wgmma in bf16 with fp32 accumulators: S = q·kᵀ with
+//   the q tile (A) and the K tile (B, K-major as it lies in memory) read
+//   from shared memory; O += p·v with p as the A operand in registers (the
+//   fp32 score fragment is the A-fragment layout, converted to bf16 in
+//   place) and V as the B operand read with the transpose flag;
+// - one producer warp loads the block's q rows once and streams 64-key K
+//   and V tiles by TMA into a three-stage ring of shared memory, 128-byte
+//   swizzled to match the wgmma descriptors, each load completing on an
+//   mbarrier; K and V have their own barriers, so q·kᵀ starts while V is
+//   still in flight;
+// - q/k/v are 4-D tensor maps (hd, heads, S, B): a tile that runs past S
+//   reads zeros, never the next sequence's rows;
+// - two consumer warpgroups own 64 query rows each and share every K/V
+//   tile. Under a plain causal mask, when the whole grid is resident at
+//   once, a block pairs q tile y with tile nq-1-y, so every block has the
+//   same work; otherwise it takes two neighbouring tiles, the heaviest
+//   blocks first;
+// - each warpgroup is software-pipelined: it issues q·kᵀ of tile j and
+//   p·v of tile j-1 together, and the softmax of tile j runs on the CUDA
+//   cores while p·v of tile j-1 runs on the tensor cores. The softmax
+//   keeps the running max in raw units, so each p is one FFMA and one
+//   ex2; only tiles crossing the diagonal, the window's edge or S test
+//   elements; a row's max and sum live in the 4 threads that hold it in
+//   the accumulator fragment (two shuffles);
+// - kv tiles past the causal diagonal or before the window are not loaded,
+//   and a warpgroup skips the products of a tile fully masked for its rows.
+// What holds it back now is in PERF.md (§6, PR 13).
+#include <cuda.h>  // CUtensorMap and the driver's enums only: no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int BQ = 128;                   // query rows per block: 2 warpgroups of 64
+constexpr int CONSUMERS = 256;            // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int ROW_BYTES = 128;            // one swizzled row: 64 bf16
+constexpr float kNegInf = -1e30f;         // masked logit, as in the reference kernels
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Each tile is stored as hd/64 column chunks of (rows × 64) bf16: 128-byte
+// rows in TMA's 128-byte swizzle, every chunk on a 1024-byte boundary.
+constexpr int BK = 64;                    // keys per kv tile
+constexpr int NSTAGE = 3;                 // K/V ring depth
+
+template <int HD>
+struct Smem {
+  static constexpr int C = HD / 64;
+  alignas(1024) __nv_bfloat16 q[C][BQ * 64];
+  alignas(1024) __nv_bfloat16 k[NSTAGE][C][BK * 64];
+  alignas(1024) __nv_bfloat16 v[NSTAGE][C][BK * 64];
+  uint64_t q_full;
+  uint64_t k_full[NSTAGE];
+  uint64_t v_full[NSTAGE];
+  uint64_t empty[NSTAGE];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarrier and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand. For a
+// K-major operand `sbo` is the step between 8-row groups (1024 bytes) and
+// `lbo` is unused; for an MN-major operand `lbo` is the step between
+// 64-column chunks and `sbo` the step between groups of 8 k-rows.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup's wgmma are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D(64×64, fp32) (+)= A(64×16, smem, K-major) · B(16×64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64×128, fp32) (+)= A(64×16, smem, K-major) · B(16×128, smem, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64×64, fp32) += A(64×16, registers) · B(16×64, smem, MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64×128, fp32) += A(64×16, registers) · B(16×128, smem, MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// --- one warpgroup's steps ---------------------------------------------------
+
+// S (64 × BK) = q·kᵀ over hd in steps of 16 columns (32 bytes inside a
+// swizzled row; 4 steps per 64-column chunk), issued and committed, not waited
+template <int HD, int N>
+__device__ __forceinline__ void issue_qk(float (&sc)[N], uint32_t q_addr, uint32_t k_addr) {
+  constexpr int BK = 2 * N;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(q_addr + (kk / 4) * (BQ * ROW_BYTES) + step, 16, 1024);
+    const uint64_t db = sw128_desc(k_addr + (kk / 4) * (BK * ROW_BYTES) + step, 16, 1024);
+    wgmma_ss(sc, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O (64 × hd) += p·v over the tile's keys in steps of 16 (16 rows of V, read
+// transposed: V's hd runs along the rows), issued and committed, not waited
+template <int BK, int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[N], const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+    wgmma_rs(acc, pa[j], sw128_desc(v_addr + j * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+  wgmma_commit();
+}
+
+// Online softmax in base 2 of one tile's raw scores, in place: sc becomes p.
+// Element i of the fragment is row (i & 2 ? r_hi : r_lo), column
+// k0 + 8·(i/4) + 2·quad + (i & 1). The running max m is kept in raw units
+// (scale > 0 keeps the order), so each p is one FFMA and one ex2. A row
+// whose columns are all masked so far has m = -1e30; its reference is then
+// 0, so its masked entries still give ex2(-1e30·scale) = 0. The partial sums
+// l run over this thread's columns; (a_lo, a_hi) are the factors the
+// accumulator rows must be scaled by. Reductions are trees of 4 chains.
+template <int BK, bool MASKED>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float& m_lo, float& m_hi,
+                                               float& l_lo, float& l_hi, float& a_lo,
+                                               float& a_hi, int k0, int r_lo, int r_hi,
+                                               int quad, int S, int causal, int window,
+                                               float scale) {
+  if constexpr (MASKED) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
+      const int row = (i & 2) ? r_hi : r_lo;
+      const bool ok = col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
+      sc[i] = ok ? sc[i] : kNegInf;
+    }
+  }
+  float mx[2][4];  // [row half][chain]
+#pragma unroll
+  for (int c = 0; c < 4; ++c) mx[0][c] = mx[1][c] = kNegInf;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float& t = mx[(i >> 1) & 1][((i >> 2) + i) & 3];
+    t = fmaxf(t, sc[i]);
+  }
+  float mx_lo = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+  float mx_hi = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+  a_lo = fast_exp2((m_lo - mn_lo) * scale);
+  a_hi = fast_exp2((m_hi - mn_hi) * scale);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  const float ref_lo = -(mn_lo == kNegInf ? 0.f : mn_lo) * scale;
+  const float ref_hi = -(mn_hi == kNegInf ? 0.f : mn_hi) * scale;
+  float sum[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int half = (i >> 1) & 1;
+    sc[i] = fast_exp2(fmaf(sc[i], scale, half ? ref_hi : ref_lo));
+    sum[half][((i >> 2) + i) & 3] += sc[i];
+  }
+  l_lo = fmaf(l_lo, a_lo, (sum[0][0] + sum[0][1]) + (sum[0][2] + sum[0][3]));
+  l_hi = fmaf(l_hi, a_hi, (sum[1][0] + sum[1][1]) + (sum[1][2] + sum[1][3]));
+}
+
+// A tile needs masking where it crosses the diagonal, the window's edge or
+// S; the others take the softmax without a per-element test.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float& m_lo, float& m_hi,
+                                             float& l_lo, float& l_hi, float& a_lo, float& a_hi,
+                                             int k0, int row0, int r_lo, int r_hi, int quad,
+                                             int S, int causal, int window, float scale) {
+  if (k0 + BK > S || (causal && k0 + BK - 1 > row0) || (window > 0 && k0 < row0 + 64 - window))
+    online_softmax<BK, true>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, k0, r_lo, r_hi, quad, S,
+                             causal, window, scale);
+  else
+    online_softmax<BK, false>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, k0, r_lo, r_hi, quad, S,
+                              causal, window, scale);
+}
+
+// p in bf16 as wgmma's A operand: the fp32 accumulator fragment is the
+// A-fragment layout, so k-step j takes fragment elements 8j .. 8j+7
+template <int BK>
+__device__ __forceinline__ void to_a_operand(const float (&p)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[j][r] = pack_bf16(p[8 * j + 2 * r], p[8 * j + 2 * r + 1]);
+  }
+}
+
+// --- the kernel ------------------------------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                   int S, int H, int K, int causal, int window, int paired, float scale_log2) {
+  using Sm = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kh = h / (H / K);
+  // The block's two 64-row q tiles, one per consumer warpgroup. Paired
+  // (a causal mask without a window, the whole grid resident at once): a q
+  // tile's work grows with its position, so block y pairs tile y with tile
+  // nq-1-y and every block has the same work (the two are the same tile in
+  // the middle of an odd nq: the second warpgroup then has no rows).
+  // Otherwise the block takes two neighbouring tiles, the heaviest blocks
+  // first, so that the lighter ones fill the SMs that finish early.
+  const int nq = (S + 63) / 64;
+  const int y = paired ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
+  const int tile0 = paired ? y : 2 * y;
+  const int tile1 = paired ? nq - 1 - y : 2 * y + 1;
+  const bool live1 = tile1 < nq && tile1 != tile0;
+  auto kv_from = [&](int t) { return window > 0 ? max(0, 64 * t - window + 1) : 0; };
+  auto kv_to = [&](int t) { return causal ? min(S, 64 * t + 64) : S; };
+  const int kv_begin = min(kv_from(tile0), live1 ? kv_from(tile1) : S) / BK * BK;
+  const int kv_end = max(kv_to(tile0), live1 ? kv_to(tile1) : 0);
+  const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer warp: one thread issues every load
+    if (tid == CONSUMERS) {
+      constexpr uint32_t kTileBytes = BK * HD * 2;
+      mbar_expect_tx(&sm.q_full, (live1 ? 2 : 1) * 64 * HD * 2);
+#pragma unroll
+      for (int c = 0; c < Sm::C; ++c) {
+        tma_load(sm.q[c], &tq, &sm.q_full, 64 * c, h, 64 * tile0, b);
+        if (live1) tma_load(sm.q[c] + 64 * 64, &tq, &sm.q_full, 64 * c, h, 64 * tile1, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NSTAGE;
+        if (it >= NSTAGE) mbar_wait(&sm.empty[s], (it / NSTAGE - 1) & 1);
+        const int k0 = kv_begin + it * BK;
+        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+#pragma unroll
+        for (int c = 0; c < Sm::C; ++c) tma_load(sm.k[s][c], &tk, &sm.k_full[s], 64 * c, kh, k0, b);
+        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+#pragma unroll
+        for (int c = 0; c < Sm::C; ++c) tma_load(sm.v[s][c], &tv, &sm.v_full[s], 64 * c, kh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns query rows row0 .. row0 + 63
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool live = wg == 0 || live1;
+  const int row0 = 64 * (wg == 0 ? tile0 : tile1);
+  // the two rows this thread holds in every accumulator fragment
+  const int r_lo = row0 + 16 * warp + lane / 4;
+  const int r_hi = r_lo + 8;
+
+  // this warpgroup's tiles [it_lo, it_hi): those not fully masked for its rows
+  int it_lo = 0, it_hi = 0;
+  if (live) {
+    it_lo = (kv_from(row0 / 64) - kv_begin) / BK;
+    it_hi = max(it_lo, min(n_tiles, (kv_to(row0 / 64) - kv_begin + BK - 1) / BK));
+  }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];         // scores, then probabilities, of the newest tile
+  uint32_t pa[BK / 16][4];  // the tile before it's probabilities: the A operand of p·v
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
+  const uint32_t q_addr = smem_u32(sm.q[0]) + 64 * wg * ROW_BYTES;
+  auto k_addr = [&](int it) { return smem_u32(sm.k[it % NSTAGE][0]); };
+  auto v_addr = [&](int it) { return smem_u32(sm.v[it % NSTAGE][0]); };
+  auto wait_tile = [&](uint64_t (&bars)[NSTAGE], int it) {
+    mbar_wait(&bars[it % NSTAGE], (it / NSTAGE) & 1);
+    __syncwarp();  // wgmma wants the warp converged after the polling loop
+  };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[it % NSTAGE]);
+  };
+
+  mbar_wait(&sm.q_full, 0);
+  __syncwarp();
+  // tiles before this warpgroup's first one are released unread
+  for (int it = 0; it < it_lo; ++it) {
+    wait_tile(sm.v_full, it);
+    release(it);
+  }
+  if (it_lo < it_hi) {
+    wait_tile(sm.k_full, it_lo);
+    issue_qk<HD>(sc, q_addr, k_addr(it_lo));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile<BK>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kv_begin + it_lo * BK, row0, r_lo,
+                     r_hi, lane % 4, S, causal, window, scale_log2);
+    // acc is still zero: nothing to rescale
+    to_a_operand<BK>(sc, pa);
+    // steady state: q·kᵀ of tile it and p·v of tile it-1 are issued
+    // together; the softmax of tile it overlaps p·v of tile it-1
+    for (int it = it_lo + 1; it < it_hi; ++it) {
+      wait_tile(sm.k_full, it);
+      issue_qk<HD>(sc, q_addr, k_addr(it));
+      wait_tile(sm.v_full, it - 1);
+      fence_regs(acc);
+      issue_pv<BK>(acc, pa, v_addr(it - 1));
+      wgmma_wait<1>();  // q·kᵀ of tile it is done
+      fence_regs(sc);
+      softmax_tile<BK>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kv_begin + it * BK, row0, r_lo,
+                       r_hi, lane % 4, S, causal, window, scale_log2);
+      wgmma_wait<0>();  // p·v of tile it-1 is done: its stage can be refilled
+      fence_regs(acc);
+      release(it - 1);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? a_hi : a_lo;
+      to_a_operand<BK>(sc, pa);
+    }
+    wait_tile(sm.v_full, it_hi - 1);
+    fence_regs(acc);
+    issue_pv<BK>(acc, pa, v_addr(it_hi - 1));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(it_hi - 1);
+  }
+  // and so are the tiles after its last one
+  for (int it = it_hi; it < n_tiles; ++it) {
+    wait_tile(sm.v_full, it);
+    release(it);
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  const size_t row_stride = (size_t)H * HD;
+  __nv_bfloat16* ob = o + (size_t)b * S * row_stride + (size_t)h * HD;
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int row = (i & 2) ? r_hi : r_lo;
+    if (row >= S) continue;
+    const float inv = (i & 2) ? inv_hi : inv_lo;
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
+        __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+  }
+}
+
+// --- host side -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// (B, S, heads, hd) bf16, contiguous, as a 4-D map (hd, heads, S, B) whose
+// box is 64 columns of one head over `rows` positions of one sequence
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int hd, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                   int K, int causal, int window, float sm_scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, S, H, HD, 64) || !make_map(&tk, k, B, S, K, HD, BK) ||
+      !make_map(&tv, v, B, S, K, HD, BK))
+    return cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem<HD>) + 1024;  // + room to align the base to 1024
+  // once each, as they cost host time: the shared-memory limit, and how
+  // many blocks the card holds at once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  static const long resident = [smem] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_wgmma_kernel<HD>, THREADS, smem);
+    return (long)sms * per_sm;
+  }();
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);  // pairs of 64-row q tiles
+  const int paired = causal && window <= 0 && (long)grid.x * grid.y <= resident;
+  flash_wgmma_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, causal, window, paired,
+      sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd): bf16, contiguous, 16-byte
+// aligned; hd 64 or 128. window <= 0 means no window. Returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
+                                         int B, int S, int H, int K, int hd, int causal,
+                                         int window, float sm_scale, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return launch<64>(q, k, v, o, B, S, H, K, causal, window, sm_scale, st);
+  if (hd == 128) return launch<128>(q, k, v, o, B, S, H, K, causal, window, sm_scale, st);
+  return cudaErrorInvalidValue;
+}

@@ -1,9 +1,12 @@
-"""Flash attention forward as a CUDA C++ kernel (``csrc/flash_attention.cu``).
+"""Flash attention forward as CUDA C++ kernels.
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``. Causal
 and sliding-window masks, GQA (query head h reads kv head h // (H/K)), a
 ragged S masked in the kernel (no padding), fp32 softmax and accumulator,
-output in q's dtype. Launch through ``ops.flash_attention``.
+output in q's dtype. The dtype and head dim alone choose the kernel: bf16
+at hd 64 or 128 runs on the tensor cores (``csrc/flash_attention_wgmma.cu``:
+wgmma, TMA loads, a warp-specialised pipeline), everything else on fp32
+FMAs (``csrc/flash_attention.cu``). Launch through ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -29,13 +33,27 @@ def _fn():
     return fn
 
 
+@functools.cache
+def _wgmma_fn():
+    fn = _build.library("flash_attention_wgmma").flash_attention_wgmma_fwd
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.restype = _I
+    return fn
+
+
+def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """Whether ``launch`` runs the wgmma kernel for this dtype and head dim."""
+    return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int | None) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,K,hd) on one CUDA device -> (B,S,H,hd)."""
     B, S, H, hd = q.shape
     K = k.shape[2]
+    dev = q.get_device()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
@@ -51,10 +69,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     o = torch.empty_like(q)
+    win = -1 if window is None else int(window)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    DTYPES[q.dtype], B, S, H, K, hd, int(causal),
-                    -1 if window is None else int(window), hd ** -0.5, stream)
+        if uses_tensor_cores(q.dtype, hd):
+            err = _wgmma_fn()(*ptrs, B, S, H, K, hd, int(causal), win, hd ** -0.5, stream)
+        else:
+            err = _fn()(*ptrs, DTYPES[q.dtype], B, S, H, K, hd, int(causal), win,
+                        hd ** -0.5, stream)
     _build.check(err, "flash_attention_fwd")
     return o

@@ -21,11 +21,11 @@ _count_lock = threading.Lock()  # engine tasks may call from several threads
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
+    if all(t.is_cuda for t in ts):  # the card's path: the cheapest test first
+        return False
     devices = {t.device.type for t in ts}
     if devices == {"cpu"}:
         return True
-    if devices == {"cuda"}:
-        return False
     raise ValueError(f"tensors on {sorted(devices)}: need all on cpu or all on cuda")
 
 

@@ -27,6 +27,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import model as M
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 B, S = 2, 64
 LIMIT = {"smollm_360m": 5e-2, "xlstm_350m": 0.15}   # chip_smoke.py, bf16
 

@@ -13,6 +13,8 @@ the same inputs.
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as dec_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     decode_attention_ref,
@@ -62,6 +64,55 @@ def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
     out = ops.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
     ref = decode_attention_ref(q.float(), k.float(), v.float(), lens)
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,H,K,causal,window", [
+    (512, 15, 5, True, None),     # G = 3, S a multiple of the 128-row q tile
+    (1000, 16, 2, True, None),    # G = 8, ragged S
+    (333, 15, 5, True, 100),      # ragged S, window
+    (1024, 16, 2, True, 256),     # G = 8, window
+    (333, 6, 2, False, None),     # not causal, ragged S
+    (100, 3, 1, True, None),      # S shorter than one q tile
+    (150, 6, 3, True, None),      # odd count of 64-row tiles: one block pairs a tile with itself
+])
+def test_flash_tensor_core_kernel_on_card(cuda, hd, S, H, K, causal, window):
+    assert flash_kernel.uses_tensor_cores(torch.bfloat16, hd)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd)])
+    n = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,hd,lens", [
+    (4, 2048, 15, 5, 64, [1, 300, 2048, 5000]),  # splits past kv_len, kv_len 1 and > S
+    (1, 8192, 15, 5, 64, [8191]),                # one long request
+    (2, 1000, 64, 8, 128, [999, 17]),            # G = 8, ragged S
+    (3, 700, 16, 1, 32, [700, 1, 650]),          # G = 16
+    (4, 64, 15, 5, 64, [63, 63, 63, 63]),        # one split: the serving shape
+])
+def test_decode_split_kernel_on_card(cuda, dtype, B, S, H, K, hd, lens):
+    n_split = dec_kernel.split_plan(B, K, S)[0]
+    assert (n_split == 1) == (S <= dec_kernel.SPLIT_KEYS)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(B, H, hd), (B, S, K, hd), (B, S, K, hd)])
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n = ops.decode_attention.launches
+    out = ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == n + 1  # the merge kernel is not a second call
+    ref = decode_attention_ref(q.float(), k.float(), v.float(), kv_len)
     torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
 
 

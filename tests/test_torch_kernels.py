@@ -25,6 +25,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
 from repro_torch.models.layers import resolve_device, sdpa
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -23,6 +23,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import model as M
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ARCHS = ["smollm_360m", "llama3_405b", "qwen2_72b", "nemotron_4_340b", "chameleon_34b",
          "smollm_360m_g3", "smollm_360m_window8", "xlstm_350m"]
 B, S = 2, 16

@@ -30,6 +30,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as tserve
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 COPIED = ([f"core/{n}.py" for n in ("api", "cache", "dag", "engine", "executor", "faults",

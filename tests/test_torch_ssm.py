@@ -26,6 +26,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import mlstm_chunk_ref
 from repro_torch.models import ssm
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL, RTOL = 5e-5, 5e-4
 
 
