@@ -6,7 +6,9 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc;
+2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
+   (``-Xptxas=-v``: registers and spills; for the two mlstm kernels also
+   their shared memory and how many state-kernel clusters the card holds);
 3. kernel checks: each CUDA kernel against its plain PyTorch version on
    the card at smollm-360m's shapes (tolerance f32 2e-5, bf16 2e-2), plus
    flash at qwen2-72b's attention width (hd 128, G = 8) and decode over
@@ -30,9 +32,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and from a ``torch.profiler`` trace its device ms, kernel launches and
    top kernels;
 8. the same for xlstm-350m (alternating mLSTM / sLSTM blocks): the
-   ``mlstm_chunk`` kernel against its plain version (atol 5e-5, rtol 5e-4,
-   f32) at the full-width shape, at a ragged S with a random initial
-   state (final C and n checked too) and at hd 64; full-width bf16
+   ``mlstm_chunk`` kernels (scores, then state; 3xTF32 tensor-core
+   products) against their plain version (atol 5e-5, rtol 5e-4, f32) at
+   the full-width shape, at a ragged S with a random initial state (final
+   C and n checked too) and at hd 64, timed like the attention kernels
+   (``ms``, ``kernel_ms``) beside two bounds: the route's, 3xTF32 at a
+   third of the 495 TFLOP/s TF32 rate, and fp32 FMAs at 67; full-width bf16
    forward at B=2, S=512 with one kernel launch per mLSTM layer, and the
    share of a forward spent in the sLSTM time loops; decode against
    forward over 64 positions, f32 rel < 1e-3 and bf16 rel < 0.15 for
@@ -50,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +72,9 @@ ROOT = Path(__file__).resolve().parent
 # bf16 tensor-core rate, fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32 products at fp32 accuracy on the tensor cores: three TF32 products
+# (495 TFLOP/s dense) for each (csrc/mlstm_chunk.cu)
+TF32X3_FLOPS = 495e12 / 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 MLSTM_TOL = {"atol": 5e-5, "rtol": 5e-4}  # tests/test_kernels.py:85-86
 # xlstm-350m decode against forward in bf16. Both paths compute the same
@@ -134,9 +143,11 @@ class Timer:
         return total / 1e3 / reps if total > 0 else None
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype, rate: float | None = None) -> tuple[float, str]:
+    """The least time for ``nbytes`` and ``flops`` at the memory rate and at
+    ``rate`` (default: the peak of ``dtype``), and which of the two binds."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (rate or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -247,16 +258,51 @@ def check_mlstm(ops, ref, timer, dev, B, S, H, hd, with_state, seed=2, chunk=64)
     # q·k and p·v over the causal pairs (t <= s) of each chunk, the last one
     # ragged, then q·C and the state update at each position
     n_pairs = sum(n * (n + 1) // 2 for n in (min(c, S - s0) for s0 in range(0, S, c)))
-    t_bound, by = bound(nbytes, B * H * (4.0 * hd * n_pairs + 4.0 * hd * hd * S),
-                        torch.float32)
+    flops = B * H * (4.0 * hd * n_pairs + 4.0 * hd * hd * S)
+    # the products are 3xTF32 on the tensor cores: held to that route's bound;
+    # the fp32-FMA bound (PR 12's route) is kept beside it
+    t_bound, by = bound(nbytes, flops, torch.float32, TF32X3_FLOPS)
+    t_fma, fma_by = bound(nbytes, flops, torch.float32)
+    mine = lambda: ops.mlstm_chunk(q, k, v, log_f, i_gate, chunk=chunk, state=state)  # noqa: E731
     return {
         "shape": f"B={B} S={S} H={H} hd={hd} chunk={c} state={with_state}", "dtype": "f32",
-        "max_abs_err": err, "tol": MLSTM_TOL,
-        "ms": timer(lambda: ops.mlstm_chunk(q, k, v, log_f, i_gate, chunk=chunk, state=state)),
+        "kernel": "scores + state, 3xTF32 mma.sync", "max_abs_err": err, "tol": MLSTM_TOL,
+        "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=c,
                                                       state=state)),
         "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+        "bound_fp32_fma_ms": t_fma, "bound_fp32_fma_by": fma_by,
     }
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers, shared memory and spills of each kernel in an
+    ``-Xptxas=-v`` log, by the kernel's name (its template argument kept)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            short = re.search(r"(mlstm_\w+?_kernel)ILi(\d+)E", mangled)
+            name = f"{short.group(1)}<{short.group(2)}>" if short else mangled
+            out[name] = {}
+        elif name and "spill" in line:
+            out[name]["spill"] = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out[name]["usage"] = line.split("Used", 1)[1].strip()
+    return out
+
+
+def mlstm_build(_build, libs) -> dict:
+    """ptxas's registers and spills of the mlstm kernels, the dynamic shared
+    memory each block takes at each head dim, and how many clusters of the
+    state kernel the card holds at once."""
+    lib = _build.library("mlstm_chunk")
+    return {"ptxas": ptxas_by_kernel(libs["mlstm_chunk"].with_suffix(".log").read_text()),
+            "smem_bytes": {f"{kind}<{hd}>": lib.mlstm_chunk_smem_bytes(hd, i)
+                           for hd in (32, 64, 512) for i, kind in enumerate(("scores", "state"))},
+            "state_max_active_clusters": {hd: lib.mlstm_chunk_max_clusters(hd)
+                                          for hd in (32, 64, 512)}}
 
 
 def rel_err(a, b) -> float:
@@ -305,7 +351,8 @@ def main() -> int:
              if "registers" in line or "spill" in line] if libs else []
     emit({"phase": "build", "seconds": build_s,
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "mlstm_kernels": mlstm_build(_build, libs)})
 
     # 3. kernel checks at smollm-360m's shapes (H=15, K=5, hd=64)
     timer = Timer(dev)

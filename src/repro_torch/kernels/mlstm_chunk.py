@@ -1,11 +1,14 @@
-"""Chunkwise mLSTM as a CUDA C++ kernel (``csrc/mlstm_chunk.cu``).
+"""Chunkwise mLSTM as CUDA C++ kernels (``csrc/mlstm_chunk.cu``).
 
 Replaces the Pallas TPU kernel ``repro.kernels.linear_attention.mlstm_chunk``:
 gated linear attention over chunks of at most 64 positions, carrying the
 matrix state C (hd, hd) and the normaliser n (hd) in fp32. Unlike the TPU
 kernel it takes an initial state, returns the final one and masks a
 ragged last chunk itself. fp32 only, as the TPU kernel's signature and the
-model's casts (``models/ssm.mlstm``). Launch through ``ops.mlstm_chunk``.
+model's casts (``models/ssm.mlstm``). One call runs two kernels: the
+scores of each chunk into a workspace, then the state pass over value
+tiles of C; every product is 3xTF32 on the tensor cores. Launch through
+``ops.mlstm_chunk``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,13 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 512)  # reduced xlstm, the 64-wide check, xlstm-350m
 MAX_CHUNK = 64  # positions per chunk (csrc/mlstm_chunk.cu, CM)
+P_STRIDE = MAX_CHUNK + 4  # row stride of the scores P in the workspace (csrc, PST)
+
+
+def record_floats(hd: int) -> int:
+    """Workspace floats per (b, h, chunk) (csrc, ``record``): P in 64 rows of
+    P_STRIDE, then fcum, W and the row sums of P (64 each), then u = Σ_t k_t W_t."""
+    return MAX_CHUNK * P_STRIDE + 3 * MAX_CHUNK + hd
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -25,7 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _fn():
     fn = _build.library("mlstm_chunk").mlstm_chunk_fwd
-    fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
@@ -63,11 +73,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tenso
     y = torch.empty_like(q)
     C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
     n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    n_chunks = -(-S // chunk)
+    ws = torch.empty(B * H * n_chunks * record_floats(hd), dtype=torch.float32, device=q.device)
     C0, n0 = (None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
                     i_gate.data_ptr(), C0, n0, y.data_ptr(), C.data_ptr(), n.data_ptr(),
-                    B, S, H, hd, chunk, stream)
+                    ws.data_ptr(), B, S, H, hd, chunk, stream)
     _build.check(err, "mlstm_chunk_fwd")
     return y, (C, n)

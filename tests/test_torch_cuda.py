@@ -124,6 +124,9 @@ def test_decode_split_kernel_on_card(cuda, dtype, B, S, H, K, hd, lens):
     (1, 200, 2, 32, 64, False),
     (2, 512, 4, 512, 64, False),      # xlstm-350m's mLSTM shape
     (2, 300, 4, 512, 64, True),       # ragged, with a state
+    (2, 256, 4, 512, 32, False),      # hd 512 with chunk 32
+    (1, 65, 4, 512, 64, True),        # one (b, h) per value-tile group, ragged second chunk
+    (2, 1, 3, 64, 64, True),          # one position
 ])
 def test_mlstm_kernel_on_card(cuda, B, S, H, hd, chunk, with_state):
     torch.backends.cuda.matmul.allow_tf32 = False
