@@ -43,10 +43,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    forward over 64 positions, f32 rel < 1e-3 and bf16 rel < 0.15 for
    each of three weight seeds (see ``XLSTM_BF16_TOL``); serving
    through the engine at the shape of phase 6; greedy tokens of a reduced
-   f32 model equal on the card and the CPU; the decode step profile.
+   f32 model equal on the card and the CPU; the decode step profile;
+9. train: full-width smollm-360m in bf16 at B=4, S=512, 8 steps on one
+   fixed batch (lr 5e-3, no weight decay, warmup 1) as tasks of the copied
+   WUKONG engine (``runtime.orchestrator``) with injected failures
+   (``TRAIN_FAULTS``: every failure recoverable, some step tasks re-run);
+   the loss finite and falling, one flash forward and one flash backward
+   launch per layer and step run; host seconds per step and tokens/s;
+10. train_reference: a reduced f32 smollm (H=6 K=2, G=3), 3 steps on the
+    card and on the CPU from the same weights and batches: loss within
+    1e-4 each step, parameters within 2e-3;
+11. train_step_profile: one full-width training step's host ms, and from
+    a ``torch.profiler`` trace its device ms, busy share, kernel launches,
+    top kernels and the shares of the flash forward and backward kernels.
 
-Kernel launch counts are set to 0 before each forward, decode-vs-forward
-and serve phase and read after it. The line before the last is
+Phase 3 also checks the flash backward (``csrc/flash_attention_bwd.cu``)
+at smollm's shapes (the first case at the train phase's B=4, S=512) and
+qwen2-72b's width, per gradient, twice: elementwise against its fp32
+formulas on the same inputs with D from the same forward output (the
+kernel's arithmetic), |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2
+(about one bf16 ulp) and f32 1e-4; and against autograd of the plain
+version, max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and bf16
+3e-2 (the plain version rounds its bf16 products to bf16). Its bound counts 10·hd FLOPs per visible (query, key)
+pair and query head (q·kᵀ recomputed, four gradient products) and q, k, v,
+o, dO read and dq, dk, dv written once; its library yardstick is the
+profiler's device time of the backward of
+``scaled_dot_product_attention(..., enable_gqa=True)``.
+
+Kernel launch counts are set to 0 before each forward, decode-vs-forward,
+serve and train phase and read after it. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
@@ -76,6 +101,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (495 TFLOP/s dense) for each (csrc/mlstm_chunk.cu)
 TF32X3_FLOPS = 495e12 / 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# The flash backward held elementwise to its fp32 formulas on the same
+# inputs (``ref.flash_attention_bwd_fp32_ref``, the kernel's arithmetic):
+# |err| <= tol·|ref| + tol·rms(ref) per gradient. bf16: about one bf16 ulp
+# (the kernel rounds only its outputs, half an ulp); f32: summation order.
+BWD_ELT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Fault injection of the train phase's 8-step workflow: at seed 6 the step
+# tasks 3 and 7 fail at their first attempt and no task of this DAG fails at
+# its last (attempt 2), whatever order the executors run in.
+TRAIN_FAULTS = {"task_failure_prob": 0.05, "max_retries": 2, "seed": 6}
 MLSTM_TOL = {"atol": 5e-5, "rtol": 5e-4}  # tests/test_kernels.py:85-86
 # xlstm-350m decode against forward in bf16. Both paths compute the same
 # function and each rounds to bf16 in its own way; this model amplifies
@@ -195,13 +230,7 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
     k, v = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     err = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal, window=window), dtype)
-    rows = torch.arange(S, device=dev)[:, None]
-    cols = torch.arange(S, device=dev)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= cols <= rows
-    if window is not None:
-        mask &= cols > rows - window
+    mask = attention_mask(S, causal, window, dev)
     n_pairs = int(mask.sum().item())
     qs = q.transpose(1, 2)
     ks, vs = (t.transpose(1, 2).repeat_interleave(H // K, dim=1) for t in (k, v))
@@ -223,6 +252,71 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
         "library_ms": timer(lib), "library_kernel_ms": timer.kernels_ms(lib),
         "bound_ms": t_bound, "bound_by": by,
     })
+
+
+def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd=64,
+                    seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
+    dout = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+    exact = ref.flash_attention_bwd_fp32_ref(q, k, v, out, dout, causal=causal, window=window)
+    err, err_plain, worst = {}, {}, {}
+    for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact, strict=True):
+        err_plain[name] = (a.float() - b.float()).abs().max().item()
+        limit = BWD_TOL[dtype] * max(1.0, b.float().abs().max().item())
+        assert err_plain[name] <= limit, (name, err_plain[name], limit)
+        diff = (a.float() - e).abs()
+        err[name] = diff.max().item()
+        tol = BWD_ELT_TOL[dtype]
+        worst[name] = (diff / (tol * e.abs() + tol * e.square().mean().sqrt())).max().item()
+        assert worst[name] <= 1.0, (name, err[name], worst[name])
+    del exact
+    mask = attention_mask(S, causal, window, dev)
+    n_pairs = int(mask.sum().item())
+    elt = q.element_size()
+    nbytes = 4 * B * S * (H + K) * hd * elt   # q, o, dO, dq; k, v, dk, dv
+    t_bound, by = bound(nbytes, 10.0 * B * H * hd * n_pairs, dtype)
+    # yardstick: the backward of SDPA over the same function (kv heads grouped)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    if window is None:
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+    else:
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    douts = dout.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), douts, retain_graph=True)  # noqa: E731
+    mine = lambda: ops.flash_attention_bwd(q, k, v, out, dout, causal=causal,  # noqa: E731
+                                           window=window)
+    return {
+        "shape": f"B={B} S={S} H={H} K={K} hd={hd} causal={causal} window={window}",
+        "dtype": DT_NAME[dtype], "kernel": "dq + dkdv, fp32 FMAs",
+        "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
+        "tol": f"{BWD_ELT_TOL[dtype]} x (|ref| + rms(ref)), fp32 formulas",
+        "err_over_tol_by_grad": worst,
+        "max_abs_err_plain_by_grad": err_plain,
+        "tol_plain": f"{BWD_TOL[dtype]} x max(1, max|plain|)",
+        "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
+        "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                                              window=window)),
+        "library_ms": timer.kernels_ms(lib), "library_event_ms": timer(lib),
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def attention_mask(S, causal, window, dev):
+    """The (S, S) boolean mask of visible (row, col) pairs."""
+    rows = torch.arange(S, device=dev)[:, None]
+    cols = torch.arange(S, device=dev)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    return mask
 
 
 def with_ratio(case: dict) -> dict:
@@ -283,8 +377,13 @@ def ptxas_by_kernel(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            short = re.search(r"(mlstm_\w+?_kernel)ILi(\d+)E", mangled)
-            name = f"{short.group(1)}<{short.group(2)}>" if short else mangled
+            short = re.search(r"((?:mlstm|flash_bwd)_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
+                              mangled)
+            if short:
+                dt = {"f": "f32,", "13__nv_bfloat16": "bf16,", None: ""}[short.group(2)]
+                name = f"{short.group(1)}<{dt}{short.group(3)}>"
+            else:
+                name = mangled
             out[name] = {}
         elif name and "spill" in line:
             out[name]["spill"] = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
@@ -315,10 +414,12 @@ KERNELS = ("flash_attention", "decode_attention", "mlstm_chunk")
 def reset(ops) -> None:
     for name in KERNELS:
         getattr(ops, name).launches = 0
+    ops.flash_attention.bwd_launches = 0
 
 
 def counts(ops) -> dict:
-    return {name: getattr(ops, name).launches for name in KERNELS}
+    return {**{name: getattr(ops, name).launches for name in KERNELS},
+            "flash_attention_bwd": ops.flash_attention.bwd_launches}
 
 
 def main() -> int:
@@ -352,7 +453,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
           "ptxas": ptxas,
-          "mlstm_kernels": mlstm_build(_build, libs)})
+          "mlstm_kernels": mlstm_build(_build, libs),
+          "flash_bwd_kernels": ptxas_by_kernel(
+              libs["flash_attention_bwd"].with_suffix(".log").read_text())})
 
     # 3. kernel checks at smollm-360m's shapes (H=15, K=5, hd=64)
     timer = Timer(dev)
@@ -373,7 +476,14 @@ def main() -> int:
     mlstm_cases = [check_mlstm(ops, ref, timer, dev, 2, 512, 4, 512, False),
                    check_mlstm(ops, ref, timer, dev, 2, 300, 4, 512, True),
                    check_mlstm(ops, ref, timer, dev, 1, 256, 4, 64, False)]
-    for rec in decode_cases + flash_cases + mlstm_cases:
+    # the flash backward at smollm's training shapes and qwen2-72b's width
+    bwd_cases = [check_flash_bwd(ops, ref, timer, dev, dtype, B, S, True, window)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for B, S, window in ((TRAIN_B, TRAIN_S, None), (2, 1000, None),
+                                      (2, 1024, 256))]
+    bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, 1, 2048, True, None,
+                                     H=64, K=8, hd=128))
+    for rec in decode_cases + flash_cases + mlstm_cases + bwd_cases:
         emit({"phase": "kernel_check", **rec})
     del timer
     torch.cuda.empty_cache()
@@ -398,8 +508,8 @@ def main() -> int:
         emit({"phase": "decode_vs_forward", "dtype": name, "positions": 64,
               "rel_err": err, "tol": tol, "launches": c, **truth})
         assert err < tol, (name, err, tol)
-        assert c == {"flash_attention": dcfg.n_layers,
-                     "decode_attention": 64 * dcfg.n_layers, "mlstm_chunk": 0}, c
+        assert c == {"flash_attention": dcfg.n_layers, "decode_attention": 64 * dcfg.n_layers,
+                     "mlstm_chunk": 0, "flash_attention_bwd": 0}, c
     torch.cuda.empty_cache()
 
     # 6. serve through the copied engine, full width
@@ -417,6 +527,17 @@ def main() -> int:
 
     # 8. xlstm-350m
     xlstm_launches = run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens)
+    torch.cuda.empty_cache()
+
+    # 9-11. training: full width through the engine, card against CPU, profile
+    train = run_train(M, ops, cfg, dev)
+    emit({"phase": "train", "card": smi, **train})
+    print(f"train: {train['host_s_per_step']:.4f} s per step, "
+          f"{train['tokens_per_s']:.0f} tokens/s ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_reference", "config": "reduced smollm f32, H=6 K=2",
+          **train_reference(M, ops, small, dev)})
+    emit({"phase": "train_step_profile", "card": smi, **profile_train(M, cfg, dev)})
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -434,6 +555,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/linear_attention.py:83",
          "launches": xlstm_launches, **_headline(mlstm_cases[0]), "cases": mlstm_cases},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": None,
+         "note": "no TPU kernel: the JAX package has no Pallas backward; its training "
+                 "differentiates layers.sdpa through XLA",
+         "launches": train["launches"]["flash_attention_bwd"], **_headline(bwd_cases[0]),
+         "cases": bwd_cases},
     ]
     for kr in kernels:
         assert kr["launches"] > 0, kr["name"]
@@ -458,7 +586,7 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
     M.forward(params, cfg, tokens)                   # first call: set-up costs
     fwd_s, fwd_counts = timed_forward(M, ops, cfg, params, tokens)
     assert fwd_counts == {"flash_attention": 0, "decode_attention": 0,
-                          "mlstm_chunk": n_mlstm}, fwd_counts
+                          "mlstm_chunk": n_mlstm, "flash_attention_bwd": 0}, fwd_counts
     # a third forward with each sLSTM call timed (synchronised around it)
     slstm_s, slstm = 0.0, ssm.slstm
 
@@ -490,7 +618,8 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
         emit({"phase": "xlstm_decode_vs_forward", "dtype": name, "weight_seed": seed,
               "positions": 64, "rel_err": err, "tol": tol, "launches": c, **truth})
         assert err < tol, (name, err, tol)
-        assert c == {"flash_attention": 0, "decode_attention": 0, "mlstm_chunk": n_mlstm}, c
+        assert c == {"flash_attention": 0, "decode_attention": 0, "mlstm_chunk": n_mlstm,
+                     "flash_attention_bwd": 0}, c
     torch.cuda.empty_cache()
 
     rep, serve_counts = serve_full_width(serve_mod, ops, "xlstm_350m", cfg.vocab)
@@ -499,6 +628,141 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
           "tokens_equal_cpu": serve_reference(serve_mod, M, reduced(cfg), dev)})
     emit({"phase": "xlstm_decode_step_profile", **profile_decode(cfg, M, dev)})
     return fwd_counts["mlstm_chunk"]
+
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+
+
+def run_train(M, ops, cfg, dev) -> dict:
+    """Phase 9: ``TRAIN_STEPS`` full-width steps on one fixed batch as tasks
+    of the copied engine with injected failures; the loss must be finite
+    and fall, and each step run must launch one flash forward and one flash
+    backward per layer."""
+    from repro_torch.core import EngineConfig, FaultConfig
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.orchestrator import build_training_workflow, run_training_workflow
+    from repro_torch.runtime.train import build_train_step, synthetic_batch
+
+    params = M.init_model(cfg, seed=0, device=dev)
+    batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, seed=7, device=dev)
+    step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
+    step_s: list[float] = []
+
+    def step_fn(state, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(*state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return (p, o), {"loss": loss}
+
+    dag, final_key, mk = build_training_workflow(
+        n_steps=TRAIN_STEPS, step_fn=step_fn, init_fn=lambda: (params, adamw_init(params)))
+    reset(ops)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_training_workflow(dag, final_key, mk, EngineConfig(
+        faults=FaultConfig(**TRAIN_FAULTS), job_timeout_s=3600.0))
+    seconds = time.perf_counter() - t0
+    launches = counts(ops)
+    losses = [res.report.results[k]["loss"] for k in mk]
+    _, final_opt = res.report.results[final_key]
+    runs = len(step_s)
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    assert int(final_opt["count"]) == TRAIN_STEPS
+    assert res.report.fault_stats["injected_failures"] > 0, res.report.fault_stats
+    assert runs >= TRAIN_STEPS
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == cfg.n_layers * runs, \
+        (launches, runs)
+    per_step = statistics.median(step_s[1:])
+    return {"shape": [TRAIN_B, TRAIN_S], "dtype": "bf16", "steps": TRAIN_STEPS,
+            "step_runs": runs, "losses": losses, "fault_stats": res.report.fault_stats,
+            "injected_failures": res.report.fault_stats["injected_failures"],
+            "launches": launches,
+            "launches_per_step_run": {k: v / runs for k, v in launches.items()},
+            "workflow_seconds": seconds, "step_run_seconds": step_s,
+            "host_s_per_step": per_step, "tokens_per_s": TRAIN_B * TRAIN_S / per_step,
+            "charged_ms": res.report.charged_ms,
+            "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def train_reference(M, ops, small, dev, steps=3) -> dict:
+    """Phase 10: the same ``steps`` train steps of a reduced f32 model on the
+    card and on the CPU from the same weights and batches; raises unless
+    each loss agrees within 1e-4 and the parameters within 2e-3."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.train import build_train_step, synthetic_batch
+    from repro_torch.tree import leaves
+
+    step = build_train_step(small, AdamWConfig(lr=1e-3, warmup=2))
+    p_cpu = M.init_model(small, seed=2, device="cpu")
+    states = {"cpu": (p_cpu, adamw_init(p_cpu))}
+    p_gpu = _to(p_cpu, dev)
+    states["cuda"] = (p_gpu, adamw_init(p_gpu))
+    reset(ops)
+    loss_err = []
+    for i in range(steps):
+        batch = synthetic_batch(small, 2, 100, seed=10 + i, device="cpu")
+        pc, oc, mc = step(*states["cpu"], batch)
+        pg, og, mg = step(*states["cuda"], _to(batch, dev))
+        loss_err.append(abs(mc["loss"].item() - mg["loss"].item()))
+        states = {"cpu": (pc, oc), "cuda": (pg, og)}
+    launches = counts(ops)
+    param_err = max((a.cpu() - b).abs().max().item()
+                    for a, b in zip(leaves(states["cuda"][0]), leaves(states["cpu"][0])))
+    assert max(loss_err) < 1e-4, loss_err
+    assert param_err < 2e-3, param_err
+    assert launches["flash_attention_bwd"] == steps * small.n_layers, launches
+    return {"steps": steps, "loss_abs_err": loss_err, "param_max_abs_err": param_err,
+            "tol": {"loss": 1e-4, "params": 2e-3}, "launches": launches}
+
+
+def profile_train(M, cfg, dev, warm=2, steps=3) -> dict:
+    """Phase 11: host ms of a full-width training step without the profiler,
+    then a ``torch.profiler`` trace of one step for device time, kernel
+    launches, the top kernels and the flash kernels' shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.train import build_train_step, synthetic_batch
+
+    params = M.init_model(cfg, seed=0, device=dev)
+    state = (params, adamw_init(params))
+    batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, seed=7, device=dev)
+    step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            p, o, _ = step(*state, batch)
+            state = (p, o)
+        torch.cuda.synchronize()
+
+    run(warm)
+    t0 = time.perf_counter()
+    run(steps)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(1)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in kernels if pred(e.key)) / 1e3 / device_ms
+
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"shape": [TRAIN_B, TRAIN_S], "dtype": "bf16", "step_ms": step_ms,
+            "traced_step_ms": traced_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / step_ms,
+            "kernel_launches_per_step": sum(e.count for e in kernels),
+            "flash_fwd_share": share(lambda k: "flash" in k and "bwd" not in k),
+            "flash_bwd_share": share(lambda k: "flash_bwd" in k),
+            "top_kernels": [{"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3,
+                             "launches_per_step": e.count} for e in top]}
 
 
 def timed_forward(M, ops, cfg, params, tokens) -> tuple[float, dict]:

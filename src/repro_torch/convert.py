@@ -5,7 +5,8 @@ lists whose decoder blocks are stacked over ``n_repeats`` (one entry per
 pattern position), with weights stored ``(in, out)`` and applied as
 ``x @ W``. The port keeps that layout, so conversion is leaf by leaf:
 numpy (float32, or ml_dtypes bfloat16) to a torch tensor of the same
-dtype and shape. This module takes numpy and never imports JAX.
+dtype and shape. ``opt_state_from_jax`` does the same for the reference's
+AdamW state. This module takes numpy and never imports JAX.
 """
 from __future__ import annotations
 
@@ -63,3 +64,15 @@ def params_from_jax(tree: Params, cfg: ModelConfig, *,
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but lm_head "
                          f"{'present' if 'lm_head' in p else 'absent'}")
     return p
+
+
+def opt_state_from_jax(tree: dict[str, Any], *,
+                       device: str | torch.device = "cuda") -> dict[str, Any]:
+    """The reference's AdamW state ``{"mu", "nu", "count"}`` (leaves as
+    numpy) -> the port's on ``device``: fp32 moments, ``count`` a 0-d int32
+    tensor."""
+    if set(tree) != {"mu", "nu", "count"}:
+        raise ValueError(f"AdamW state keys {sorted(tree)}, expected count, mu, nu")
+    dev = resolve_device(device)
+    count = torch.tensor(int(np.asarray(tree["count"])), dtype=torch.int32, device=dev)
+    return {"mu": _convert(tree["mu"], dev), "nu": _convert(tree["nu"], dev), "count": count}

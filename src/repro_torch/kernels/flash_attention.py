@@ -6,7 +6,9 @@ ragged S masked in the kernel (no padding), fp32 softmax and accumulator,
 output in q's dtype. The dtype and head dim alone choose the kernel: bf16
 at hd 64 or 128 runs on the tensor cores (``csrc/flash_attention_wgmma.cu``:
 wgmma, TMA loads, a warp-specialised pipeline), everything else on fp32
-FMAs (``csrc/flash_attention.cu``). Launch through ``ops.flash_attention``.
+FMAs (``csrc/flash_attention.cu``). ``launch_bwd`` runs the backward
+(``csrc/flash_attention_bwd.cu``: dq, dk, dv on fp32 FMAs, for every dtype
+and head dim the forward takes). Launch through ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -41,18 +43,28 @@ def _wgmma_fn():
     return fn
 
 
+@functools.cache
+def _bwd_fn():
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.restype = _I
+    return fn
+
+
 def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
     """Whether ``launch`` runs the wgmma kernel for this dtype and head dim."""
     return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, window: int | None) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,K,hd) on one CUDA device -> (B,S,H,hd)."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None,
+           **more: torch.Tensor) -> None:
+    """Raise unless q (B,S,H,hd), k/v (B,S,K,hd) and ``more`` (each shaped
+    like q) are what the kernels take: one CUDA device, one dtype,
+    contiguous and 16-byte aligned, a head dim and window they support."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     dev = q.get_device()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
@@ -66,8 +78,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, S, K, hd) or v.shape != k.shape or K == 0 or H % K:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: need k = v = (B,S,K,hd), K | H")
+    for name, t in more.items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} {tuple(t.shape)} != q {tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int | None) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,S,K,hd) on one CUDA device -> (B,S,H,hd)."""
+    _check(q, k, v, window)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
     o = torch.empty_like(q)
     win = -1 if window is None else int(window)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
@@ -80,3 +103,26 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         hd ** -0.5, stream)
     _build.check(err, "flash_attention_fwd")
     return o
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+               do: torch.Tensor, *, causal: bool, window: int | None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``launch``'s output: q, o (its output), do (the output's
+    gradient) (B,S,H,hd), k/v (B,S,K,hd), on one CUDA device -> (dq, dk, dv)
+    in the inputs' dtype. Two kernels, one stream: the first writes each
+    row's log-sum-exp and Σ do·o into fp32 scratch for the second."""
+    _check(q, k, v, window, o=o, do=do)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    win = -1 if window is None else int(window)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        stats[0].data_ptr(), stats[1].data_ptr(), DTYPES[q.dtype],
+                        B, S, H, K, hd, int(causal), win, hd ** -0.5, stream)
+    _build.check(err, "flash_attention_bwd")
+    return dq, dk, dv

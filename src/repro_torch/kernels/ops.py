@@ -5,6 +5,14 @@ PyTorch version in ``ref``; a CUDA tensor launches the hand-written CUDA
 kernel, or raises (no fallback). Each wrapper counts its kernel launches in
 a plain integer attribute, ``<wrapper>.launches``, so a run can show that
 its path went through the kernel.
+
+``flash_attention`` is a ``torch.autograd.Function`` whose backward is
+``flash_attention_bwd`` (the backward kernel on the card, counted in
+``flash_attention.bwd_launches``; autograd of the plain version on the
+CPU). Under ``torch.no_grad()``, or for inputs that need no grad, it
+records no graph and launches the forward alone. The other two kernels
+have no backward: on the card they raise under grad rather than return
+a tensor that silently carries no gradient.
 """
 from __future__ import annotations
 
@@ -15,7 +23,12 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm_chunk as _ml
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref, mlstm_chunk_ref
+from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+    mlstm_chunk_ref,
+)
 
 _count_lock = threading.Lock()  # engine tasks may call from several threads
 
@@ -29,15 +42,56 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     raise ValueError(f"tensors on {sorted(devices)}: need all on cpu or all on cuda")
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, roadmap: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} has no backward kernel, so on the card its output would carry "
+        f"no gradient; call it under torch.no_grad() ({roadmap})")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _on_cpu(q, k, v):
+            out = flash_attention_ref(q, k, v, causal=causal, window=window)
+        else:
+            out = _fa.launch(q, k, v, causal=causal, window=window)
+            with _count_lock:
+                flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=causal, window=window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in q.dtype."""
-    if _on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = _fa.launch(q, k, v, causal=causal, window=window)
+    """q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in q.dtype; differentiable."""
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v), whose output was
+    ``out``, against the output's gradient ``dout`` (shaped like q)."""
+    if _on_cpu(q, k, v, out, dout):
+        return flash_attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+    grads = _fa.launch_bwd(q, k, v, out, dout, causal=causal, window=window)
     with _count_lock:
-        flash_attention.launches += 1
-    return out
+        flash_attention.bwd_launches += 1
+    return grads
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -45,6 +99,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32 -> (B,H,hd) in q.dtype."""
     if _on_cpu(q, k_cache, v_cache, kv_len):
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
+    if _needs_grad(q, k_cache, v_cache):
+        raise _no_backward("decode_attention", "it serves decoding only, ROADMAP.md "
+                           "queue 2 item 2; training runs flash_attention")
     out = _dec.launch(q, k_cache, v_cache, kv_len)
     with _count_lock:
         decode_attention.launches += 1
@@ -61,6 +118,9 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.
     chunk = min(chunk, q.shape[1])
     if _on_cpu(q, k, v, log_f, i_gate, *(state or ())):
         return mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=chunk, state=state)
+    if _needs_grad(q, k, v, log_f, i_gate, *(state or ())):
+        raise _no_backward("mlstm_chunk", "xLSTM training waits for an mlstm_chunk "
+                           "backward, ROADMAP.md queue 1 item 3")
     out = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state)
     with _count_lock:
         mlstm_chunk.launches += 1
@@ -68,5 +128,6 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0
 decode_attention.launches = 0
 mlstm_chunk.launches = 0

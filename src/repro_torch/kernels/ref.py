@@ -4,13 +4,30 @@ Same layouts and arithmetic as ``repro.kernels.ref``: attention logits in
 fp32 from the inputs' exact products, masked entries at -1e30; the mLSTM
 recurrence in fp32 chunk by chunk. On a CPU tensor the wrappers in
 ``ops`` run these; on the card ``chip_smoke.py`` holds each CUDA kernel
-against them.
+against them. ``flash_attention_bwd_ref`` is autograd of
+``flash_attention_ref``: the gradient the backward kernel is held to.
+``flash_attention_bwd_fp32_ref`` computes the same gradient by its
+formulas in fp32 from the forward's output as given, the arithmetic of the
+backward kernel, so a bf16 kernel can be held to it elementwise.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def _visible(Sq: int, Skv: int, causal: bool, window: int | None,
+             device: torch.device) -> torch.Tensor:
+    """The (Sq, Skv) mask of the (query, key) pairs attention may see."""
+    qpos = torch.arange(Sq, device=device)
+    kpos = torch.arange(Skv, device=device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
 
 
 def flash_attention_ref(
@@ -27,17 +44,61 @@ def flash_attention_ref(
     G = H // K
     qg = q.reshape(B, Sq, K, G, hd)
     logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * (hd ** -0.5)
-    qpos = torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Skv, device=q.device)
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    logits = torch.where(mask, logits, NEG_INF)
+    logits = torch.where(_visible(Sq, Skv, causal, window, q.device), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,            # (B, S, H, hd)
+    k: torch.Tensor,            # (B, S, K, hd)
+    v: torch.Tensor,            # (B, S, K, hd)
+    dout: torch.Tensor,         # (B, S, H, hd): the output's gradient
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_ref`` at (q, k, v) against ``dout``,
+    by ``torch.autograd.grad`` (grad mode on whatever the caller's is)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(q, k, v, causal=causal, window=window)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_fp32_ref(
+    q: torch.Tensor,            # (B, S, H, hd)
+    k: torch.Tensor,            # (B, S, K, hd)
+    v: torch.Tensor,            # (B, S, K, hd)
+    out: torch.Tensor,          # (B, S, H, hd): the forward's output
+    dout: torch.Tensor,         # (B, S, H, hd): the output's gradient
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in fp32 by the backward's formulas, every input upcast:
+    p = softmax(q·kᵀ·scale), D = Σ_d dO·out, ds = p ⊙ (dO·vᵀ − D),
+    dq = ds·k·scale, dk = dsᵀ·q·scale, dv = pᵀ·dO (summed over each kv
+    group's query heads). D comes from the ``out`` given, which the forward
+    rounded to the inputs' dtype, as in the backward kernel; the kernel
+    then rounds only its outputs. ``flash_attention_bwd_ref`` on bf16
+    inputs rounds its products to bf16 as well."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    qg, og, dog = (t.float().reshape(B, S, K, G, hd) for t in (q, out, dout))
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, kf) * scale
+    p = torch.softmax(torch.where(_visible(S, S, causal, window, q.device), s, NEG_INF), dim=-1)
+    delta = torch.einsum("bskgh,bskgh->bkgs", dog, og)[..., None]
+    ds = p * (torch.einsum("bskgh,btkh->bkgst", dog, vf) - delta)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    return dq.reshape(B, S, H, hd), dk, dv
 
 
 def decode_attention_ref(

@@ -9,7 +9,9 @@ stacked over ``n_repeats`` along a leading axis. ``jax.lax.scan`` over the
 stack becomes a Python loop over the repeats.
 
 Mamba, MoE MLPs and the encoder-decoder raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings them.
+naming the ``ROADMAP.md`` item that brings them. ``loss_fn`` trains the
+``attn+dense`` decoders only: the mLSTM kernel has no backward yet.
+``remat`` is not ported (every activation is kept for the backward).
 """
 from __future__ import annotations
 
@@ -58,6 +60,18 @@ def check_supported(cfg: ModelConfig) -> None:
                     f"brings {part!r}")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless every block is ``attn+dense``:
+    the only blocks whose kernels have a backward."""
+    check_supported(cfg)
+    for entry in cfg.block_pattern:
+        if (cfg.mixer_of(entry), cfg.mlp_of(entry)) != ("attn", "dense"):
+            raise NotImplementedError(
+                f"{cfg.name}: training block {entry!r} is not ported yet; ROADMAP.md "
+                f"queue 1 item 3 brings it (xLSTM training needs an mlstm_chunk "
+                f"backward kernel and the sLSTM loop's)")
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -100,9 +114,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return p
 
 
-def _layer(block: Params, r: int) -> Params:
-    """Repeat ``r`` of a stacked block (views, no copies)."""
-    return {k: (_layer(v, r) if isinstance(v, dict) else v[r]) for k, v in block.items()}
+def _layers(block: Params, n: int) -> list[Params]:
+    """All ``n`` repeats of a stacked block, each leaf split by one
+    ``torch.unbind`` (views, no copies). Under autograd the repeats' gradients then
+    come back as one stack per leaf; indexing each repeat instead would
+    return each gradient as a zero-filled full stack, and summing those
+    costs ``n`` times the stack's bytes."""
+    split = {k: (_layers(v, n) if isinstance(v, dict) else torch.unbind(v))
+             for k, v in block.items()}
+    return [{k: v[r] for k, v in split.items()} for r in range(n)]
 
 
 def _head(p: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -131,11 +151,25 @@ def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> tor
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token logits for training / prefill: (B, S) ints -> (B, S, vocab) fp32."""
     x = p["embed"][tokens].to(dtype_of(cfg))
+    layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
     for r in range(cfg.n_repeats):
-        for block, entry in zip(p["blocks"], cfg.block_pattern):
-            x = _block_fwd(_layer(block, r), x, entry, cfg)
+        for stack, entry in zip(layers, cfg.block_pattern):
+            x = _block_fwd(stack[r], x, entry, cfg)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return (x @ _head(p, cfg)).float()
+
+
+def loss_fn(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over fp32 logits plus the z-loss
+    ``1e-4 · mean(logz²)`` (a 0-d fp32 tensor), as the reference's."""
+    check_trainable(cfg)
+    logits = forward(p, cfg, tokens)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    ce = (logz - gold).mean()
+    zloss = 1e-4 * torch.square(logz).mean()   # logit drift regularizer
+    return ce + zloss
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +247,9 @@ def decode_step(
     mixers copy their new state over the old (the returned list is
     ``cache`` itself)."""
     x = p["embed"][token][:, None, :].to(dtype_of(cfg))      # (B, 1, d)
+    layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
     for r in range(cfg.n_repeats):
-        for block, c, entry in zip(p["blocks"], cache, cfg.block_pattern):
-            x = _block_decode(_layer(block, r), c, r, x, pos, entry, cfg)
+        for stack, c, entry in zip(layers, cache, cfg.block_pattern):
+            x = _block_decode(stack[r], c, r, x, pos, entry, cfg)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return (x[:, 0, :] @ _head(p, cfg)).float(), cache

@@ -1,1 +1,1 @@
-"""Serving runtime: the decode step builder and its inputs."""
+"""Runtime: the train and serve steps, checkpoints, and the training workflow."""

@@ -1,0 +1,48 @@
+"""Parameter trees: nested dictionaries and lists with tensors as leaves.
+
+The port keeps the JAX package's pytrees as plain containers (``dict``,
+``list``, ``tuple``); these helpers walk them in one fixed order: dict
+insertion order, then list order. (``jax.tree_util`` sorts dict keys
+instead, so compare a port tree with a JAX one by path, not by leaf
+position.)
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator
+
+
+def map_tree(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf to ``tree`` and the trees in ``rest``,
+    which share its structure; the result has that structure."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def leaves(tree: Any) -> list[Any]:
+    """The leaves of ``tree`` in ``map_tree``'s order."""
+    return [leaf for _, leaf in paths(tree)]
+
+
+def paths(tree: Any, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], Any]]:
+    """(path, leaf) for every leaf, the path as ``jax.tree_util`` prints its
+    keys: ``['name']`` for a dict key, ``[i]`` for a list or tuple index."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from paths(v, (*prefix, f"[{k!r}]"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from paths(v, (*prefix, f"[{i}]"))
+    else:
+        yield prefix, tree
+
+
+def unflatten(like: Any, flat: list[Any]) -> Any:
+    """A tree shaped like ``like`` whose leaves are ``flat``, in order."""
+    it = iter(flat)
+    out = map_tree(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

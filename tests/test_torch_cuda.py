@@ -8,22 +8,39 @@ installed; ``tests/conftest.py`` imports JAX, so on such a machine run
 
 Tolerances: attention f32 2e-5, bf16 2e-2; mLSTM atol 5e-5, rtol 5e-4
 (tests/test_kernels.py), against the plain version computed in f32 from
-the same inputs.
+the same inputs. The flash backward, per gradient: elementwise against
+its fp32 formulas on the same inputs and forward output (the kernel's
+arithmetic), |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one
+bf16 ulp) and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol
+f32 1e-4 and bf16 3e-2, against autograd of the plain version. A reduced f32 model's train step on the card:
+loss 1e-4, params 2e-3 against the same step on the CPU.
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import decode_attention as dec_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     decode_attention_ref,
+    flash_attention_bwd_fp32_ref,
+    flash_attention_bwd_ref,
     flash_attention_ref,
     mlstm_chunk_ref,
 )
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.runtime.train import build_train_step, synthetic_batch
+from repro_torch.tree import leaves, map_tree
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+BWD_ELT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
 @pytest.fixture
@@ -163,3 +180,109 @@ def test_mlstm_kernel_refuses_what_it_does_not_take(cuda):
                         torch.zeros((1, 128, 2, 64), device=cuda),
                         torch.zeros((1, 128, 2), device=cuda),
                         torch.zeros((1, 128, 2), device=cuda), chunk=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("H,K", [(2, 2), (6, 2), (8, 1)])  # G = 1, 3, 8
+def test_flash_bwd_kernel_on_card(cuda, dtype, hd, window, H, K):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = 200  # ragged: three full 64-row tiles and a partial one
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+                   for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd), (2, S, H, hd)])
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, causal=True, window=window)
+    n = ops.flash_attention.bwd_launches
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.bwd_launches == n + 1
+    want = flash_attention_bwd_ref(q, k, v, do, causal=True, window=window)
+    exact = flash_attention_bwd_fp32_ref(q, k, v, o, do, causal=True, window=window)
+    tol = BWD_ELT_TOL[dtype]
+    for a, b, e in zip(got, want, exact, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * max(1.0, b.float().abs().max().item()), err
+        limit = tol * e.abs() + tol * e.square().mean().sqrt()
+        assert bool(((a.float() - e).abs() <= limit).all()), (a.float() - e).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_launches_the_backward_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((1, 100, 6, 64), generator=g, device=cuda).bfloat16().requires_grad_()
+    k, v = (torch.randn((1, 100, 2, 64), generator=g, device=cuda).bfloat16().requires_grad_()
+            for _ in range(2))
+    fwd, bwd = ops.flash_attention.launches, ops.flash_attention.bwd_launches
+    with torch.no_grad():  # no grad wanted: the forward alone, as before
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.float().sum().backward()
+    assert ops.flash_attention.launches == fwd + 2
+    assert ops.flash_attention.bwd_launches == bwd + 1
+    for t in (q, k, v):
+        assert t.grad is not None and float(t.grad.float().abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
+    q = torch.randn((2, 4, 16), device=cuda, requires_grad=True)
+    cache = torch.randn((2, 8, 2, 16), device=cuda)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.decode_attention(q, cache, cache, lens)
+    with torch.no_grad():
+        ops.decode_attention(q, cache, cache, lens)
+    x = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
+    gate = torch.zeros((1, 64, 2), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+        ops.mlstm_chunk(x, x, x, gate, gate)
+    with torch.no_grad():
+        ops.mlstm_chunk(x, x, x, gate, gate)
+
+
+def _small_config():
+    return dataclasses.replace(reduced(get_config("smollm_360m")), n_heads=6, n_kv_heads=2)
+
+
+@pytest.mark.cuda
+def test_attention_gradients_reach_the_projections_on_card(cuda):
+    cfg = _small_config()
+    p_cpu = M.init_model(cfg, seed=3, device="cpu")["blocks"][0]["mixer"]
+    p_cpu = map_tree(lambda t: t[0].clone(), p_cpu)
+    x = torch.randn((2, 70, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    grads = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.detach().to(dev, copy=True).requires_grad_(), p_cpu)
+        L.attention(p, x.to(dev), cfg).square().sum().backward()
+        grads.append({n: p[n].grad.cpu() for n in ("wq", "wk", "wv", "wo")})
+    for name in ("wq", "wk", "wv", "wo"):
+        want = grads[0][name]
+        assert float(grads[1][name].abs().max()) > 0, name
+        torch.testing.assert_close(grads[1][name], want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_equals_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_config()
+    step = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup=2))
+    p_cpu = M.init_model(cfg, seed=5, device="cpu")
+    batch = synthetic_batch(cfg, 2, 100, seed=6, device="cpu")
+    states = {"cpu": (p_cpu, adamw_init(p_cpu)),
+              "cuda": (map_tree(lambda t: t.to(cuda), p_cpu), None)}
+    states["cuda"] = (states["cuda"][0], adamw_init(states["cuda"][0]))
+    bwd = ops.flash_attention.bwd_launches
+    for _ in range(2):
+        (pc, oc), (pg, og) = states["cpu"], states["cuda"]
+        pc, oc, mc = step(pc, oc, batch)
+        pg, og, mg = step(pg, og, map_tree(lambda t: t.to(cuda), batch))
+        assert abs(mc["loss"].item() - mg["loss"].item()) < 1e-4
+        states = {"cpu": (pc, oc), "cuda": (pg, og)}
+    assert ops.flash_attention.bwd_launches == bwd + 2 * cfg.n_layers
+    for a, b in zip(leaves(states["cpu"][0]), leaves(states["cuda"][0]), strict=True):
+        torch.testing.assert_close(b.cpu(), a, atol=2e-3, rtol=0)

@@ -5,7 +5,8 @@
   ``decode_step`` loop on the same prompts and converted params.
 - A faulted numpy DAG gives identical results, ``charged_ms`` and
   ``kv_stats`` through ``repro.core`` and ``repro_torch.core``.
-- Every copied engine file equals its original after the import rewrite.
+- Every copied file (engine, configs, data pipeline, training workflow)
+  equals its original after the import rewrite.
 - ``repro_torch`` imports neither JAX nor anything of ``repro``.
 """
 import ast
@@ -37,10 +38,11 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ([f"core/{n}.py" for n in ("api", "cache", "dag", "engine", "executor", "faults",
                                      "invoker", "kvstore", "optimize", "schedule",
                                      "simclock")]
-          + ["analysis/dagcheck.py", "models/config.py"]
+          + ["analysis/dagcheck.py", "models/config.py", "data/__init__.py", "data/pipeline.py",
+             "runtime/orchestrator.py"]
           + [f"platform/{p.name}" for p in sorted((SRC / "repro/platform").glob("*.py"))]
           + [f"configs/{p.name}" for p in sorted((SRC / "repro/configs").glob("*.py"))])
-_RENAME = re.compile(r"\brepro\.(core|analysis|platform|models|configs)\b")
+_RENAME = re.compile(r"\brepro\.(core|analysis|platform|models|configs|data)\b")
 
 
 @pytest.mark.parametrize("rel", COPIED)
