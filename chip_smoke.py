@@ -8,16 +8,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    (``-Xptxas=-v``: registers and spills; for the two mlstm kernels also
-   their shared memory and how many state-kernel clusters the card holds);
+   their shared memory and how many state-kernel clusters the card holds;
+   for the flash backward kernels and every hd-192 instantiation of the
+   forward and decode kernels their registers, spills and dynamic shared
+   memory);
 3. kernel checks: each CUDA kernel against its plain PyTorch version on
    the card at smollm-360m's shapes (tolerance f32 2e-5, bf16 2e-2), plus
-   flash at qwen2-72b's attention width (hd 128, G = 8) and decode over
-   one 8192-key request, timed with CUDA events (median of 30, L2 flushed
+   flash at qwen2-72b's attention width (hd 128, G = 8) and at
+   nemotron-4-340b's (96 heads over 8, hd 192, bf16 and f32), decode over
+   one 8192-key request and at nemotron's width (B=4, ragged kv_len, bf16
+   and f32), timed with CUDA events (median of 30, L2 flushed
    before each run) beside the plain version,
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
    only (its ratio recorded), and the card's bound for the same work; for
    the attention kernels and SDPA also the kernels' own device time from
    ``torch.profiler`` (``kernel_ms``: the call without its launch gaps);
+   the rows' log-sum-exp the forward writes for the backward against
+   ``ref.flash_attention_lse_ref`` (abs 1e-4);
 4. forward: full-width smollm-360m in bf16 at B=2, S=512; logits finite,
    one flash launch per layer;
 5. decode vs forward: full width over 64 positions, f32 weights
@@ -55,29 +62,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     1e-4 each step, parameters within 2e-3;
 11. train_step_profile: one full-width training step's host ms, and from
     a ``torch.profiler`` trace its device ms, busy share, kernel launches,
-    top kernels and the shares of the flash forward and backward kernels.
+    top kernels and the shares of the flash forward and backward kernels;
+12. nemotron: nemotron-4-340b at full width (d_model 18432, 96 heads over
+    8, hd 192, d_ff 73728, vocab 256000, squared ReLU, untied embeddings),
+    its depth cut to 2 layers in bf16 (32.7 GB of weights, made on the card
+    from a seed): the forward at B=1, S=512 with one flash launch per layer;
+    decode against forward over 64 positions (rel < 5e-2, as smollm's); the
+    same in f32 at 1 layer (rel < 1e-3); serving through the engine, 2
+    requests x batch 2, prompt 32, gen 16; host seconds and tokens/s.
 
-Phase 3 also checks the flash backward (``csrc/flash_attention_bwd.cu``)
-at smollm's shapes (the first case at the train phase's B=4, S=512) and
-qwen2-72b's width, per gradient, twice: elementwise against its fp32
-formulas on the same inputs with D from the same forward output (the
-kernel's arithmetic), |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2
-(about one bf16 ulp) and f32 1e-4; and against autograd of the plain
-version, max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and bf16
-3e-2 (the plain version rounds its bf16 products to bf16). Its bound counts 10·hd FLOPs per visible (query, key)
-pair and query head (q·kᵀ recomputed, four gradient products) and q, k, v,
-o, dO read and dq, dk, dv written once; its library yardstick is the
-profiler's device time of the backward of
+Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
+``csrc/flash_attention_bwd_wgmma.cu``, the rest on
+``csrc/flash_attention_bwd.cu``), fed the log-sum-exp the forward kernel
+wrote, at smollm's shapes (the first case at the train phase's B=4,
+S=512), qwen2-72b's width and nemotron's (bf16 at S=2048, f32 at S=512),
+per gradient, twice: elementwise against its fp32 formulas on the same
+inputs with D from the same forward output (the kernel's arithmetic),
+|err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one bf16 ulp) and
+f32 1e-4; and against autograd of the plain version, max abs error <=
+tol x max(1, max|ref|), tol f32 1e-4 and bf16 3e-2 (the plain version
+rounds its bf16 products to bf16); and a second call must give the same
+bits. Its bound counts 10·hd FLOPs per visible (query, key) pair and query
+head (the five products q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q, ds·k) and q, k, v, o, dO
+read and dq, dk, dv written once; its library yardstick is the profiler's
+device time of the backward of
 ``scaled_dot_product_attention(..., enable_gqa=True)``.
 
 Kernel launch counts are set to 0 before each forward, decode-vs-forward,
-serve and train phase and read after it. The line before the last is
+serve and train phase (smollm's, xLSTM's and nemotron's) and read after it. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -107,6 +126,9 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # |err| <= tol·|ref| + tol·rms(ref) per gradient. bf16: about one bf16 ulp
 # (the kernel rounds only its outputs, half an ulp); f32: summation order.
 BWD_ELT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the rows' log-sum-exp the forward writes for the backward: fp32
+# statistics of values of order log S, summation order
+LSE_TOL = 1e-4
 # Fault injection of the train phase's 8-step workflow: at seed 6 the step
 # tasks 3 and 7 fail at their first attempt and no task of this DAG fails at
 # its last (attempt 2), whatever order the executors run in.
@@ -230,6 +252,11 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
     k, v = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     err = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal, window=window), dtype)
+    # the same kernel asked for the rows' log-sum-exp: the same output, and lse
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    assert torch.equal(flash_kernel.launch(q, k, v, causal=causal, window=window, lse=lse), out)
+    lse_err = (lse - ref.flash_attention_lse_ref(q, k, causal=causal, window=window)).abs().max()
+    assert lse_err.item() <= LSE_TOL, lse_err.item()
     mask = attention_mask(S, causal, window, dev)
     n_pairs = int(mask.sum().item())
     qs = q.transpose(1, 2)
@@ -245,7 +272,8 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
         "shape": f"B={B} S={S} H={H} K={K} hd={hd} causal={causal} window={window}",
         "dtype": DT_NAME[dtype],
         "kernel": "wgmma" if flash_kernel.uses_tensor_cores(dtype, hd) else "fma",
-        "max_abs_err": err, "tol": TOL[dtype],
+        "max_abs_err": err, "tol": TOL[dtype], "lse_max_abs_err": lse_err.item(),
+        "lse_tol": LSE_TOL,
         "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                           window=window)),
@@ -256,13 +284,19 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
 
 def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd=64,
                     seed=3):
+    from repro_torch.kernels import flash_attention as flash_kernel
+
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
     k, v = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
     dout = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
-    with torch.no_grad():
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    got = ops.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+    # the forward kernel's output and the rows' log-sum-exp it writes for the backward
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    out = flash_kernel.launch(q, k, v, causal=causal, window=window, lse=lse)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, causal=causal, window=window)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True)), "not repeatable"
+    del again
     want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
     exact = ref.flash_attention_bwd_fp32_ref(q, k, v, out, dout, causal=causal, window=window)
     err, err_plain, worst = {}, {}, {}
@@ -289,11 +323,13 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
     douts = dout.transpose(1, 2)
     lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), douts, retain_graph=True)  # noqa: E731
-    mine = lambda: ops.flash_attention_bwd(q, k, v, out, dout, causal=causal,  # noqa: E731
-                                           window=window)
+    mine = lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse=lse,  # noqa: E731
+                                           causal=causal, window=window)
+    kernel = ("delta + dq + dkdv, bf16 wgmma" if flash_kernel.uses_tensor_cores(dtype, hd)
+              else "dq + dkdv, fp32 FMAs")
     return {
         "shape": f"B={B} S={S} H={H} K={K} hd={hd} causal={causal} window={window}",
-        "dtype": DT_NAME[dtype], "kernel": "dq + dkdv, fp32 FMAs",
+        "dtype": DT_NAME[dtype], "kernel": kernel, "bitwise_repeatable": True,
         "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
         "tol": f"{BWD_ELT_TOL[dtype]} x (|ref| + rms(ref)), fp32 formulas",
         "err_over_tol_by_grad": worst,
@@ -371,17 +407,18 @@ def check_mlstm(ops, ref, timer, dev, B, S, H, hd, with_state, seed=2, chunk=64)
 
 def ptxas_by_kernel(log: str) -> dict:
     """Registers, shared memory and spills of each kernel in an
-    ``-Xptxas=-v`` log, by the kernel's name (its template argument kept)."""
+    ``-Xptxas=-v`` log, by the kernel's name with its template arguments
+    (``decode_split_kernel<bf16,192,16>``)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            short = re.search(r"((?:mlstm|flash_bwd)_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
-                              mangled)
+            short = re.search(r"([a-z_]+_kernel)I((?:f|13__nv_bfloat16|Li\d+E)+)E", mangled)
             if short:
-                dt = {"f": "f32,", "13__nv_bfloat16": "bf16,", None: ""}[short.group(2)]
-                name = f"{short.group(1)}<{dt}{short.group(3)}>"
+                args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(t, t[2:-1])
+                        for t in re.findall(r"f|13__nv_bfloat16|Li\d+E", short.group(2))]
+                name = f"{short.group(1)}<{','.join(args)}>"
             else:
                 name = mangled
             out[name] = {}
@@ -390,6 +427,32 @@ def ptxas_by_kernel(log: str) -> dict:
         elif name and "Used" in line and "registers" in line:
             out[name]["usage"] = line.split("Used", 1)[1].strip()
     return out
+
+
+def attention_build(_build, libs) -> dict:
+    """For the flash backward kernels and every hd-192 instantiation of the
+    forward and decode kernels: ptxas's registers and spills, and the
+    dynamic shared memory a block takes (read from the libraries)."""
+    fwd, wg = _build.library("flash_attention"), _build.library("flash_attention_wgmma")
+    bwd, bwg = _build.library("flash_attention_bwd"), _build.library("flash_attention_bwd_wgmma")
+    dec = _build.library("decode_attention")
+    smem = {"flash_fwd_kernel<f32,192>": fwd.flash_attention_fwd_smem_bytes(192),
+            "flash_wgmma_kernel<192>": wg.flash_attention_wgmma_smem_bytes(192)}
+    for hd in (16, 32, 64, 128, 192):
+        for i, kind in enumerate(("dq", "dkdv")):
+            for dt in ("f32", "bf16"):
+                smem[f"flash_bwd_{kind}_kernel<{dt},{hd}>"] = bwd.flash_attention_bwd_smem_bytes(hd, i)
+            smem[f"flash_bwd_wgmma_{kind}_kernel<{hd}>"] = bwg.flash_attention_bwd_wgmma_smem_bytes(hd, i)
+    for dt, code in (("f32", 0), ("bf16", 1)):
+        for gmax in (4, 8, 12, 16):
+            smem[f"decode_split_kernel<{dt},192,{gmax}>"] = dec.decode_attention_smem_bytes(code, 192, gmax)
+    ptxas = {}
+    for lib in ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
+                "flash_attention_bwd_wgmma", "decode_attention"):
+        ptxas.update(ptxas_by_kernel(libs[lib].with_suffix(".log").read_text()))
+    keep = {n: r for n, r in ptxas.items()
+            if "flash_bwd" in n or ",192" in n or "<192" in n}
+    return {n: {**r, "smem_bytes": smem.get(n)} for n, r in keep.items()}
 
 
 def mlstm_build(_build, libs) -> dict:
@@ -454,8 +517,7 @@ def main() -> int:
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
           "ptxas": ptxas,
           "mlstm_kernels": mlstm_build(_build, libs),
-          "flash_bwd_kernels": ptxas_by_kernel(
-              libs["flash_attention_bwd"].with_suffix(".log").read_text())})
+          "attention_kernels": attention_build(_build, libs)})
 
     # 3. kernel checks at smollm-360m's shapes (H=15, K=5, hd=64)
     timer = Timer(dev)
@@ -472,6 +534,13 @@ def main() -> int:
     decode_cases.append(check_decode(ops, ref, timer, dev, torch.bfloat16, 1, 8192, [8191]))
     flash_cases.append(check_flash(ops, ref, timer, dev, torch.bfloat16, 1, 2048, True, None,
                                    H=64, K=8, hd=128))
+    # nemotron-4-340b's attention per layer: 96 heads over 8, hd 192
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_cases.append(check_flash(ops, ref, timer, dev, dtype, 1, 2048, True, None,
+                                       H=NEMOTRON_H, K=NEMOTRON_K, hd=192))
+        decode_cases.append(check_decode(ops, ref, timer, dev, dtype, 4, 2048,
+                                         [2048, 1, 1517, 700], H=NEMOTRON_H, K=NEMOTRON_K,
+                                         hd=192))
     # xlstm-350m's mLSTM: B=2, S=512, H=4, hd = 2·1024/4 = 512
     mlstm_cases = [check_mlstm(ops, ref, timer, dev, 2, 512, 4, 512, False),
                    check_mlstm(ops, ref, timer, dev, 2, 300, 4, 512, True),
@@ -483,10 +552,13 @@ def main() -> int:
                                       (2, 1024, 256))]
     bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, 1, 2048, True, None,
                                      H=64, K=8, hd=128))
+    for dtype, S in ((torch.bfloat16, 2048), (torch.float32, 512)):  # nemotron's width
+        bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, dtype, 1, S, True, None,
+                                         H=NEMOTRON_H, K=NEMOTRON_K, hd=192))
     for rec in decode_cases + flash_cases + mlstm_cases + bwd_cases:
         emit({"phase": "kernel_check", **rec})
     del timer
-    torch.cuda.empty_cache()
+    free_memory()
 
     cfg = get_config("smollm_360m")
 
@@ -499,7 +571,7 @@ def main() -> int:
     emit({"phase": "forward", "shape": [2, 512], "dtype": "bf16", "seconds": fwd_s,
           "launches": fwd_counts})
     del params
-    torch.cuda.empty_cache()
+    free_memory()
 
     # 5. decode against forward, full width, 64 positions
     for name, dcfg, tol in (("f32", dataclasses.replace(cfg, dtype="float32"), 1e-3),
@@ -510,7 +582,7 @@ def main() -> int:
         assert err < tol, (name, err, tol)
         assert c == {"flash_attention": dcfg.n_layers, "decode_attention": 64 * dcfg.n_layers,
                      "mlstm_chunk": 0, "flash_attention_bwd": 0}, c
-    torch.cuda.empty_cache()
+    free_memory()
 
     # 6. serve through the copied engine, full width
     rep, serve_counts = serve_full_width(serve_mod, ops, "smollm_360m", cfg.vocab)
@@ -523,29 +595,34 @@ def main() -> int:
 
     # 7. decode step profile
     emit({"phase": "decode_step_profile", **profile_decode(cfg, M, dev)})
-    torch.cuda.empty_cache()
+    free_memory()
 
     # 8. xlstm-350m
     xlstm_launches = run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens)
-    torch.cuda.empty_cache()
+    free_memory()
 
     # 9-11. training: full width through the engine, card against CPU, profile
     train = run_train(M, ops, cfg, dev)
     emit({"phase": "train", "card": smi, **train})
     print(f"train: {train['host_s_per_step']:.4f} s per step, "
           f"{train['tokens_per_s']:.0f} tokens/s ({smi})", flush=True)
-    torch.cuda.empty_cache()
+    free_memory()
     emit({"phase": "train_reference", "config": "reduced smollm f32, H=6 K=2",
           **train_reference(M, ops, small, dev)})
     emit({"phase": "train_step_profile", "card": smi, **profile_train(M, cfg, dev)})
+    free_memory()
+
+    # 12. nemotron-4-340b at full width, cut in depth
+    nemotron_launches = run_nemotron(get_config, ops, serve_mod, M, dev, smi)
+    free_memory()
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
-         # bf16 at hd 64/128 (the main path); the f32 cases run csrc/flash_attention.cu
+         # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
          "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention.py:97",
          "launches": fwd_counts["flash_attention"], **_headline(flash_cases[0]),
-         "cases": flash_cases},
+         "nemotron_launches": nemotron_launches, "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:77",
@@ -556,7 +633,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/linear_attention.py:83",
          "launches": xlstm_launches, **_headline(mlstm_cases[0]), "cases": mlstm_cases},
         {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         # bf16 at hd 64/128/192 (the main path); f32 runs csrc/flash_attention_bwd.cu
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
          "replaces": None,
          "note": "no TPU kernel: the JAX package has no Pallas backward; its training "
                  "differentiates layers.sdpa through XLA",
@@ -608,7 +686,7 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
           "timed_forward_seconds": timed_s, "slstm_loop_seconds": slstm_s,
           "slstm_share": slstm_s / timed_s, "launches": fwd_counts})
     del params
-    torch.cuda.empty_cache()
+    free_memory()
 
     f32 = dataclasses.replace(cfg, dtype="float32")
     for name, dcfg, tol, seed in (("f32", f32, 1e-3, 0), ("bf16", cfg, XLSTM_BF16_TOL, 0),
@@ -620,7 +698,7 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
         assert err < tol, (name, err, tol)
         assert c == {"flash_attention": 0, "decode_attention": 0, "mlstm_chunk": n_mlstm,
                      "flash_attention_bwd": 0}, c
-    torch.cuda.empty_cache()
+    free_memory()
 
     rep, serve_counts = serve_full_width(serve_mod, ops, "xlstm_350m", cfg.vocab)
     emit({"phase": "xlstm_serve", **serve_record(rep, serve_counts)})
@@ -631,6 +709,66 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+NEMOTRON_H, NEMOTRON_K = 96, 8  # nemotron-4-340b: 96 heads over 8, hd 18432 / 96 = 192
+
+
+def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
+    """Phase 12: nemotron-4-340b at full width, its depth cut to 2 layers in
+    bf16 (32.7 GB of weights) and to 1 in f32 (51.6 GB), one after the
+    other. Forward at B=1 S=512, decode against forward over 64 positions,
+    serving through the engine (bf16). Returns the forward's flash launches."""
+    from repro_torch.tree import leaves
+
+    full = get_config("nemotron_4_340b")
+    assert full.hd == 192 and full.n_heads == NEMOTRON_H
+    cfg = dataclasses.replace(full, n_layers=2)
+    free_memory()
+    rng = np.random.default_rng(0)
+    params = M.init_model(cfg, seed=0, device=dev)  # made on the card: no 33 GB host copy
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 512)), device=dev)
+    fwd_s, fwd_counts = timed_forward(M, ops, cfg, params, tokens)
+    assert fwd_counts == {"flash_attention": 2, "decode_attention": 0, "mlstm_chunk": 0,
+                          "flash_attention_bwd": 0}, fwd_counts
+    emit({"phase": "nemotron_forward", "layers": 2, "shape": [1, 512], "dtype": "bf16",
+          "seconds": fwd_s, "tokens_per_s": 512 / fwd_s, "launches": fwd_counts,
+          "weights_gb": sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9,
+          "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9, "card": smi})
+    dec_tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)), device=dev)
+    err, c, _ = decode_vs_forward(M, ops, cfg, dec_tokens, dev, params=params, truth=False)
+    emit({"phase": "nemotron_decode_vs_forward", "layers": 2, "dtype": "bf16",
+          "positions": 64, "rel_err": err, "tol": 5e-2, "launches": c})
+    assert err < 5e-2, err
+    assert c == {"flash_attention": 2, "decode_attention": 64 * 2, "mlstm_chunk": 0,
+                 "flash_attention_bwd": 0}, c
+    reset(ops)
+    t0 = time.perf_counter()
+    rep = serve_mod.serve(cfg, params, requests=2, batch=2, prompt_len=32, gen_len=16, seed=0,
+                          device=dev)
+    serve_s = time.perf_counter() - t0
+    serve_counts = counts(ops)
+    summary = rep.results["summary"]
+    assert len(summary["tokens"]) == 2
+    for toks in summary["tokens"]:
+        assert toks.shape == (2, 16) and toks.min() >= 0 and toks.max() < cfg.vocab
+    assert serve_counts["decode_attention"] == 2 * cfg.n_layers * (32 + 16 - 1), serve_counts
+    emit({"phase": "nemotron_serve", "layers": 2, "requests": 2, "batch": 2, "prompt_len": 32,
+          "gen_len": 16, "seconds": serve_s, "mean_tokens_per_s": summary["mean_tps"],
+          "p99_latency_s": summary["p99_latency_s"], "charged_ms": rep.charged_ms,
+          "launches": serve_counts, "card": smi})
+    del params, rep
+    free_memory()  # the engine's job graph holds the weights in a reference cycle
+    torch.cuda.reset_peak_memory_stats(dev)
+    f32 = dataclasses.replace(full, n_layers=1, dtype="float32")
+    err, c, _ = decode_vs_forward(M, ops, f32, dec_tokens, dev, truth=False)
+    emit({"phase": "nemotron_decode_vs_forward", "layers": 1, "dtype": "f32", "positions": 64,
+          "rel_err": err, "tol": 1e-3, "launches": c,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    assert err < 1e-3, err
+    assert c == {"flash_attention": 1, "decode_attention": 64, "mlstm_chunk": 0,
+                 "flash_attention_bwd": 0}, c
+    print(f"nemotron (2 layers, bf16): forward {fwd_s:.3f} s, serving "
+          f"{summary['mean_tps']:.1f} tokens/s ({smi})", flush=True)
+    return fwd_counts["flash_attention"]
 
 
 def run_train(M, ops, cfg, dev) -> dict:
@@ -780,13 +918,14 @@ def timed_forward(M, ops, cfg, params, tokens) -> tuple[float, dict]:
     return seconds, launches
 
 
-def decode_vs_forward(M, ops, cfg, tokens, dev, seed=0, positions=64
-                      ) -> tuple[float, dict, dict]:
+def decode_vs_forward(M, ops, cfg, tokens, dev, seed=0, positions=64, params=None,
+                      truth=True) -> tuple[float, dict, dict]:
     """Relative max error of step-by-step decode logits against one forward
-    over the first ``positions`` tokens, and the launches of both. In bf16,
-    also what rounding alone costs each path: its error against an f32
-    forward of the same (bf16) weights, run after the launches are read."""
-    p = M.init_model(cfg, seed=seed, device=dev)
+    over the first ``positions`` tokens, and the launches of both, with
+    ``params`` or weights made from ``seed``. In bf16 with ``truth``, also
+    what rounding alone costs each path: its error against an f32 forward
+    of the same (bf16) weights, run after the launches are read."""
+    p = M.init_model(cfg, seed=seed, device=dev) if params is None else params
     toks = tokens[:, :positions]
     reset(ops)
     full = M.forward(p, cfg, toks)
@@ -796,7 +935,7 @@ def decode_vs_forward(M, ops, cfg, tokens, dev, seed=0, positions=64
         lg, cache = M.decode_step(p, cfg, cache, toks[:, t], t)
         steps.append(lg)
     dec, launches, truth = torch.stack(steps, dim=1), counts(ops), {}
-    if cfg.dtype == "bfloat16":
+    if truth and cfg.dtype == "bfloat16":
         f32 = M.forward(_to(p, torch.float32), dataclasses.replace(cfg, dtype="float32"), toks)
         truth = {"forward_vs_f32": rel_err(full, f32), "decode_vs_f32": rel_err(dec, f32)}
     return rel_err(dec, full), launches, truth
@@ -880,6 +1019,13 @@ def _headline(case: dict) -> dict:
     """The main path's shape: the first (bf16) case of each kernel."""
     return {k: case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
+
+
+def free_memory() -> None:
+    """Collect reference cycles that hold tensors, then give the cached
+    blocks back, so that the next phase finds the card's memory free."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _to(tree, to):

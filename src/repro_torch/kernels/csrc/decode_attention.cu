@@ -30,11 +30,23 @@
 // - a lane holds one 16-byte vector of a key's row: a score is VEC
 //   multiply-adds and a shuffle reduction over the hd/VEC lanes of the key,
 //   p·v is G·VEC independent accumulators per lane, and the running max
-//   of a warp is rescaled only when it grows;
+//   of a warp is rescaled only when it grows. At hd 192 a row is 24 (bf16)
+//   or 48 (f32) 16-byte vectors, which no power-of-two count of lanes
+//   divides, and 16-byte vectors would leave a lane G·24 accumulators: there
+//   all 32 lanes share one key, each holding NV = 3 vectors of 4 (bf16) or
+//   8 (f32) bytes, lane l's the vectors l, l+32, l+64, so a lane keeps G·6
+//   accumulators and each of its loads is one coalesced 128- or 256-byte
+//   row segment per warp. The ring is still filled by 16-byte copies, each
+//   lane its own share of the tile, so a __syncwarp after each wait makes
+//   the other lanes' copies visible;
 // - at the end the 4 warps merge by the log-sum-exp rule in shared memory.
 //   With one split the block writes the output in q's type; otherwise it
 //   writes (m, l, acc[G, hd]) in fp32 to scratch and decode_combine_kernel
-//   merges the splits of each (b, kv head).
+//   merges the splits of each (b, kv head). At hd 192 the merge area
+//   reuses the rings' memory once every warp has left its loop: q, the
+//   rings and the merge area together would pass the 227 KB a block may
+//   use in f32 (12 + 192 + 50 KB), and in bf16 (12 + 96 + 50 KB) they would
+//   leave room for one block an SM instead of two.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,10 +67,20 @@ constexpr int KPW = BK / WARPS;  // keys of a tile per warp
 constexpr int MAX_G = 16;       // query heads per kv head
 constexpr float kLog2e = 1.4426950408889634f;
 
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use on sm_90
+
 template <typename T, int HD, int GMAX>
 struct Cfg {
-  static constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte vector
-  static constexpr int LPK = HD / VEC;          // lanes per key
+  // a row as 16-byte vectors, one per lane of a key, where a power-of-two
+  // count of lanes takes it; else (hd 192) NV vectors of 1/NV of a warp's row
+  // share per lane over all 32 lanes
+  static constexpr int V16 = HD * (int)sizeof(T) / 16;
+  static constexpr bool WIDE = V16 > 32 || 32 % V16 != 0;
+  static constexpr int NV = WIDE ? 3 : 1;       // vectors per lane
+  static constexpr int LPK = WIDE ? 32 : V16;   // lanes per key
+  static constexpr int VB = HD * (int)sizeof(T) / (LPK * NV);  // bytes per vector
+  static constexpr int VEC = VB / (int)sizeof(T);  // elements per vector
+  static constexpr int E = NV * VEC;            // elements of a key per lane
   static constexpr int R = 32 / LPK;            // keys per warp step
   static constexpr int STEPS = KPW / R;         // steps per tile
   // steps whose scores are held at once (GMAX·P of them, at most 32)
@@ -71,8 +93,14 @@ struct Cfg {
   static constexpr int Q_BYTES = GMAX * HD * 4;
   static constexpr int RING_BYTES = WARPS * NSTAGE * STAGE;
   static constexpr int MERGE_BYTES = WARPS * GMAX * (HD + 2) * 4;
-  static constexpr int SMEM = Q_BYTES + RING_BYTES + MERGE_BYTES;
-  static_assert(LPK <= 32 && 32 % LPK == 0 && KPW % R == 0 && STEPS % P == 0,
+  // the merge area reuses the rings where all three would not fit, and at
+  // hd 192, where that halves a block's shared memory so two fit on an SM
+  static constexpr bool ALIAS = Q_BYTES + RING_BYTES + MERGE_BYTES > SMEM_MAX || WIDE;
+  static constexpr int MERGE_OFF = Q_BYTES + (ALIAS ? 0 : RING_BYTES);
+  static constexpr int SMEM = MERGE_OFF + (ALIAS && RING_BYTES > MERGE_BYTES ? RING_BYTES
+                                                                              : MERGE_BYTES);
+  static_assert(LPK <= 32 && 32 % LPK == 0 && KPW % R == 0 && STEPS % P == 0 &&
+                NV * LPK * VB == HD * (int)sizeof(T) && VB % 4 == 0 && SMEM <= SMEM_MAX,
                 "head dim out of range");
 };
 
@@ -88,11 +116,46 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[VEC]) {
-  const T* e = reinterpret_cast<const T*>(&raw);
+// The E elements of a key this lane holds, from its NV vectors of VB bytes
+// at row + (vec + LPK·n)·VB, to fp32
+template <typename T, typename C>
+__device__ __forceinline__ void load_key(const unsigned char* row, int vec, float (&out)[C::E]) {
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) out[j] = to_f32(e[j]);
+  for (int n = 0; n < C::NV; ++n) {
+    const unsigned char* p = row + (vec + C::LPK * n) * C::VB;
+    T e[C::VEC];
+    if constexpr (C::VB == 16) *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(p);
+    else if constexpr (C::VB == 8) *reinterpret_cast<uint2*>(e) = *reinterpret_cast<const uint2*>(p);
+    else *reinterpret_cast<uint32_t*>(e) = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int j = 0; j < C::VEC; ++j) out[n * C::VEC + j] = to_f32(e[j]);
+  }
+}
+
+// Σ_j q[j]·k[j] over the lane's E elements, q from its head's fp32 row in
+// shared memory (the same vectors as the key), in two chains
+template <typename C>
+__device__ __forceinline__ float dot_q(const float* qrow, int vec, const float (&kv)[C::E]) {
+  float a = 0.f, c = 0.f;
+#pragma unroll
+  for (int n = 0; n < C::NV; ++n) {
+    const float* qp = qrow + (vec + C::LPK * n) * C::VEC;
+#pragma unroll
+    for (int j = 0; j < C::VEC; j += 4) {
+      if constexpr (C::VEC % 4 == 0) {
+        const float4 qq = *reinterpret_cast<const float4*>(qp + j);
+        a = fmaf(qq.x, kv[n * C::VEC + j], a);
+        c = fmaf(qq.y, kv[n * C::VEC + j + 1], c);
+        a = fmaf(qq.z, kv[n * C::VEC + j + 2], a);
+        c = fmaf(qq.w, kv[n * C::VEC + j + 3], c);
+      } else {  // VEC == 2
+        const float2 qq = *reinterpret_cast<const float2*>(qp + j);
+        a = fmaf(qq.x, kv[n * C::VEC + j], a);
+        c = fmaf(qq.y, kv[n * C::VEC + j + 1], c);
+      }
+    }
+  }
+  return a + c;
 }
 
 template <typename T, int HD, int GMAX>
@@ -102,11 +165,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     T* __restrict__ o, float* __restrict__ part, int S, int K, int G,
                     int split_len, float scale_log2) {
   using C = Cfg<T, HD, GMAX>;
-  constexpr int VEC = C::VEC, LPK = C::LPK, R = C::R, NSTAGE = C::NSTAGE, P = C::P;
+  constexpr int E = C::E, LPK = C::LPK, R = C::R, NSTAGE = C::NSTAGE, P = C::P;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   unsigned char* ring = smem + C::Q_BYTES;
-  float* Wm = reinterpret_cast<float*>(smem + C::Q_BYTES + C::RING_BYTES);  // WARPS × GMAX
+  float* Wm = reinterpret_cast<float*>(smem + C::MERGE_OFF);              // WARPS × GMAX
   float* Wl = Wm + WARPS * GMAX;                                          // WARPS × GMAX
   float* Wacc = Wl + WARPS * GMAX;                                        // WARPS × GMAX × HD
 
@@ -118,13 +181,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int k_lo = split * split_len;
   const int k_hi = min(k_lo + split_len, n);
 
-  float m[GMAX], l[GMAX], acc[GMAX][VEC];
+  float m[GMAX], l[GMAX], acc[GMAX][E];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[g][j] = 0.f;
+    for (int j = 0; j < E; ++j) acc[g][j] = 0.f;
   }
 
   if (k_lo < k_hi) {
@@ -142,14 +205,28 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     auto issue = [&](int t) {
       if (t < n_tiles) {
         const uint32_t st = ring0 + (t % NSTAGE) * C::STAGE;
+        if constexpr (C::NV == 1) {  // each lane copies the vectors it reads
 #pragma unroll
-        for (int s = 0; s < C::STEPS; ++s) {
-          const int r = s * R + slot;                     // row of the warp's tile
-          const int key = k_lo + t * BK + warp * KPW + r;
-          const bool ok = key < k_hi;
-          const size_t off = (size_t)(ok ? key : 0) * kv_row + vec * VEC;
-          cp_async16(st + r * C::ROW + vec * 16, kb + off, ok);
-          cp_async16(st + KPW * C::ROW + r * C::ROW + vec * 16, vb + off, ok);
+          for (int s = 0; s < C::STEPS; ++s) {
+            const int r = s * R + slot;                   // row of the warp's tile
+            const int key = k_lo + t * BK + warp * KPW + r;
+            const bool ok = key < k_hi;
+            const size_t off = (size_t)(ok ? key : 0) * kv_row + vec * C::VEC;
+            cp_async16(st + r * C::ROW + vec * 16, kb + off, ok);
+            cp_async16(st + KPW * C::ROW + r * C::ROW + vec * 16, vb + off, ok);
+          }
+        } else {  // the warp's KPW rows as 16-byte chunks, lane-strided
+          constexpr int CPR = C::ROW / 16;                // chunks per row
+          constexpr int EPC = 16 / (int)sizeof(T);        // elements per chunk
+#pragma unroll
+          for (int c = lane; c < KPW * CPR; c += 32) {
+            const int r = c / CPR;
+            const int key = k_lo + t * BK + warp * KPW + r;
+            const bool ok = key < k_hi;
+            const size_t off = (size_t)(ok ? key : 0) * kv_row + (c % CPR) * EPC;
+            cp_async16(st + c * 16, kb + off, ok);
+            cp_async16(st + KPW * C::ROW + c * 16, vb + off, ok);
+          }
         }
       }
       asm volatile("cp.async.commit_group;" ::: "memory");
@@ -166,6 +243,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int t = 0; t < n_tiles; ++t) {
       issue(t + NSTAGE - 1);  // into the stage that tile t-1 used
       asm volatile("cp.async.wait_group %0;" :: "n"(NSTAGE - 1) : "memory");
+      if constexpr (C::NV > 1) __syncwarp();  // other lanes' copies are read too
       const unsigned char* st = ring + (warp * NSTAGE + t % NSTAGE) * C::STAGE;
       const int key0 = k_lo + t * BK + warp * KPW + slot;  // this lane's key of step 0
 #pragma unroll
@@ -174,23 +252,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         float sc[P][GMAX];
 #pragma unroll
         for (int s = 0; s < P; ++s) {
-          float kv[VEC];
-          unpack<T, VEC>(*reinterpret_cast<const uint4*>(st + ((s0 + s) * R + slot) * C::ROW +
-                                                        vec * 16), kv);
+          float kv[E];
+          load_key<T, C>(st + ((s0 + s) * R + slot) * C::ROW, vec, kv);
 #pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            const float4* qv = reinterpret_cast<const float4*>(Qs + g * HD + vec * VEC);
-            float a = 0.f, c = 0.f;
-#pragma unroll
-            for (int j = 0; j < VEC / 4; ++j) {
-              const float4 qq = qv[j];
-              a = fmaf(qq.x, kv[4 * j], a);
-              c = fmaf(qq.y, kv[4 * j + 1], c);
-              a = fmaf(qq.z, kv[4 * j + 2], a);
-              c = fmaf(qq.w, kv[4 * j + 3], c);
-            }
-            sc[s][g] = a + c;
-          }
+          for (int g = 0; g < GMAX; ++g) sc[s][g] = dot_q<C>(Qs + g * HD, vec, kv);
         }
         // sum over the LPK lanes of a key, mask, and the max over the warp's keys
         float mx[GMAX];
@@ -217,29 +282,33 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
             const float alpha = fast_exp2(m[g] - mx[g]);
             l[g] *= alpha;
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) acc[g][j] *= alpha;
+            for (int j = 0; j < E; ++j) acc[g][j] *= alpha;
             m[g] = mx[g];
           }
         }
         // p·v: GMAX·VEC independent accumulators
 #pragma unroll
         for (int s = 0; s < P; ++s) {
-          float vv[VEC];
-          unpack<T, VEC>(*reinterpret_cast<const uint4*>(
-                             st + (KPW + (s0 + s) * R + slot) * C::ROW + vec * 16), vv);
+          float vv[E];
+          load_key<T, C>(st + (KPW + (s0 + s) * R + slot) * C::ROW, vec, vv);
 #pragma unroll
           for (int g = 0; g < GMAX; ++g) {
             const float p = sc[s][g] == kNegInf ? 0.f : fast_exp2(sc[s][g] - m[g]);
             l[g] += p;
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
+            for (int j = 0; j < E; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
           }
         }
       }
     }
   }
 
+  if constexpr (C::ALIAS) {  // the merge area is the rings': every warp must be done
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+  }
   // this warp's sums over its key slots, then the 4 warps merged by log-sum-exp
+  const int vec = lane % LPK;
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g >= G) break;
@@ -247,7 +316,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int off = LPK; off < 32; off <<= 1) {
       l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+      for (int j = 0; j < E; ++j) acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
     }
     if (lane == 0) {
       Wm[warp * GMAX + g] = m[g];
@@ -255,7 +324,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
     if (lane < LPK) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) Wacc[(warp * GMAX + g) * HD + lane * VEC + j] = acc[g][j];
+      for (int j = 0; j < E; ++j)
+        Wacc[(warp * GMAX + g) * HD + (vec + LPK * (j / C::VEC)) * C::VEC + j % C::VEC] =
+            acc[g][j];
     }
   }
   __syncthreads();
@@ -358,6 +429,8 @@ cudaError_t dispatch_g(const void* q, const void* kc, const void* vc, const int*
     return launch<T, HD, 4>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
   if (G <= 8)
     return launch<T, HD, 8>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+  if (G <= 12)  // nemotron-4-340b: 96 heads over 8
+    return launch<T, HD, 12>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
   return launch<T, HD, 16>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
 }
 
@@ -370,6 +443,7 @@ cudaError_t dispatch_hd(const void* q, const void* kc, const void* vc, const int
     case 32: return dispatch_g<T, 32>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
     case 64: return dispatch_g<T, 64>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
     case 128: return dispatch_g<T, 128>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 192: return dispatch_g<T, 192>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -400,4 +474,31 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const vo
     return dispatch_hd<__nv_bfloat16>(q, k_cache, v_cache, len, o, scratch, B, S, K, G, hd,
                                       n_split, split_len, sm_scale, st);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the split kernel for dtype (0 f32, 1 bf16), head
+// dim hd and head group gmax (4, 8, 12, 16), or 0 for what it does not take;
+// for the build record.
+template <typename T>
+int smem_of(int hd, int gmax) {
+  auto pick = [gmax](auto c4, auto c8, auto c12, auto c16) {
+    return gmax == 4 ? decltype(c4)::SMEM : gmax == 8 ? decltype(c8)::SMEM
+           : gmax == 12 ? decltype(c12)::SMEM : gmax == 16 ? decltype(c16)::SMEM : 0;
+  };
+  switch (hd) {
+    case 16: return pick(Cfg<T, 16, 4>{}, Cfg<T, 16, 8>{}, Cfg<T, 16, 12>{}, Cfg<T, 16, 16>{});
+    case 32: return pick(Cfg<T, 32, 4>{}, Cfg<T, 32, 8>{}, Cfg<T, 32, 12>{}, Cfg<T, 32, 16>{});
+    case 64: return pick(Cfg<T, 64, 4>{}, Cfg<T, 64, 8>{}, Cfg<T, 64, 12>{}, Cfg<T, 64, 16>{});
+    case 128:
+      return pick(Cfg<T, 128, 4>{}, Cfg<T, 128, 8>{}, Cfg<T, 128, 12>{}, Cfg<T, 128, 16>{});
+    case 192:
+      return pick(Cfg<T, 192, 4>{}, Cfg<T, 192, 8>{}, Cfg<T, 192, 12>{}, Cfg<T, 192, 16>{});
+  }
+  return 0;
+}
+
+extern "C" int decode_attention_smem_bytes(int dtype, int hd, int gmax) {
+  if (dtype == repro::kFloat32) return smem_of<float>(hd, gmax);
+  if (dtype == repro::kBFloat16) return smem_of<__nv_bfloat16>(hd, gmax);
+  return 0;
 }

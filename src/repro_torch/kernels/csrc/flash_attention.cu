@@ -3,14 +3,16 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py,
 // function flash_attention (body _flash_kernel), for the cases the wrapper
-// sends here: f32 at every head dim (16, 32, 64, 128) and bf16 at hd 16 and
-// 32; bf16 at hd 64 and 128 runs on the tensor cores
+// sends here: f32 at every head dim (16, 32, 64, 128, 192) and bf16 at hd 16
+// and 32; bf16 at hd 64, 128 and 192 runs on the tensor cores
 // (flash_attention_wgmma.cu). It computes
 // softmax(q·kᵀ·hd^-½ + mask)·v for q (B,S,H,hd), k/v (B,S,K,hd), where
 // query head h reads kv head h / (H/K); masks col <= row (causal) and
 // col > row - window (window), and, unlike the TPU kernel, col < S: a
 // ragged S needs no padding. Masked logits are -1e30, the denominator is
-// clamped at 1e-30, the output has q's type.
+// clamped at 1e-30, the output has q's type. When the caller passes an
+// lse buffer (training), each row's log-sum-exp ln Σ exp(q·k·sm_scale) goes
+// to it in fp32, (B, H, S), for the backward.
 //
 // What bounds it on the H100: at long S the work is q·kᵀ and p·v,
 // 4·S²·hd FLOPs per head (halved by the causal mask) against
@@ -57,7 +59,7 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int S, int H, int K, int causal, int window, float sm_scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -173,6 +175,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rg * TR + i;
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[((size_t)b * H + h) * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       ob[row * q_row + cg + 8 * j] = from_f32<T>(acc[i][j] * inv);
@@ -180,8 +184,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int S, int H, int K, int causal, int window, float sm_scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int S, int H, int K, int causal, int window, float sm_scale,
                    cudaStream_t stream) {
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -190,23 +194,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, K, causal, window,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, K, causal, window,
       sm_scale);
   return cudaGetLastError();
 }
 
-// bf16 at hd 64 and 128 is flash_attention_wgmma.cu's
+// bf16 at hd 64, 128 and 192 is flash_attention_wgmma.cu's
 template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int S, int H, int K, int hd, int causal,
-                        int window, float sm_scale, cudaStream_t stream) {
+                        int window, float sm_scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
   }
   if constexpr (std::is_same_v<T, float>) {
-    if (hd == 64) return launch<T, 64>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
-    if (hd == 128) return launch<T, 128>(q, k, v, o, B, S, H, K, causal, window, sm_scale, stream);
+    if (hd == 64) return launch<T, 64>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
+    if (hd == 128) return launch<T, 128>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
+    if (hd == 192) return launch<T, 192>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -214,16 +219,32 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd), all contiguous, one dtype.
+// lse: null, or fp32 (B,H,S) that receives each row's log-sum-exp.
 // window <= 0 means no window. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int S, int H,
+                                   void* o, void* lse, int dtype, int B, int S, int H,
                                    int K, int hd, int causal, int window,
                                    float sm_scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(q, k, v, o, B, S, H, K, hd, causal, window, sm_scale, st);
+    return dispatch_hd<float>(q, k, v, o, l, B, S, H, K, hd, causal, window, sm_scale, st);
   if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, K, hd, causal, window, sm_scale, st);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, o, l, B, S, H, K, hd, causal, window, sm_scale,
+                                      st);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the kernel at head dim hd (both dtypes stage in
+// fp32), or 0 for a head dim it does not take; for the build record.
+extern "C" int flash_attention_fwd_smem_bytes(int hd) {
+  switch (hd) {
+    case 16: return smem_floats<16>() * (int)sizeof(float);
+    case 32: return smem_floats<32>() * (int)sizeof(float);
+    case 64: return smem_floats<64>() * (int)sizeof(float);
+    case 128: return smem_floats<128>() * (int)sizeof(float);
+    case 192: return smem_floats<192>() * (int)sizeof(float);
+  }
+  return 0;
 }

@@ -1,28 +1,30 @@
-// Flash attention backward for Hopper (sm_90a): the gradients dq, dk, dv of
-// o = softmax(q·kᵀ·hd^-½ + mask)·v for the forward's shapes and masks:
-// q, o, dO (B,S,H,hd), k/v (B,S,K,hd), query head h reading kv head
-// h / (H/K), causal (col <= row) and sliding window (col > row - window),
-// a ragged S masked by column; fp32 or bf16 inputs, fp32 arithmetic,
-// outputs in the inputs' type.
+// Flash attention backward for Hopper (sm_90a) on fp32 FMAs: the gradients
+// dq, dk, dv of o = softmax(q·kᵀ·hd^-½ + mask)·v for the forward's shapes
+// and masks: q, o, dO (B,S,H,hd), k/v (B,S,K,hd), query head h reading kv
+// head h / (H/K), causal (col <= row) and sliding window
+// (col > row - window), a ragged S masked by column; fp32 arithmetic,
+// outputs in the inputs' type. The wrapper sends here f32 at every head dim
+// (16, 32, 64, 128, 192) and bf16 at hd 16 and 32; bf16 at hd 64, 128 and
+// 192 runs on the tensor cores (flash_attention_bwd_wgmma.cu).
 //
 // Replaces no TPU kernel: the JAX package has no Pallas backward, and its
 // training step differentiates the plain attention (models/layers.py,
 // sdpa) through XLA. This computes the same gradient.
 //
-// Algorithm (FlashAttention-2's backward without a saved log-sum-exp: the
-// forward kernels keep theirs in registers). With s = q·kᵀ·scale,
-// p = exp(s - lse), D_i = Σ_d dO_id·O_id:
+// Algorithm (FlashAttention-2's backward, the row log-sum-exp lse saved by
+// the forward). With s = q·kᵀ·scale, p = exp(s - lse), D_i = Σ_d dO_id·O_id:
 //   dv = pᵀ·dO,  dp = dO·vᵀ,  ds = p ⊙ (dp - D),  dq = ds·k·scale,
 //   dk = dsᵀ·q·scale.
 // Two kernels, one stream, no atomics, so the result is deterministic:
 //   1. flash_bwd_dq_kernel, one block per (64-row q tile, b·h): D of its
-//      rows from dO and O; a pass over the kv tiles for each row's max and
-//      sum (lse); then a second pass that recomputes p, forms ds and
-//      accumulates dq in registers. It writes lse and D for kernel 2.
-//   2. flash_bwd_dkdv_kernel, one block per (64-key kv tile, b·kv head):
-//      keeps its K and V tile in shared memory and dk, dv in registers,
-//      and loops over the G = H/K query heads of its group and their q
-//      tiles, so the sum over the group's heads happens in the block.
+//      rows from dO and O, then one pass over the kv tiles that recomputes
+//      p from lse, forms ds and accumulates dq in registers. It writes D for
+//      kernel 2.
+//   2. flash_bwd_dkdv_kernel, one block per (kv tile, b·kv head): keeps its
+//      K and V tile in shared memory and dk, dv in registers, and loops over
+//      the G = H/K query heads of its group and their q tiles, so the sum
+//      over the group's heads happens in the block. Its tile is 64 keys, or
+//      32 at hd 192, where 64 would need 231 KB of shared memory.
 // q tiles wholly above the diagonal or outside the window are skipped in
 // both, as in the forward.
 //
@@ -30,29 +32,32 @@
 // the backward needs the recomputed q·kᵀ and four gradient products,
 // 10·hd FLOPs, against a few bytes per element of q, k, v, o, dO, dq, dk,
 // dv: far above the card's ridge, so the bound is the tensor-core rate
-// (989 TFLOP/s bf16; 67 TFLOP/s for fp32 FMAs). This first kernel does not
+// (989 TFLOP/s bf16; 67 TFLOP/s for fp32 FMAs). This kernel does not
 // approach it: every product runs as fp32 FMAs on the CUDA cores, 128
 // threads each owning a 4 × 8 tile of the 64 × 64 scores (as in
-// flash_attention.cu), and q·kᵀ is computed three times per pair instead
-// of twice. Moving the products onto wgmma, with the row lse written by
-// the forward kernels, is the next step.
+// flash_attention.cu), and q·kᵀ and dO·vᵀ are computed once in each
+// kernel. bf16 at hd 64 and up takes the wgmma kernels instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 using repro::from_f32;
-using repro::kNegInf;
 using repro::load_rows;
 
 constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile (== BQ: q and kv tiles align)
+constexpr int BK = 64;        // keys per tile of the dq kernel
 constexpr int THREADS = 128;  // 16 row groups x 8 column groups
 constexpr int TR = 4;         // tile rows per thread
 constexpr int TC = 8;         // tile columns per thread (stride 8)
-static_assert(BQ == BK, "the kv-tile kernel starts its causal q range at k0");
+
+// keys per tile of the dk/dv kernel: 64, or 32 at hd 192 (shared memory)
+template <int HD>
+__host__ __device__ constexpr int bkv() { return HD > 128 ? 32 : 64; }
 
 template <int HD>
 constexpr int dq_smem_floats() {
@@ -63,10 +68,10 @@ constexpr int dq_smem_floats() {
 
 template <int HD>
 constexpr int dkdv_smem_floats() {
-  return 2 * BK * (HD + 1)    // Ks, Vs
-         + 2 * BQ * (HD + 1)  // Qs, dOs
-         + 2 * BK * (BQ + 1)  // PT, DST
-         + 2 * BQ;            // Ls, Ds
+  return 2 * bkv<HD>() * (HD + 1)    // Ks, Vs
+         + 2 * BQ * (HD + 1)         // Qs, dOs
+         + 2 * bkv<HD>() * (BQ + 1)  // PT, DST
+         + 2 * BQ;                   // Ls, Ds
 }
 
 __device__ __forceinline__ bool visible(int row, int col, int S, int causal, int window) {
@@ -79,24 +84,24 @@ __device__ __forceinline__ float sum8(float x) {  // over the 8 lanes of a row g
   return x;
 }
 
-// acc[i][j] += Σ_d A[(r_i)·(HD+1) + d] · B[(c_j)·(HD+1) + d] for the thread's
-// rows r_i = rg·TR + i and columns c_j = cg + 8j.
-template <int HD>
-__device__ __forceinline__ void tile_dot(float (&acc)[TR][TC], const float* A, const float* B,
+// acc[i][j] = Σ_d A[(r_i)·(HD+1) + d] · B[(c_j)·(HD+1) + d] for the thread's
+// rows r_i = rg·NR + i and columns c_j = cg + 8j.
+template <int HD, int NR>
+__device__ __forceinline__ void tile_dot(float (&acc)[NR][TC], const float* A, const float* B,
                                          int rg, int cg) {
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < NR; ++i)
 #pragma unroll
     for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float a[TR], bb[TC];
+    float a[NR], bb[TC];
 #pragma unroll
-    for (int i = 0; i < TR; ++i) a[i] = A[(rg * TR + i) * (HD + 1) + d];
+    for (int i = 0; i < NR; ++i) a[i] = A[(rg * NR + i) * (HD + 1) + d];
 #pragma unroll
     for (int j = 0; j < TC; ++j) bb[j] = B[(cg + 8 * j) * (HD + 1) + d];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int i = 0; i < NR; ++i)
 #pragma unroll
       for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
   }
@@ -106,8 +111,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, T* __restrict__ dq,
-                    float* __restrict__ lse_out, float* __restrict__ delta_out,
+                    const T* __restrict__ dout, const float* __restrict__ lse_in,
+                    T* __restrict__ dq, float* __restrict__ delta_out,
                     int S, int H, int K, int causal, int window, float sm_scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -133,7 +138,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_rows<T, HD, BQ, THREADS>(Vs, HD + 1, o + q_off, q_row, q0, S);  // O, for D
   __syncthreads();
 
-  float delta[TR], m[TR], l[TR];
+  // D of each row, and its lse from the forward
+  float delta[TR], lse[TR];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int r = rg * TR + i;
@@ -142,55 +148,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < HD / 8; ++j)
       part = fmaf(dOs[r * (HD + 1) + cg + 8 * j], Vs[r * (HD + 1) + cg + 8 * j], part);
     delta[i] = sum8(part);
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    const int row = q0 + r;
+    lse[i] = row < S ? lse_in[((size_t)b * H + h) * S + row] : 0.f;
+    if (cg == 0 && row < S) delta_out[((size_t)b * H + h) * S + row] = delta[i];
   }
 
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
-  // pass 1: each row's max and sum of exp over its visible keys
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // Ks (and, the first time, Vs holding O) consumed
-    load_rows<T, HD, BK, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, S);
-    __syncthreads();
-    float s[TR][TC];
-    tile_dot<HD>(s, Qs, Ks, rg, cg);
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int row = q0 + rg * TR + i;
-      bool valid[TC];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        valid[j] = visible(row, k0 + cg + 8 * j, S, causal, window);
-        s[i][j] = valid[j] ? s[i][j] * sm_scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) sum += valid[j] ? expf(s[i][j] - m_new) : 0.f;
-      l[i] = l[i] * expf(m[i] - m_new) + sum8(sum);
-      m[i] = m_new;
-    }
-  }
-
-  float lse[TR];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    lse[i] = m[i] + logf(fmaxf(l[i], 1e-30f));
-    const int row = q0 + rg * TR + i;
-    if (cg == 0 && row < S) {
-      lse_out[((size_t)b * H + h) * S + row] = lse[i];
-      delta_out[((size_t)b * H + h) * S + row] = delta[i];
-    }
-  }
-
-  // pass 2: ds = p ⊙ (dO·vᵀ - D), dq += ds·k
+  // one pass: ds = p ⊙ (dO·vᵀ - D), dq += ds·k
   float acc[TR][HD / 8];
 #pragma unroll
   for (int i = 0; i < TR; ++i)
@@ -198,13 +164,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < HD / 8; ++j) acc[i][j] = 0.f;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // Ks, Vs and DS of the previous tile consumed
+    __syncthreads();  // Ks, Vs (the first time holding O) and DS consumed
     load_rows<T, HD, BK, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, S);
     load_rows<T, HD, BK, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, S);
     __syncthreads();
     float s[TR][TC], dp[TR][TC];
-    tile_dot<HD>(s, Qs, Ks, rg, cg);
-    tile_dot<HD>(dp, dOs, Vs, rg, cg);
+    tile_dot<HD, TR>(s, Qs, Ks, rg, cg);
+    tile_dot<HD, TR>(dp, dOs, Vs, rg, cg);
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       const int row = q0 + rg * TR + i;
@@ -249,20 +215,22 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv,
                       int S, int H, int K, int causal, int window, float sm_scale) {
+  constexpr int BKV = bkv<HD>();  // keys of the block's tile
+  constexpr int TRK = BKV / 16;   // of them per thread
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * (HD + 1);
-  float* Qs = Vs + BK * (HD + 1);
+  float* Vs = Ks + BKV * (HD + 1);
+  float* Qs = Vs + BKV * (HD + 1);
   float* dOs = Qs + BQ * (HD + 1);
   float* PT = dOs + BQ * (HD + 1);
-  float* DST = PT + BK * (BQ + 1);
-  float* Ls = DST + BK * (BQ + 1);
+  float* DST = PT + BKV * (BQ + 1);
+  float* Ls = DST + BKV * (BQ + 1);
   float* Ds = Ls + BQ;
 
   const int tid = threadIdx.x;
-  const int rg = tid / 8;  // keys rg*TR .. rg*TR+TR-1
+  const int rg = tid / 8;  // keys rg*TRK .. rg*TRK+TRK-1
   const int cg = tid % 8;  // query rows cg + 8*j (scores), dims cg + 8*j (dk, dv)
-  const int k0 = blockIdx.x * BK;  // under the causal mask early tiles have the most rows
+  const int k0 = blockIdx.x * BKV;  // under the causal mask early tiles have the most rows
   const int b = blockIdx.y / K;
   const int kh = blockIdx.y % K;
   const int G = H / K;
@@ -270,17 +238,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_row = (size_t)K * HD;
   const size_t kv_off = (size_t)b * S * kv_row + (size_t)kh * HD;
 
-  load_rows<T, HD, BK, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, S);
-  load_rows<T, HD, BK, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, S);
+  load_rows<T, HD, BKV, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, S);
+  load_rows<T, HD, BKV, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, S);
 
-  float adk[TR][HD / 8], adv[TR][HD / 8];
+  float adk[TRK][HD / 8], adv[TRK][HD / 8];
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < TRK; ++i)
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) adk[i][j] = adv[i][j] = 0.f;
 
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
+  const int q_begin = causal ? k0 / BQ * BQ : 0;
+  const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
@@ -297,29 +265,29 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         Ds[tid] = row < S ? delta_h[row] : 0.f;
       }
       __syncthreads();
-      float s[TR][TC], dp[TR][TC];
-      tile_dot<HD>(s, Ks, Qs, rg, cg);   // sᵀ: keys x query rows
-      tile_dot<HD>(dp, Vs, dOs, rg, cg);  // dpᵀ
+      float s[TRK][TC], dp[TRK][TC];
+      tile_dot<HD, TRK>(s, Ks, Qs, rg, cg);   // sᵀ: keys x query rows
+      tile_dot<HD, TRK>(dp, Vs, dOs, rg, cg);  // dpᵀ
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const int col = k0 + rg * TR + i;
+      for (int i = 0; i < TRK; ++i) {
+        const int col = k0 + rg * TRK + i;
 #pragma unroll
         for (int j = 0; j < TC; ++j) {
           const int r = cg + 8 * j;
           const float p = visible(q0 + r, col, S, causal, window)
                               ? expf(s[i][j] * sm_scale - Ls[r]) : 0.f;
-          PT[(rg * TR + i) * (BQ + 1) + r] = p;
-          DST[(rg * TR + i) * (BQ + 1) + r] = p * (dp[i][j] - Ds[r]);
+          PT[(rg * TRK + i) * (BQ + 1) + r] = p;
+          DST[(rg * TRK + i) * (BQ + 1) + r] = p * (dp[i][j] - Ds[r]);
         }
       }
       __syncthreads();
 #pragma unroll 4
       for (int qq = 0; qq < BQ; ++qq) {
-        float p[TR], ds[TR], dov[HD / 8], qv[HD / 8];
+        float p[TRK], ds[TRK], dov[HD / 8], qv[HD / 8];
 #pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          p[i] = PT[(rg * TR + i) * (BQ + 1) + qq];
-          ds[i] = DST[(rg * TR + i) * (BQ + 1) + qq];
+        for (int i = 0; i < TRK; ++i) {
+          p[i] = PT[(rg * TRK + i) * (BQ + 1) + qq];
+          ds[i] = DST[(rg * TRK + i) * (BQ + 1) + qq];
         }
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j) {
@@ -327,7 +295,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           qv[j] = Qs[qq * (HD + 1) + cg + 8 * j];
         }
 #pragma unroll
-        for (int i = 0; i < TR; ++i)
+        for (int i = 0; i < TRK; ++i)
 #pragma unroll
           for (int j = 0; j < HD / 8; ++j) {
             adv[i][j] = fmaf(p[i], dov[j], adv[i][j]);
@@ -340,8 +308,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dkb = dk + kv_off;
   T* dvb = dv + kv_off;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int key = k0 + rg * TR + i;
+  for (int i = 0; i < TRK; ++i) {
+    const int key = k0 + rg * TRK + i;
     if (key >= S) continue;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -353,7 +321,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, void* dq, void* dk, void* dv, float* lse,
+                   const void* dout, const float* lse, void* dq, void* dk, void* dv,
                    float* delta, int B, int S, int H, int K, int causal, int window,
                    float sm_scale, cudaStream_t stream) {
   const int smem_dq = dq_smem_floats<HD>() * (int)sizeof(float);
@@ -364,30 +332,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + BQ - 1) / BQ;
-  flash_bwd_dq_kernel<T, HD><<<dim3(tiles, B * H), THREADS, smem_dq, stream>>>(
+  flash_bwd_dq_kernel<T, HD><<<dim3((S + BQ - 1) / BQ, B * H), THREADS, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<T*>(dq), lse,
-      delta, S, H, K, causal, window, sm_scale);
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), delta,
+      S, H, K, causal, window, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T, HD><<<dim3(tiles, B * K), THREADS, smem_dkdv, stream>>>(
+  constexpr int BKV = bkv<HD>();
+  flash_bwd_dkdv_kernel<T, HD><<<dim3((S + BKV - 1) / BKV, B * K), THREADS, smem_dkdv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       S, H, K, causal, window, sm_scale);
   return cudaGetLastError();
 }
 
+// bf16 at hd 64, 128 and 192 is flash_attention_bwd_wgmma.cu's
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, void* dq, void* dk, void* dv, float* lse,
+                        const void* dout, const float* lse, void* dq, void* dk, void* dv,
                         float* delta, int B, int S, int H, int K, int hd, int causal,
                         int window, float sm_scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, K, causal, window, sm_scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, K, causal, window, sm_scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, K, causal, window, sm_scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, K, causal, window, sm_scale, st);
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+  }
+  if constexpr (std::is_same_v<T, float>) {
+    switch (hd) {
+      case 64: return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+      case 128: return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+      case 192: return launch<T, 192>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -395,23 +369,37 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q, o, dout, dq (B,S,H,hd); k, v, dk, dv (B,S,K,hd); all contiguous, one
-// dtype. lse and delta: fp32 scratch of B·H·S floats each (the rows'
-// log-sum-exp and Σ dO·O, written by the first kernel, read by the second).
-// window <= 0 means no window. Returns cudaGetLastError() after the launches.
+// dtype. lse: fp32 (B,H,S), each row's log-sum-exp from the forward. delta:
+// fp32 scratch of B·H·S floats (Σ dO·O of each row, written by the first
+// kernel, read by the second). window <= 0 means no window. Returns
+// cudaGetLastError() after the launches.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
-                                   const void* o, const void* dout, void* dq, void* dk,
-                                   void* dv, void* lse, void* delta, int dtype, int B,
-                                   int S, int H, int K, int hd, int causal, int window,
-                                   float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+                                   const void* o, const void* dout, const void* lse,
+                                   void* dq, void* dk, void* dv, void* delta, int dtype,
+                                   int B, int S, int H, int K, int hd, int causal,
+                                   int window, float sm_scale, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || lse == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(q, k, v, o, dout, dq, dk, dv, l, d, B, S, H, K, hd, causal,
+    return dispatch_hd<float>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, hd, causal,
                               window, sm_scale, st);
   if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, B, S, H, K, hd,
+    return dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, hd,
                                       causal, window, sm_scale, st);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the dq (kernel 0) or dk/dv (kernel 1) kernel at
+// head dim hd, or 0 for a head dim they do not take; for the build record.
+extern "C" int flash_attention_bwd_smem_bytes(int hd, int kernel) {
+  switch (hd) {
+    case 16: return (kernel ? dkdv_smem_floats<16>() : dq_smem_floats<16>()) * 4;
+    case 32: return (kernel ? dkdv_smem_floats<32>() : dq_smem_floats<32>()) * 4;
+    case 64: return (kernel ? dkdv_smem_floats<64>() : dq_smem_floats<64>()) * 4;
+    case 128: return (kernel ? dkdv_smem_floats<128>() : dq_smem_floats<128>()) * 4;
+    case 192: return (kernel ? dkdv_smem_floats<192>() : dq_smem_floats<192>()) * 4;
+  }
+  return 0;
 }

@@ -1,11 +1,13 @@
 // Flash attention forward for Hopper (sm_90a) on the tensor cores: bf16
-// inputs at head dim 64 or 128, causal / sliding-window masks,
-// grouped-query heads, fp32 softmax and accumulator, bf16 output.
+// inputs at head dim 64, 128 or 192, causal / sliding-window masks,
+// grouped-query heads, fp32 softmax and accumulator, bf16 output, and on
+// request each row's log-sum-exp for the backward.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py,
 // function flash_attention (body _flash_kernel), for the cases the
-// wrapper sends here: bf16 with hd 64 (smollm-360m) or 128 (llama3, qwen2,
-// chameleon, mixtral). Every other dtype and head dim runs the FMA kernel
+// wrapper sends here: bf16 with hd 64 (smollm-360m), 128 (llama3, qwen2,
+// chameleon, mixtral) or 192 (nemotron-4-340b: 18432 / 96). Every other
+// dtype and head dim runs the FMA kernel
 // in flash_attention.cu (f32 has no tensor-core path within its 2e-5
 // tolerance). It computes softmax(q·kᵀ·hd^-½ + mask)·v for q (B,S,H,hd),
 // k/v (B,S,K,hd), query head h reading kv head h / (H/K), with the masks
@@ -13,6 +15,13 @@
 // needs no padding). Masked logits are -1e30, the denominator is clamped
 // at 1e-30, probabilities are rounded to bf16 before p·v as in the plain
 // version.
+//
+// The log-sum-exp (lse, fp32, (B, H, S)) is written when the caller passes
+// a buffer for it (training), in natural-log units of the scaled logits:
+// lse = ln Σ_col exp(q·k·sm_scale), so p = exp(q·k·sm_scale - lse). The
+// kernel keeps its running max m in raw q·k units and sums base-2
+// exponentials of (s - m)·sm_scale·log2e, so it stores
+// (m·sm_scale·log2e + log2 l)·ln 2.
 //
 // What bounds it on the H100: at long S, 4·hd FLOPs per unmasked
 // query-key pair and head against 2·S·hd·(H+2K) bytes, far above the
@@ -24,7 +33,7 @@
 //   from shared memory; O += p·v with p as the A operand in registers (the
 //   fp32 score fragment is the A-fragment layout, converted to bf16 in
 //   place) and V as the B operand read with the transpose flag;
-// - one producer warp loads the block's q rows once and streams 64-key K
+// - one producer thread loads the block's q rows once and streams 64-key K
 //   and V tiles by TMA into a three-stage ring of shared memory, 128-byte
 //   swizzled to match the wgmma descriptors, each load completing on an
 //   mbarrier; K and V have their own barriers, so q·kᵀ starts while V is
@@ -32,7 +41,8 @@
 // - q/k/v are 4-D tensor maps (hd, heads, S, B): a tile that runs past S
 //   reads zeros, never the next sequence's rows;
 // - two consumer warpgroups own 64 query rows each and share every K/V
-//   tile. Under a plain causal mask, when the whole grid is resident at
+//   tile; the producer's warpgroup hands them its registers (setmaxnreg),
+//   so that hd 192's 96 accumulators a thread do not spill. Under a plain causal mask, when the whole grid is resident at
 //   once, a block pairs q tile y with tile nq-1-y, so every block has the
 //   same work; otherwise it takes two neighbouring tiles, the heaviest
 //   blocks first;
@@ -46,23 +56,20 @@
 // - kv tiles past the causal diagonal or before the window are not loaded,
 //   and a warpgroup skips the products of a tile fully masked for its rows.
 // What holds it back now is in PERF.md (§6, PR 13).
-#include <cuda.h>  // CUtensorMap and the driver's enums only: no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace repro;
+
 constexpr int BQ = 128;                   // query rows per block: 2 warpgroups of 64
 constexpr int CONSUMERS = 256;            // two consumer warpgroups
-constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
-constexpr int ROW_BYTES = 128;            // one swizzled row: 64 bf16
+constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup (hopper.cuh)
 constexpr float kNegInf = -1e30f;         // masked logit, as in the reference kernels
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Each tile is stored as hd/64 column chunks of (rows × 64) bf16: 128-byte
-// rows in TMA's 128-byte swizzle, every chunk on a 1024-byte boundary.
+// Each tile is stored as hd/64 column chunks of (rows × 64) bf16 (hopper.cuh).
 constexpr int BK = 64;                    // keys per kv tile
 constexpr int NSTAGE = 3;                 // K/V ring depth
 
@@ -78,203 +85,7 @@ struct Smem {
   uint64_t empty[NSTAGE];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarrier and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor for a 128-byte-swizzled operand. For a
-// K-major operand `sbo` is the step between 8-row groups (1024 bytes) and
-// `lbo` is unused; for an MN-major operand `lbo` is the step between
-// 64-column chunks and `sbo` the step between groups of 8 k-rows.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup's wgmma are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D(64×64, fp32) (+)= A(64×16, smem, K-major) · B(16×64, smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D(64×128, fp32) (+)= A(64×16, smem, K-major) · B(16×128, smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D(64×64, fp32) += A(64×16, registers) · B(16×64, smem, MN-major: transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D(64×128, fp32) += A(64×16, registers) · B(16×128, smem, MN-major: transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // --- one warpgroup's steps ---------------------------------------------------
-
-// S (64 × BK) = q·kᵀ over hd in steps of 16 columns (32 bytes inside a
-// swizzled row; 4 steps per 64-column chunk), issued and committed, not waited
-template <int HD, int N>
-__device__ __forceinline__ void issue_qk(float (&sc)[N], uint32_t q_addr, uint32_t k_addr) {
-  constexpr int BK = 2 * N;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t step = (kk % 4) * 32;
-    const uint64_t da = sw128_desc(q_addr + (kk / 4) * (BQ * ROW_BYTES) + step, 16, 1024);
-    const uint64_t db = sw128_desc(k_addr + (kk / 4) * (BK * ROW_BYTES) + step, 16, 1024);
-    wgmma_ss(sc, da, db, kk > 0);
-  }
-  wgmma_commit();
-}
-
-// O (64 × hd) += p·v over the tile's keys in steps of 16 (16 rows of V, read
-// transposed: V's hd runs along the rows), issued and committed, not waited
-template <int BK, int N>
-__device__ __forceinline__ void issue_pv(float (&acc)[N], const uint32_t (&pa)[BK / 16][4],
-                                         uint32_t v_addr) {
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j)
-    wgmma_rs(acc, pa[j], sw128_desc(v_addr + j * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
-  wgmma_commit();
-}
 
 // Online softmax in base 2 of one tile's raw scores, in place: sc becomes p.
 // Element i of the fragment is row (i & 2 ? r_hi : r_lo), column
@@ -347,24 +158,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float& m_lo, f
                               causal, window, scale);
 }
 
-// p in bf16 as wgmma's A operand: the fp32 accumulator fragment is the
-// A-fragment layout, so k-step j takes fragment elements 8j .. 8j+7
-template <int BK>
-__device__ __forceinline__ void to_a_operand(const float (&p)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pa[j][r] = pack_bf16(p[8 * j + 2 * r], p[8 * j + 2 * r + 1]);
-  }
-}
-
 // --- the kernel ------------------------------------------------------------
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   int S, int H, int K, int causal, int window, int paired, float scale_log2) {
+                   float* __restrict__ lse, int S, int H, int K, int causal, int window,
+                   int paired, float scale_log2) {
   using Sm = Smem<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -405,7 +206,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   __syncthreads();
 
   if (tid >= CONSUMERS) {
-    // producer warp: one thread issues every load
+    producer_regs();
+    // producer warpgroup: one thread issues every load
     if (tid == CONSUMERS) {
       constexpr uint32_t kTileBytes = BK * HD * 2;
       mbar_expect_tx(&sm.q_full, (live1 ? 2 : 1) * 64 * HD * 2);
@@ -429,6 +231,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     return;
   }
 
+  consumer_regs();
   // consumer warpgroup wg owns query rows row0 .. row0 + 63
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -450,9 +253,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float sc[BK / 2];         // scores, then probabilities, of the newest tile
-  uint32_t pa[BK / 16][4];  // the tile before it's probabilities: the A operand of p·v
+  uint32_t pa[4][4];        // the tile before it's probabilities: the A operand of p·v
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
   const uint32_t q_addr = smem_u32(sm.q[0]) + 64 * wg * ROW_BYTES;
+  constexpr uint32_t kQChunk = BQ * ROW_BYTES, kKvChunk = BK * ROW_BYTES;
   auto k_addr = [&](int it) { return smem_u32(sm.k[it % NSTAGE][0]); };
   auto v_addr = [&](int it) { return smem_u32(sm.v[it % NSTAGE][0]); };
   auto wait_tile = [&](uint64_t (&bars)[NSTAGE], int it) {
@@ -473,21 +277,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   if (it_lo < it_hi) {
     wait_tile(sm.k_full, it_lo);
-    issue_qk<HD>(sc, q_addr, k_addr(it_lo));
+    issue_ss<HD>(sc, q_addr, kQChunk, k_addr(it_lo), kKvChunk);
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile<BK>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kv_begin + it_lo * BK, row0, r_lo,
                      r_hi, lane % 4, S, causal, window, scale_log2);
     // acc is still zero: nothing to rescale
-    to_a_operand<BK>(sc, pa);
+    to_a_operand(sc, pa);
     // steady state: q·kᵀ of tile it and p·v of tile it-1 are issued
     // together; the softmax of tile it overlaps p·v of tile it-1
     for (int it = it_lo + 1; it < it_hi; ++it) {
       wait_tile(sm.k_full, it);
-      issue_qk<HD>(sc, q_addr, k_addr(it));
+      issue_ss<HD>(sc, q_addr, kQChunk, k_addr(it), kKvChunk);
       wait_tile(sm.v_full, it - 1);
       fence_regs(acc);
-      issue_pv<BK>(acc, pa, v_addr(it - 1));
+      issue_rs(acc, pa, v_addr(it - 1), kKvChunk);
       wgmma_wait<1>();  // q·kᵀ of tile it is done
       fence_regs(sc);
       softmax_tile<BK>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kv_begin + it * BK, row0, r_lo,
@@ -497,11 +301,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       release(it - 1);
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? a_hi : a_lo;
-      to_a_operand<BK>(sc, pa);
+      to_a_operand(sc, pa);
     }
     wait_tile(sm.v_full, it_hi - 1);
     fence_regs(acc);
-    issue_pv<BK>(acc, pa, v_addr(it_hi - 1));
+    issue_rs(acc, pa, v_addr(it_hi - 1), kKvChunk);
     wgmma_wait<0>();
     fence_regs(acc);
     release(it_hi - 1);
@@ -519,6 +323,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {  // one thread of the row's quad
+    float* lb = lse + ((size_t)b * H + h) * S;
+    if (r_lo < S) lb[r_lo] = fmaf(m_lo, scale_log2, log2f(fmaxf(l_lo, 1e-30f))) * kLn2;
+    if (r_hi < S) lb[r_hi] = fmaf(m_hi, scale_log2, log2f(fmaxf(l_hi, 1e-30f))) * kLn2;
+  }
   const size_t row_stride = (size_t)H * HD;
   __nv_bfloat16* ob = o + (size_t)b * S * row_stride + (size_t)h * HD;
 #pragma unroll
@@ -534,48 +343,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
 // --- host side -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, hd) bf16, contiguous, as a 4-D map (hd, heads, S, B) whose
-// box is 64 columns of one head over `rows` positions of one sequence
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int hd, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int K, int causal, int window, float sm_scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int H, int K, int causal, int window, float sm_scale,
+                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, S, H, HD, 64) || !make_map(&tk, k, B, S, K, HD, BK) ||
       !make_map(&tv, v, B, S, K, HD, BK))
@@ -596,7 +367,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(B * H, (S + BQ - 1) / BQ);  // pairs of 64-row q tiles
   const int paired = causal && window <= 0 && (long)grid.x * grid.y <= resident;
   flash_wgmma_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, causal, window, paired,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, K, causal, window, paired,
       sm_scale * kLog2e);
   return cudaGetLastError();
 }
@@ -604,14 +375,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd): bf16, contiguous, 16-byte
-// aligned; hd 64 or 128. window <= 0 means no window. Returns
+// aligned; hd 64, 128 or 192. lse: null, or fp32 (B,H,S) that receives each
+// row's log-sum-exp. window <= 0 means no window. Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int B, int S, int H, int K, int hd, int causal,
-                                         int window, float sm_scale, void* stream) {
+                                         void* lse, int B, int S, int H, int K, int hd,
+                                         int causal, int window, float sm_scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(q, k, v, o, B, S, H, K, causal, window, sm_scale, st);
-  if (hd == 128) return launch<128>(q, k, v, o, B, S, H, K, causal, window, sm_scale, st);
+  float* l = static_cast<float*>(lse);
+  if (hd == 64) return launch<64>(q, k, v, o, l, B, S, H, K, causal, window, sm_scale, st);
+  if (hd == 128) return launch<128>(q, k, v, o, l, B, S, H, K, causal, window, sm_scale, st);
+  if (hd == 192) return launch<192>(q, k, v, o, l, B, S, H, K, causal, window, sm_scale, st);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the kernel at head dim hd, or 0 for a head dim
+// it does not take; for the build record.
+extern "C" int flash_attention_wgmma_smem_bytes(int hd) {
+  if (hd == 64) return (int)sizeof(Smem<64>) + 1024;
+  if (hd == 128) return (int)sizeof(Smem<128>) + 1024;
+  if (hd == 192) return (int)sizeof(Smem<192>) + 1024;
+  return 0;
 }

@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 MAX_G = 16  # query heads per kv head (csrc/decode_attention.cu)
 TILE = 64  # keys per tile (csrc/decode_attention.cu, BK)
 SPLIT_KEYS = 256  # fewest keys a split is given

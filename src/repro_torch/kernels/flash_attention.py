@@ -1,14 +1,20 @@
-"""Flash attention forward as CUDA C++ kernels.
+"""Flash attention forward and backward as CUDA C++ kernels.
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``. Causal
 and sliding-window masks, GQA (query head h reads kv head h // (H/K)), a
 ragged S masked in the kernel (no padding), fp32 softmax and accumulator,
-output in q's dtype. The dtype and head dim alone choose the kernel: bf16
-at hd 64 or 128 runs on the tensor cores (``csrc/flash_attention_wgmma.cu``:
-wgmma, TMA loads, a warp-specialised pipeline), everything else on fp32
-FMAs (``csrc/flash_attention.cu``). ``launch_bwd`` runs the backward
-(``csrc/flash_attention_bwd.cu``: dq, dk, dv on fp32 FMAs, for every dtype
-and head dim the forward takes). Launch through ``ops.flash_attention``.
+output in q's dtype, head dims 16, 32, 64, 128 and 192. The dtype and head
+dim alone choose the kernels (``uses_tensor_cores``):
+
+- bf16 at hd 64, 128 or 192 runs on the tensor cores: the forward in
+  ``csrc/flash_attention_wgmma.cu``, the backward in
+  ``csrc/flash_attention_bwd_wgmma.cu`` (wgmma, TMA loads, a
+  warp-specialised pipeline);
+- everything else (f32 at every head dim, bf16 at hd 16 and 32) runs on
+  fp32 FMAs: ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``.
+
+``launch`` writes each row's log-sum-exp when given a buffer for it;
+``launch_bwd`` needs it. Launch through ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -20,8 +26,8 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core kernel
+HEAD_DIMS = (16, 32, 64, 128, 192)
+WGMMA_HEAD_DIMS = (64, 128, 192)  # bf16 head dims of the tensor-core kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -29,8 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _fn():
     fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -38,7 +43,7 @@ def _fn():
 @functools.cache
 def _wgmma_fn():
     fn = _build.library("flash_attention_wgmma").flash_attention_wgmma_fwd
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -51,8 +56,17 @@ def _bwd_fn():
     return fn
 
 
+@functools.cache
+def _bwd_wgmma_fn():
+    fn = _build.library("flash_attention_bwd_wgmma").flash_attention_bwd_wgmma
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.restype = _I
+    return fn
+
+
 def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
-    """Whether ``launch`` runs the wgmma kernel for this dtype and head dim."""
+    """Whether ``launch`` and ``launch_bwd`` run the wgmma kernels for this
+    dtype and head dim (else the FMA kernels)."""
     return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
 
 
@@ -85,15 +99,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"flash_attention: window {window} < 1")
 
 
+def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
+    B, S, H, _ = q.shape
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, S) or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}: need contiguous float32 ({B}, {H}, {S}) on {q.device}")
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, window: int | None) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,K,hd) on one CUDA device -> (B,S,H,hd)."""
+           causal: bool, window: int | None,
+           lse: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,S,K,hd) on one CUDA device -> (B,S,H,hd). With
+    ``lse`` (fp32 (B,H,S)) the kernel also writes each row's log-sum-exp
+    ln Σ exp(q·k·hd^-½) over its visible keys into it, for ``launch_bwd``."""
     _check(q, k, v, window)
+    if lse is not None:
+        _check_lse(q, lse)
     B, S, H, hd = q.shape
     K = k.shape[2]
     o = torch.empty_like(q)
     win = -1 if window is None else int(window)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if uses_tensor_cores(q.dtype, hd):
@@ -106,23 +134,31 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-               do: torch.Tensor, *, causal: bool, window: int | None
+               do: torch.Tensor, lse: torch.Tensor, *, causal: bool, window: int | None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``launch``'s output: q, o (its output), do (the output's
-    gradient) (B,S,H,hd), k/v (B,S,K,hd), on one CUDA device -> (dq, dk, dv)
-    in the inputs' dtype. Two kernels, one stream: the first writes each
-    row's log-sum-exp and Σ do·o into fp32 scratch for the second."""
+    gradient) (B,S,H,hd), k/v (B,S,K,hd), lse (fp32 (B,H,S), as ``launch``
+    wrote it), on one CUDA device -> (dq, dk, dv) in the inputs' dtype.
+
+    bf16 at hd 64, 128 or 192 (``uses_tensor_cores``): three kernels on
+    one stream, D = Σ do·o per row into fp32 scratch, then dq, then dk and
+    dv. Otherwise two FMA kernels: dq (which writes D), then dk
+    and dv. Neither uses atomics: the same inputs give the same bits."""
     _check(q, k, v, window, o=o, do=do)
+    _check_lse(q, lse)
     B, S, H, hd = q.shape
     K = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     win = -1 if window is None else int(window)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        stats[0].data_ptr(), stats[1].data_ptr(), DTYPES[q.dtype],
-                        B, S, H, K, hd, int(causal), win, hd ** -0.5, stream)
+        if uses_tensor_cores(q.dtype, hd):
+            err = _bwd_wgmma_fn()(*ptrs, B, S, H, K, hd, int(causal), win, hd ** -0.5, stream)
+        else:
+            err = _bwd_fn()(*ptrs, DTYPES[q.dtype], B, S, H, K, hd, int(causal), win,
+                            hd ** -0.5, stream)
     _build.check(err, "flash_attention_bwd")
     return dq, dk, dv

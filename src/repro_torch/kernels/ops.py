@@ -7,10 +7,12 @@ a plain integer attribute, ``<wrapper>.launches``, so a run can show that
 its path went through the kernel.
 
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward is
-``flash_attention_bwd`` (the backward kernel on the card, counted in
+``flash_attention_bwd`` (the backward kernels on the card, counted in
 ``flash_attention.bwd_launches``; autograd of the plain version on the
-CPU). Under ``torch.no_grad()``, or for inputs that need no grad, it
-records no graph and launches the forward alone. The other two kernels
+CPU). When it records a graph, the forward kernel also writes each row's
+log-sum-exp, which the backward kernels read. Under ``torch.no_grad()``,
+or for inputs that need no grad, it records no graph, allocates no
+log-sum-exp and launches the forward alone. The other two kernels
 have no backward: on the card they raise under grad rather than return
 a tensor that silently carries no gradient.
 """
@@ -54,41 +56,54 @@ def _no_backward(name: str, roadmap: str) -> NotImplementedError:
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, recording):
+        lse = None
         if _on_cpu(q, k, v):
             out = flash_attention_ref(q, k, v, causal=causal, window=window)
         else:
-            out = _fa.launch(q, k, v, causal=causal, window=window)
+            if recording:  # the backward kernels read each row's log-sum-exp
+                B, S, H, _ = q.shape
+                lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+            out = _fa.launch(q, k, v, causal=causal, window=window, lse=lse)
             with _count_lock:
                 flash_attention.launches += 1
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse=lse,
                                          causal=causal, window=window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in q.dtype; differentiable."""
-    return _FlashAttention.apply(q, k, v, causal, window)
+    # grad mode is off inside Function.forward: whether a graph is recorded
+    # is decided here
+    return _FlashAttention.apply(q, k, v, causal, window, _needs_grad(q, k, v))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        lse: torch.Tensor | None = None, causal: bool = True,
                         window: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v), whose output was
-    ``out``, against the output's gradient ``dout`` (shaped like q)."""
+    ``out``, against the output's gradient ``dout`` (shaped like q). On the
+    card ``lse`` (fp32 (B,H,S)) is required: each row's log-sum-exp as the
+    forward kernel wrote it (``flash_attention.launch(..., lse=)``); nothing
+    recomputes it. On the CPU it is not read."""
     if _on_cpu(q, k, v, out, dout):
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
-    grads = _fa.launch_bwd(q, k, v, out, dout, causal=causal, window=window)
+    if lse is None:
+        raise ValueError("flash_attention_bwd: on the card the backward reads each row's "
+                         "log-sum-exp from the forward; pass lse=")
+    grads = _fa.launch_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
     with _count_lock:
         flash_attention.bwd_launches += 1
     return grads
@@ -101,7 +116,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
     if _needs_grad(q, k_cache, v_cache):
         raise _no_backward("decode_attention", "it serves decoding only, ROADMAP.md "
-                           "queue 2 item 2; training runs flash_attention")
+                           "queue 2; training runs flash_attention")
     out = _dec.launch(q, k_cache, v_cache, kv_len)
     with _count_lock:
         decode_attention.launches += 1
@@ -120,7 +135,7 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.
         return mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=chunk, state=state)
     if _needs_grad(q, k, v, log_f, i_gate, *(state or ())):
         raise _no_backward("mlstm_chunk", "xLSTM training waits for an mlstm_chunk "
-                           "backward, ROADMAP.md queue 1 item 3")
+                           "backward, ROADMAP.md queue 1 item 5")
     out = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state)
     with _count_lock:
         mlstm_chunk.launches += 1

@@ -8,7 +8,9 @@ against them. ``flash_attention_bwd_ref`` is autograd of
 ``flash_attention_ref``: the gradient the backward kernel is held to.
 ``flash_attention_bwd_fp32_ref`` computes the same gradient by its
 formulas in fp32 from the forward's output as given, the arithmetic of the
-backward kernel, so a bf16 kernel can be held to it elementwise.
+backward kernel, so a bf16 kernel can be held to it elementwise; given the
+rows' log-sum-exp (``flash_attention_lse_ref``, or the forward kernel's),
+it takes p = exp(s − lse) from it, as the kernels do.
 """
 from __future__ import annotations
 
@@ -50,6 +52,23 @@ def flash_attention_ref(
     return out.reshape(B, Sq, H, hd)
 
 
+def flash_attention_lse_ref(
+    q: torch.Tensor,            # (B, S, H, hd)
+    k: torch.Tensor,            # (B, S, K, hd)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """(B, H, S) fp32: each query row's log-sum-exp ln Σ exp(q·k·hd^-½) over
+    its visible keys, what the forward kernels write for the backward."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.float().reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * (hd ** -0.5)
+    s = torch.where(_visible(S, k.shape[1], causal, window, q.device), s, NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
 def flash_attention_bwd_ref(
     q: torch.Tensor,            # (B, S, H, hd)
     k: torch.Tensor,            # (B, S, K, hd)
@@ -77,9 +96,11 @@ def flash_attention_bwd_fp32_ref(
     *,
     causal: bool = True,
     window: int | None = None,
+    lse: torch.Tensor | None = None,  # (B, H, S) fp32 rows' log-sum-exp
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in fp32 by the backward's formulas, every input upcast:
-    p = softmax(q·kᵀ·scale), D = Σ_d dO·out, ds = p ⊙ (dO·vᵀ − D),
+    p = softmax(q·kᵀ·scale) (= exp(q·kᵀ·scale − lse) on visible pairs when
+    ``lse`` is given), D = Σ_d dO·out, ds = p ⊙ (dO·vᵀ − D),
     dq = ds·k·scale, dk = dsᵀ·q·scale, dv = pᵀ·dO (summed over each kv
     group's query heads). D comes from the ``out`` given, which the forward
     rounded to the inputs' dtype, as in the backward kernel; the kernel
@@ -92,7 +113,12 @@ def flash_attention_bwd_fp32_ref(
     qg, og, dog = (t.float().reshape(B, S, K, G, hd) for t in (q, out, dout))
     kf, vf = k.float(), v.float()
     s = torch.einsum("bskgh,btkh->bkgst", qg, kf) * scale
-    p = torch.softmax(torch.where(_visible(S, S, causal, window, q.device), s, NEG_INF), dim=-1)
+    visible = _visible(S, S, causal, window, q.device)
+    if lse is None:
+        p = torch.softmax(torch.where(visible, s, NEG_INF), dim=-1)
+    else:
+        lg = lse.float().reshape(B, K, G, S)[..., None]
+        p = torch.where(visible, torch.exp(s - lg), 0.0)
     delta = torch.einsum("bskgh,bskgh->bkgs", dog, og)[..., None]
     ds = p * (torch.einsum("bskgh,btkh->bkgst", dog, vf) - delta)
     dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale

@@ -8,11 +8,15 @@ installed; ``tests/conftest.py`` imports JAX, so on such a machine run
 
 Tolerances: attention f32 2e-5, bf16 2e-2; mLSTM atol 5e-5, rtol 5e-4
 (tests/test_kernels.py), against the plain version computed in f32 from
-the same inputs. The flash backward, per gradient: elementwise against
-its fp32 formulas on the same inputs and forward output (the kernel's
-arithmetic), |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one
-bf16 ulp) and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol
-f32 1e-4 and bf16 3e-2, against autograd of the plain version. A reduced f32 model's train step on the card:
+the same inputs. The rows' log-sum-exp that the flash forward writes for
+the backward: abs 1e-4 against ``flash_attention_lse_ref`` (fp32
+statistics of values of order log S; summation order). The flash backward,
+reading that log-sum-exp, per gradient: elementwise against its fp32
+formulas on the same inputs and forward output (the kernel's arithmetic),
+|err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one bf16 ulp)
+and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and
+bf16 3e-2, against autograd of the plain version; two runs on the same
+inputs give the same bits. A reduced f32 model's train step on the card:
 loss 1e-4, params 2e-3 against the same step on the CPU.
 """
 import dataclasses
@@ -28,6 +32,7 @@ from repro_torch.kernels.ref import (
     decode_attention_ref,
     flash_attention_bwd_fp32_ref,
     flash_attention_bwd_ref,
+    flash_attention_lse_ref,
     flash_attention_ref,
     mlstm_chunk_ref,
 )
@@ -41,6 +46,7 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 BWD_ELT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+LSE_TOL = 1e-4
 
 
 @pytest.fixture
@@ -55,6 +61,7 @@ def cuda():
 @pytest.mark.parametrize("S,H,K,hd,causal,window", [
     (128, 2, 2, 16, True, None), (200, 6, 2, 32, False, None),
     (333, 15, 5, 64, True, 100), (256, 8, 1, 128, True, None),
+    (130, 12, 1, 192, True, None),   # nemotron-4-340b's hd 192 and G = 12
 ])
 def test_flash_kernel_on_card(cuda, dtype, S, H, K, hd, causal, window):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -72,7 +79,8 @@ def test_flash_kernel_on_card(cuda, dtype, S, H, K, hd, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,K,hd", [(100, 15, 5, 64), (512, 8, 2, 32),
-                                      (64, 16, 1, 128), (77, 4, 4, 16)])
+                                      (64, 16, 1, 128), (77, 4, 4, 16),
+                                      (100, 12, 1, 192), (70, 8, 8, 192)])
 def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
     g = torch.Generator(device=cuda).manual_seed(6)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
@@ -85,7 +93,7 @@ def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192])
 @pytest.mark.parametrize("S,H,K,causal,window", [
     (512, 15, 5, True, None),     # G = 3, S a multiple of the 128-row q tile
     (1000, 16, 2, True, None),    # G = 8, ragged S
@@ -117,6 +125,8 @@ def test_flash_tensor_core_kernel_on_card(cuda, hd, S, H, K, causal, window):
     (2, 1000, 64, 8, 128, [999, 17]),            # G = 8, ragged S
     (3, 700, 16, 1, 32, [700, 1, 650]),          # G = 16
     (4, 64, 15, 5, 64, [63, 63, 63, 63]),        # one split: the serving shape
+    (2, 2048, 96, 8, 192, [2047, 700]),          # nemotron-4-340b: hd 192, G = 12
+    (3, 600, 16, 4, 192, [600, 1, 333]),         # hd 192, G = 4
 ])
 def test_decode_split_kernel_on_card(cuda, dtype, B, S, H, K, hd, lens):
     n_split = dec_kernel.split_plan(B, K, S)[0]
@@ -182,9 +192,34 @@ def test_mlstm_kernel_refuses_what_it_does_not_take(cuda):
                         torch.zeros((1, 128, 2), device=cuda), chunk=128)
 
 
+def _forward_with_lse(q, k, v, causal, window):
+    """The forward kernel's output and the rows' log-sum-exp it wrote."""
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return flash_kernel.launch(q, k, v, causal=causal, window=window, lse=lse), lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [("float32", 16), ("float32", 64), ("float32", 192),
+                                      ("bfloat16", 32), ("bfloat16", 64),
+                                      ("bfloat16", 128), ("bfloat16", 192)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_flash_forward_writes_lse_on_card(cuda, dtype, hd, causal, window):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(2, 150, 6, hd), (2, 150, 2, hd), (2, 150, 2, hd)])
+    out, lse = _forward_with_lse(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    with torch.no_grad():  # the same output as without the lse
+        assert torch.equal(out, ops.flash_attention(q, k, v, causal=causal, window=window))
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, causal=causal, window=window),
+                               atol=LSE_TOL, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192])
 @pytest.mark.parametrize("window", [None, 48])
 @pytest.mark.parametrize("H,K", [(2, 2), (6, 2), (8, 1)])  # G = 1, 3, 8
 def test_flash_bwd_kernel_on_card(cuda, dtype, hd, window, H, K):
@@ -193,10 +228,9 @@ def test_flash_bwd_kernel_on_card(cuda, dtype, hd, window, H, K):
     g = torch.Generator(device=cuda).manual_seed(10)
     q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
                    for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd), (2, S, H, hd)])
-    with torch.no_grad():
-        o = ops.flash_attention(q, k, v, causal=True, window=window)
+    o, lse = _forward_with_lse(q, k, v, True, window)  # the backward reads the forward's lse
     n = ops.flash_attention.bwd_launches
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=True, window=window)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, causal=True, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.bwd_launches == n + 1
     want = flash_attention_bwd_ref(q, k, v, do, causal=True, window=window)
@@ -211,15 +245,40 @@ def test_flash_bwd_kernel_on_card(cuda, dtype, hd, window, H, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,S", [("bfloat16", 64, 300), ("bfloat16", 128, 300),
+                                        ("bfloat16", 192, 300), ("float32", 64, 200)])
+def test_flash_bwd_is_deterministic_on_card(cuda, dtype, hd, S):
+    """The engine re-runs step tasks: the same inputs must give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+                   for s in [(2, S, 16, hd), (2, S, 2, hd), (2, S, 2, hd), (2, S, 16, hd)])
+    o, lse = _forward_with_lse(q, k, v, True, None)
+    first = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, causal=True, window=None)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, causal=True, window=None)
+    for a, b in zip(first, again, strict=True):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, v, o, do, causal=True, window=None)
+
+
+@pytest.mark.cuda
 def test_flash_attention_function_launches_the_backward_on_card(cuda):
     g = torch.Generator(device=cuda).manual_seed(11)
     q = torch.randn((1, 100, 6, 64), generator=g, device=cuda).bfloat16().requires_grad_()
     k, v = (torch.randn((1, 100, 2, 64), generator=g, device=cuda).bfloat16().requires_grad_()
             for _ in range(2))
     fwd, bwd = ops.flash_attention.launches, ops.flash_attention.bwd_launches
-    with torch.no_grad():  # no grad wanted: the forward alone, as before
+
+    def allocations():
+        return torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+
+    with torch.no_grad():  # no grad wanted: the forward alone, and no lse
+        before = allocations()
         assert ops.flash_attention(q, k, v).grad_fn is None
+        assert allocations() == before + 1  # the output only
+    before = allocations()
     out = ops.flash_attention(q, k, v)
+    assert allocations() == before + 2  # the output and the rows' lse
     assert out.grad_fn is not None
     out.float().sum().backward()
     assert ops.flash_attention.launches == fwd + 2
@@ -239,7 +298,7 @@ def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
         ops.decode_attention(q, cache, cache, lens)
     x = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
     gate = torch.zeros((1, 64, 2), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
         ops.mlstm_chunk(x, x, x, gate, gate)
     with torch.no_grad():
         ops.mlstm_chunk(x, x, x, gate, gate)

@@ -8,7 +8,11 @@ made with numpy. Tolerances: f32 2e-5, bf16 2e-2 (tests/test_kernels.py).
 Which bf16 arithmetic each comparison holds: both ``flash_attention_ref``s
 (and ``layers.sdpa``) cast the probabilities to q.dtype before p·v; both
 ``decode_attention_ref``s keep them in fp32; the Pallas kernels keep p·v
-in fp32 throughout. The CUDA kernels run only on the card
+in fp32 throughout. The rows' log-sum-exp that the flash forward writes
+for its backward has no JAX counterpart: ``flash_attention_lse_ref`` is
+held to a float64 numpy log-sum-exp of the masked scores (1e-5), and the
+backward's fp32 formulas fed it to the same formulas recomputing it
+(1e-5). The CUDA kernels run only on the card
 (``tests/test_torch_cuda.py``; ``python3 chip_smoke.py`` at full width).
 """
 import jax.numpy as jnp
@@ -22,7 +26,12 @@ from repro.kernels.ref import decode_attention_ref as jax_decode_ref
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.models.layers import sdpa as jax_sdpa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
+from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    flash_attention_bwd_fp32_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 from repro_torch.models.layers import resolve_device, sdpa
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -137,6 +146,50 @@ def test_sdpa_oracle_matches_jax(dtype, Sq, Skv, causal, window, q_offset, kv_le
     if Sq == Skv and not q_offset and kv_len is None:  # the flash oracle's case
         close(flash_attention_ref(qt, kt, vt, causal=causal, window=window),
               jax_sdpa(qj, kj, vj, **kw), dtype)
+
+
+LSE_CASES = [(128, True, None), (200, True, 64), (200, False, None)]  # S = 200: ragged
+
+
+def numpy_lse(q, k, causal, window):
+    """(B, H, S): ln Σ exp(q·k·hd^-½) over each row's visible keys, float64."""
+    B, S, H, hd = q.shape
+    kk = np.repeat(k.astype(np.float64), H // k.shape[2], axis=2)
+    s = np.einsum("bshd,bthd->bhst", q.astype(np.float64), kk) * hd ** -0.5
+    rows, cols = np.arange(S)[:, None], np.arange(S)[None, :]
+    visible = np.ones((S, S), bool)
+    if causal:
+        visible &= cols <= rows
+    if window is not None:
+        visible &= cols > rows - window
+    s = np.where(visible, s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(axis=-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("S,causal,window", LSE_CASES)
+def test_flash_lse_ref_matches_numpy_logsumexp(S, causal, window):
+    rng = np.random.default_rng(S + (window or 0))
+    q = rng.standard_normal((2, S, 6, 32), dtype=np.float32)
+    k = rng.standard_normal((2, S, 2, 32), dtype=np.float32)
+    got = flash_attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), causal=causal,
+                                  window=window)
+    assert got.dtype == torch.float32 and got.shape == (2, 6, S)
+    np.testing.assert_allclose(got.numpy(), numpy_lse(q, k, causal, window), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("S,causal,window", LSE_CASES)
+def test_flash_bwd_fp32_ref_from_given_lse_equals_recomputed(S, causal, window):
+    g = torch.Generator().manual_seed(S)
+    q, k, v, dout = (torch.randn(s, generator=g) for s in
+                     [(2, S, 6, 32), (2, S, 2, 32), (2, S, 2, 32), (2, S, 6, 32)])
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    lse = flash_attention_lse_ref(q, k, causal=causal, window=window)
+    given = flash_attention_bwd_fp32_ref(q, k, v, out, dout, causal=causal, window=window,
+                                         lse=lse)
+    recomputed = flash_attention_bwd_fp32_ref(q, k, v, out, dout, causal=causal, window=window)
+    for a, b in zip(given, recomputed, strict=True):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
 def test_cpu_tensors_use_plain_version_and_count_nothing():

@@ -26,14 +26,17 @@ from repro_torch.models import model as M
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["smollm_360m", "llama3_405b", "qwen2_72b", "nemotron_4_340b", "chameleon_34b",
-         "smollm_360m_g3", "smollm_360m_window8", "xlstm_350m"]
+         "smollm_360m_g3", "smollm_360m_window8", "xlstm_350m", "nemotron_4_340b_hd192"]
 B, S = 2, 16
 
 
 def configs(arch):
     """(JAX config, port config) of one reduced case."""
-    base = arch.split("_g3")[0].split("_window8")[0]
+    base = arch.split("_g3")[0].split("_window8")[0].split("_hd192")[0]
     jcfg, tcfg = jax_reduced(jax_get_config(base)), reduced(get_config(base))
+    if arch.endswith("_hd192"):     # nemotron-4-340b's real head dim, 18432 / 96
+        jcfg = dataclasses.replace(jcfg, head_dim=192)
+        tcfg = dataclasses.replace(tcfg, head_dim=192)
     if arch.endswith("_g3"):        # smollm's 3 query heads per kv head
         jcfg = dataclasses.replace(jcfg, n_heads=6, n_kv_heads=2)
         tcfg = dataclasses.replace(tcfg, n_heads=6, n_kv_heads=2)

@@ -60,13 +60,16 @@ from repro_torch.tree import leaves, map_tree, paths
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ARCHS = ["smollm_360m", "qwen2_72b"]
+ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192"]
 B, S = 4, 16
 OPT = dict(lr=1e-3, warmup=3)
 
 
 def configs(arch, **kw):
-    """(JAX config, port config) of the reduced ``arch``, ``kw`` replaced."""
+    """(JAX config, port config) of the reduced ``arch``, ``kw`` replaced;
+    ``<arch>_hd192`` keeps the head dim at 192 (nemotron-4-340b's)."""
+    if arch.endswith("_hd192"):
+        arch, kw = arch.removesuffix("_hd192"), {"head_dim": 192, **kw}
     return (dataclasses.replace(jax_reduced(jax_get_config(arch)), **kw),
             dataclasses.replace(reduced(get_config(arch)), **kw))
 
