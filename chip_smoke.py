@@ -70,6 +70,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     decode against forward over 64 positions (rel < 5e-2, as smollm's); the
     same in f32 at 1 layer (rel < 1e-3); serving through the engine, 2
     requests x batch 2, prompt 32, gen 16; host seconds and tokens/s.
+13. apps: the paper's workloads as DAGs of the copied engine (default
+    ``EngineConfig``: virtual clock, no simulated compute) through
+    ``repro_torch.launch.apps``: first each app at ``tests/test_apps.py``'s
+    size on the card and on the CPU, with identical ``charged_ms`` /
+    ``kv_stats``; then on the card GEMM n = 10240 in 2048 blocks, TSQR SVD
+    of 4194304 x 128 in 32 blocks with U, randomized SVD (rank 5 + 5) of
+    n = 50000 in 8 blocks with and without ideal storage, SVC on 8388608
+    x 32 in 64 blocks for 4 iterations; each against its float64
+    reference on the card within ``launch.apps``'s stated limits, with
+    host seconds of a first and a second run, device ms and busy share
+    (``torch.profiler``, a third run, which also gives the engine's share
+    of host time: the time outside the outermost torch calls),
+    ``charged_ms`` and KV bytes; the ideal-storage run writes fewer KV
+    bytes and gives the same singular values; the port's kernels launch
+    no time (the payloads are cuBLAS / cuSOLVER calls); last the copied
+    orchestrator over 20 jobs of its default mix gives identical reports
+    on the card and on the CPU.
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
@@ -89,7 +106,9 @@ device time of the backward of
 ``scaled_dot_product_attention(..., enable_gqa=True)``.
 
 Kernel launch counts are set to 0 before each forward, decode-vs-forward,
-serve and train phase (smollm's, xLSTM's and nemotron's) and read after it. The line before the last is
+serve and train phase (smollm's, xLSTM's and nemotron's) and read after it,
+and before each full-size app run of phase 13, which must launch none. The
+line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
@@ -616,6 +635,10 @@ def main() -> int:
     nemotron_launches = run_nemotron(get_config, ops, serve_mod, M, dev, smi)
     free_memory()
 
+    # 13. the paper's workloads through the engine, at paper scale
+    run_apps(ops, smi)
+    free_memory()
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
@@ -769,6 +792,142 @@ def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
     print(f"nemotron (2 layers, bf16): forward {fwd_s:.3f} s, serving "
           f"{summary['mean_tps']:.1f} tokens/s ({smi})", flush=True)
     return fwd_counts["flash_attention"]
+
+
+# Phase 13's card-against-CPU price check runs each app at the sizes of
+# tests/test_apps.py.
+APPS_SMALL = {"gemm": (256, 64), "tsqr": (1024, 32, 8), "rsvd": (512, 8), "svc": (4096, 8, 3)}
+# Fig. 10's ablation: the ideal-storage run regenerates the same blocks and
+# runs the same products on them; its singular values may differ from the
+# normal run's by f32 rounding only if a library call picks another
+# algorithm.
+IDEAL_SV_RTOL = 1e-6
+
+
+def run_apps(ops, smi) -> None:
+    """Phase 13. First each app at a small size on the card and on the CPU:
+    equal engine prices (these runs also load the libraries' kernels). Then
+    GEMM, TSQR SVD, randomized SVD (normal and ideal storage) and SVC
+    through the copied engine on the card at ``launch.apps.SIZES``: a first
+    run held to its float64 reference on the card (host seconds ``cold_s``:
+    the allocator grows its cache), a second (``host_s``, blocks reused)
+    and a third under ``torch.profiler`` (device time, busy share, the
+    engine's share of host time). Last, the copied orchestrator over 20 jobs
+    of the default mix on the card and on the CPU: equal reports."""
+    from repro_torch.apps import device as app_device
+    from repro_torch.core import JobOrchestrator, OrchestratorConfig, WorkloadConfig
+    from repro_torch.launch import apps as apps_mod
+
+    t_phase = time.perf_counter()
+    # the engine's price does not depend on the device
+    for app, size in APPS_SMALL.items():
+        for ideal in ((False, True) if app == "rsvd" else (False,)):
+            card, cpu = (apps_mod.run_app(app, size, d, ideal_storage=ideal)
+                         for d in ("cuda", "cpu"))
+            assert card["check"]["ok"] and cpu["check"]["ok"], (card, cpu)
+            assert (card["charged_ms"], card["kv_stats"]) == (cpu["charged_ms"], cpu["kv_stats"])
+            emit({"phase": "apps_price_card_vs_cpu", "app": app, "ideal_storage": ideal,
+                  "size": list(size), "charged_ms": card["charged_ms"],
+                  "kv_stats": card["kv_stats"], "equal": True})
+
+    runs = {}
+    for app in apps_mod.APPS:
+        for ideal in ((False, True) if app == "rsvd" else (False,)):
+            reset(ops)
+            torch.cuda.reset_peak_memory_stats()
+            rec = apps_mod.run_app(app, apps_mod.SIZES[app], "cuda", ideal_storage=ideal)
+            assert counts(ops) == dict.fromkeys(counts(ops), 0), counts(ops)  # library calls
+            rec["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["cold_s"] = rec.pop("host_s")
+            gc.collect()  # drop the first run's graph; its blocks stay cached
+            rec.update(profile_app(apps_mod, app, ideal))
+            free_memory()
+            emit({"phase": "apps", "card": smi, **rec})
+            print(f"apps {app}{' ideal' if ideal else ''}: host {rec['host_s']:.3f} s (first "
+                  f"run {rec['cold_s']:.3f}), device {rec['device_ms']:.1f} ms, busy "
+                  f"{rec['device_busy_share']:.1%}, engine {rec['engine_share_of_traced_host']:.1%}"
+                  f" of traced host, charged {rec['charged_ms']:.1f} ms, kv bytes "
+                  f"{rec['bytes_written']} ({smi})", flush=True)
+            assert rec["check"]["ok"], rec
+            runs[(app, ideal)] = rec
+    normal, ideal = runs[("rsvd", False)], runs[("rsvd", True)]
+    assert ideal["bytes_written"] < normal["bytes_written"], (ideal, normal)
+    s_n, s_i = (np.array(r["check"]["singular_values"]) for r in (normal, ideal))
+    assert np.allclose(s_i, s_n, rtol=IDEAL_SV_RTOL, atol=0), (s_i, s_n)
+    emit({"phase": "apps_ideal_storage", "kv_bytes_written": ideal["bytes_written"],
+          "normal_kv_bytes_written": normal["bytes_written"],
+          "sv_max_rel_diff": float(np.max(np.abs(s_i - s_n) / s_n)), "tol": IDEAL_SV_RTOL,
+          "bitwise_equal": bool(np.array_equal(s_i, s_n)),
+          "breakdown_normal": normal["breakdown"], "breakdown_ideal": ideal["breakdown"]})
+
+    reports, host_s = {}, {}
+    for d in ("cuda", "cpu"):
+        with app_device.on_device(d):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orch = JobOrchestrator(OrchestratorConfig(workload=WorkloadConfig(n_jobs=20,
+                                                                               seed=0)))
+            reports[d] = dataclasses.asdict(orch.run())
+            torch.cuda.synchronize()
+            host_s[d] = time.perf_counter() - t0
+            del orch
+    rep = reports["cuda"]
+    assert rep["completed"] == rep["jobs"] == 20 and rep["failed"] == 0, rep
+    assert {r["app"] for r in rep["job_records"]} >= {"gemm", "svd", "svc"}, rep["job_records"]
+    assert rep == reports["cpu"]  # per job: billed USD, latency, tasks; the whole report
+    emit({"phase": "apps_orchestrator", "jobs": rep["jobs"],
+          "apps": sorted({r["app"] for r in rep["job_records"]}),
+          "host_s": host_s, "makespan_s": rep["makespan_s"], "p99_s": rep["p99_s"],
+          "billed_usd_total": rep["billed_usd_total"], "equal_cpu": True,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def profile_app(apps_mod, app, ideal) -> dict:
+    """Two more runs of ``app`` at full size: host seconds of the first, and
+    a ``torch.profiler`` trace of the second for its device ms (kernel
+    times), busy share against those host seconds, kernel launches, top
+    kernels, the torch calls that take the most host time, and the engine's
+    share of the traced host time: the time outside the outermost torch
+    calls (whose CPU time holds their launches, allocations and waits)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import EngineConfig, WukongEngine
+
+    def run() -> None:
+        dag = apps_mod.build(app, apps_mod.SIZES[app], "cuda", ideal_storage=ideal)
+        WukongEngine(EngineConfig()).compute(dag)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    host_s = time.perf_counter() - t0
+    gc.collect()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    calls: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None:
+            c = calls.setdefault(e.name, [0.0, 0])
+            c[0] += e.cpu_time_total / 1e3
+            c[1] += 1
+    torch_ms = sum(ms for ms, _ in calls.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"host_s": host_s, "device_ms": device_ms,
+            "device_busy_share": device_ms / (host_s * 1e3),
+            "traced_host_ms": traced_ms, "torch_calls_ms": torch_ms,
+            "engine_share_of_traced_host": 1 - torch_ms / traced_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                             "launches": e.count} for e in top],
+            "top_torch_calls": [{"name": n, "host_ms": ms, "calls": k}
+                                for n, (ms, k) in sorted(calls.items(),
+                                                         key=lambda c: -c[1][0])[:5]]}
 
 
 def run_train(M, ops, cfg, dev) -> dict:

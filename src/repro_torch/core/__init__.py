@@ -1,10 +1,4 @@
-"""WUKONG core: decentralized serverless DAG engine (the paper's contribution).
-
-A verbatim copy of ``repro.core`` with its package imports renamed, so the
-port imports nothing of ``repro``; ``tests/test_torch_serve.py`` holds
-each copied file equal to its original. The orchestrator, job state
-machine and trigger bus are not copied yet.
-"""
+"""WUKONG core: decentralized serverless DAG engine (the paper's contribution)."""
 from repro_torch.core.api import GraphBuilder, delayed_graph
 from repro_torch.core.cache import (
     CacheConfig,
@@ -52,6 +46,17 @@ from repro_torch.core.optimize import (
     PassStats,
     compile_dag,
 )
+from repro_torch.core.orchestrator import (
+    JobOrchestrator,
+    JobRequest,
+    OrchestratorConfig,
+    OrchestratorCrashed,
+    OrchestratorReport,
+    Substrate,
+    TenantSpec,
+    WorkloadConfig,
+    generate_workload,
+)
 from repro_torch.core.schedule import StaticSchedule, generate_static_schedules
 from repro_torch.core.simclock import (
     EventClock,
@@ -62,6 +67,28 @@ from repro_torch.core.simclock import (
     run_effects,
     simulated_compute,
     worker_cache_size,
+)
+from repro_torch.core.statemachine import (
+    ADMITTED,
+    CANCELLED,
+    COMPLETED,
+    CONTROL_NS,
+    FAILED,
+    PENDING,
+    RUNNING,
+    TERMINAL_STATES,
+    InvalidTransition,
+    JobStateMachine,
+)
+from repro_torch.core.triggers import (
+    TRIGGER_NS,
+    TRIGGER_SOURCES,
+    StreamConfig,
+    StreamingReport,
+    TriggerBus,
+    TriggerRule,
+    stream_arrivals,
+    stream_source,
 )
 
 
@@ -77,18 +104,29 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
-    "DAG", "Task", "TaskRef", "GraphBuilder", "delayed_graph", "DynamicDAG",
-    "Expansion", "ExpansionDelta", "ExpansionError", "EXPAND_BASE",
-    "expansion_base_key", "ENGINES", "EngineConfig", "CentralizedConfig",
-    "ServerfulConfig", "JobError", "JobReport", "JobSubstrate",
-    "WukongEngine", "StrawmanEngine", "PubSubEngine",
-    "ParallelInvokerEngine", "ServerfulEngine", "FaultConfig",
-    "FaultInjector", "FaultStats", "SimulatedTaskFailure", "CacheConfig",
-    "CacheStats", "ExecutorCache", "CacheRegistry", "CostModel",
-    "ShardedKVStore", "KVNamespace", "PURGED", "StaticSchedule",
-    "generate_static_schedules", "OptimizeConfig", "CompiledDAG",
-    "PassStats", "compile_dag", "ALL_PASSES", "NO_PASSES", "EventClock",
-    "VirtualClock", "RealtimeClock", "clock_for_scale", "run_effects",
-    "drain_worker_cache", "worker_cache_size", "simulated_compute",
+    "DAG", "Task", "TaskRef", "GraphBuilder", "delayed_graph",
+    "DynamicDAG", "Expansion", "ExpansionDelta", "ExpansionError",
+    "EXPAND_BASE", "expansion_base_key",
+    "ENGINES", "EngineConfig", "CentralizedConfig", "ServerfulConfig",
+    "JobError", "JobReport", "JobSubstrate", "WukongEngine",
+    "StrawmanEngine", "PubSubEngine", "ParallelInvokerEngine",
+    "ServerfulEngine",
+    "FaultConfig", "FaultInjector", "FaultStats", "SimulatedTaskFailure",
+    "CacheConfig", "CacheStats", "ExecutorCache", "CacheRegistry",
+    "CostModel", "ShardedKVStore", "KVNamespace", "PURGED",
+    "TriggerBus", "TriggerRule", "StreamConfig", "StreamingReport",
+    "TRIGGER_NS", "TRIGGER_SOURCES", "stream_arrivals", "stream_source",
+    "JobOrchestrator", "JobRequest", "OrchestratorConfig",
+    "OrchestratorCrashed", "OrchestratorReport", "Substrate", "TenantSpec",
+    "WorkloadConfig", "generate_workload",
+    "JobStateMachine", "InvalidTransition", "CONTROL_NS",
+    "PENDING", "ADMITTED", "RUNNING", "COMPLETED", "FAILED", "CANCELLED",
+    "TERMINAL_STATES",
+    "StaticSchedule", "generate_static_schedules",
+    "OptimizeConfig", "CompiledDAG", "PassStats", "compile_dag",
+    "ALL_PASSES", "NO_PASSES",
+    "EventClock", "VirtualClock", "RealtimeClock", "clock_for_scale",
+    "run_effects", "drain_worker_cache", "worker_cache_size",
+    "simulated_compute",
     "PlatformConfig", "FaaSPlatform",
 ]

@@ -17,7 +17,10 @@ formulas on the same inputs and forward output (the kernel's arithmetic),
 and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and
 bf16 3e-2, against autograd of the plain version; two runs on the same
 inputs give the same bits. A reduced f32 model's train step on the card:
-loss 1e-4, params 2e-3 against the same step on the CPU.
+loss 1e-4, params 2e-3 against the same step on the CPU. The paper's
+workloads (``repro_torch.apps``, library payloads) on the card: each within
+``launch.apps``'s limits of its float64 reference there, with the same
+``charged_ms`` and ``kv_stats`` as on the CPU.
 """
 import dataclasses
 
@@ -345,3 +348,62 @@ def test_train_step_on_card_equals_cpu(cuda):
     assert ops.flash_attention.bwd_launches == bwd + 2 * cfg.n_layers
     for a, b in zip(leaves(states["cpu"][0]), leaves(states["cuda"][0]), strict=True):
         torch.testing.assert_close(b.cpu(), a, atol=2e-3, rtol=0)
+
+
+# The paper's workloads (repro_torch.apps) on the card: library payloads
+# (cuBLAS, cuSOLVER), held to their float64 references on the card within
+# the limits stated in repro_torch.launch.apps; the engine's price must not
+# depend on the device. Sizes of tests/test_apps.py.
+APP_SIZES = [("gemm", (256, 64), False), ("tsqr", (1024, 32, 8), False),
+             ("rsvd", (512, 8), False), ("rsvd", (512, 8), True),
+             ("svc", (4096, 8, 3), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,size,ideal", APP_SIZES)
+def test_app_on_card_holds_to_its_reference_and_cpu_price(cuda, app, size, ideal):
+    from repro_torch.launch import apps as launch_apps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = launch_apps.run_app(app, size, cuda, ideal_storage=ideal)
+    assert card["check"]["ok"], card
+    cpu = launch_apps.run_app(app, size, "cpu", ideal_storage=ideal)
+    assert card["charged_ms"] == cpu["charged_ms"]
+    assert card["kv_stats"] == cpu["kv_stats"]
+
+
+@pytest.mark.cuda
+def test_app_blocks_redrawn_on_card_equal_the_first_draw(cuda):
+    from repro_torch.apps.device import normal_block
+
+    a = normal_block(4, 3, 0, (4096, 512), cuda)
+    b = normal_block(4, 3, 0, (4096, 512), cuda)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, normal_block(4, 4, 0, (4096, 512), cuda))
+
+
+@pytest.mark.cuda
+def test_ideal_storage_on_card_same_values_fewer_bytes(cuda):
+    from repro_torch.launch import apps as launch_apps
+
+    normal = launch_apps.run_app("rsvd", (2048, 8), cuda)
+    ideal = launch_apps.run_app("rsvd", (2048, 8), cuda, ideal_storage=True)
+    assert normal["check"]["ok"] and ideal["check"]["ok"]
+    assert ideal["check"]["singular_values"] == normal["check"]["singular_values"]
+    assert ideal["bytes_written"] < normal["bytes_written"] / 2
+
+
+@pytest.mark.cuda
+def test_orchestrator_on_card_reports_as_on_cpu(cuda):
+    import dataclasses as dc
+
+    from repro_torch.apps.device import on_device
+    from repro_torch.core import JobOrchestrator, OrchestratorConfig, WorkloadConfig
+
+    reports = []
+    for dev in (cuda, "cpu"):
+        with on_device(dev):
+            cfg = OrchestratorConfig(workload=WorkloadConfig(n_jobs=12, seed=0))
+            reports.append(dc.asdict(JobOrchestrator(cfg).run()))
+    assert reports[0]["completed"] == 12 and reports[0]["failed"] == 0
+    assert reports[0] == reports[1]
