@@ -55,14 +55,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    fixed batch (lr 5e-3, no weight decay, warmup 1) as tasks of the copied
    WUKONG engine (``runtime.orchestrator``) with injected failures
    (``TRAIN_FAULTS``: every failure recoverable, some step tasks re-run);
-   the loss finite and falling, one flash forward and one flash backward
-   launch per layer and step run; host seconds per step and tokens/s;
+   the loss finite and falling; under the config's ``remat`` two flash
+   forward launches (the forward and its recomputation) and one flash
+   backward launch per layer and step run; host seconds per step,
+   tokens/s and peak device memory;
 10. train_reference: a reduced f32 smollm (H=6 K=2, G=3), 3 steps on the
     card and on the CPU from the same weights and batches: loss within
     1e-4 each step, parameters within 2e-3;
 11. train_step_profile: one full-width training step's host ms, and from
     a ``torch.profiler`` trace its device ms, busy share, kernel launches,
     top kernels and the shares of the flash forward and backward kernels;
+    the peak device memory above the state it starts from of one step and
+    of its loss and gradients alone (before AdamW), with and without
+    ``remat``;
 12. nemotron: nemotron-4-340b at full width (d_model 18432, 96 heads over
     8, hd 192, d_ff 73728, vocab 256000, squared ReLU, untied embeddings),
     its depth cut to 2 layers in bf16 (32.7 GB of weights, made on the card
@@ -87,6 +92,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     no time (the payloads are cuBLAS / cuSOLVER calls); last the copied
     orchestrator over 20 jobs of its default mix gives identical reports
     on the card and on the CPU.
+14. xLSTM training: ``xlstm_train``, full-width xlstm-350m in bf16 at B=2,
+    S=512 under ``remat``, 4 steps on one fixed batch as tasks of the
+    engine with injected failures (``XLSTM_TRAIN_FAULTS``), the loss finite
+    and falling, two ``mlstm_chunk`` forward launches and one backward
+    launch per mLSTM layer and step run; ``xlstm_train_reference``, a
+    reduced f32 xLSTM (ragged last chunk) 3 steps on the card and on the
+    CPU, loss 1e-4 and params 2e-3; ``xlstm_train_step_profile``, at full
+    width with the depth cut to one superblock (``XLSTM_PROFILE_LAYERS``),
+    a step's host and device time, busy share, launches, top kernels, the
+    sLSTM loop's share (its forward calls timed in the step, its backward
+    timed on one layer at the same shape) and the peak memory of a step
+    and of its loss and gradients, with and without ``remat``.
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
@@ -99,7 +116,21 @@ inputs with D from the same forward output (the kernel's arithmetic),
 f32 1e-4; and against autograd of the plain version, max abs error <=
 tol x max(1, max|ref|), tol f32 1e-4 and bf16 3e-2 (the plain version
 rounds its bf16 products to bf16); and a second call must give the same
-bits. Its bound counts 10·hd FLOPs per visible (query, key) pair and query
+bits. Phase 3 also checks the ``mlstm_chunk`` backward
+(``csrc/mlstm_chunk_bwd.cu``, fp32 FMAs), fed the chunk states and row
+normalisers the forward saved (which must leave the forward's output as it
+was, to the bit), at xLSTM's training shape with and without an initial
+state and final-state gradients, at hd 32 and 64 and a ragged S: per
+gradient elementwise |err| <= 1e-4·(|ref| + rms(ref)) against its plain
+version ``ref.mlstm_chunk_bwd_ref`` in float64 and in fp32 (the f32 flash
+backward's rule), two calls with the same bits; its bound counts 10·hd
+FLOPs per causal pair of a chunk (q·kᵀ, g·vᵀ, dS·k, dSᵀ·q, Pᵀ·g), 8·hd² per
+position (g·C_jᵀ, v·dC'ᵀ, k·dC', the state gradient) and 2·hd² per (b, h,
+chunk) (Σ C_j ⊙ dC') at the fp32 FMA rate, against the inputs (q, k, v, y,
+dy, the gates, the saved states and normalisers, the final-state
+gradients) read and the gradients written once; no single PyTorch call
+computes it (``library_ms`` null). The flash backward's bound counts
+10·hd FLOPs per visible (query, key) pair and query
 head (the five products q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q, ds·k) and q, k, v, o, dO
 read and dq, dk, dv written once; its library yardstick is the profiler's
 device time of the backward of
@@ -153,6 +184,21 @@ LSE_TOL = 1e-4
 # its last (attempt 2), whatever order the executors run in.
 TRAIN_FAULTS = {"task_failure_prob": 0.05, "max_retries": 2, "seed": 6}
 MLSTM_TOL = {"atol": 5e-5, "rtol": 5e-4}  # tests/test_kernels.py:85-86
+# The mLSTM backward held elementwise, |err| <= tol·|ref| + tol·rms(ref) per
+# gradient, against its plain version in float64 and in fp32: the f32 flash
+# backward's rule. d log f sums terms that cancel; rms(ref) keeps the
+# limit from shrinking to an entry that happens to be near 0.
+MLSTM_BWD_TOL = 1e-4
+# Fault injection of the xlstm_train phase's 4-step workflow: at seed 7 one
+# task fails at its first attempt and is retried, and no task of this DAG
+# fails at its last attempt. (A step run takes ~10 s, so the seed re-runs
+# no step task; the smollm phase's seed does.)
+XLSTM_TRAIN_FAULTS = {"task_failure_prob": 0.05, "max_retries": 2, "seed": 7}
+XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_TRAIN_STEPS = 2, 512, 4
+# The xLSTM step profile cuts the depth to one superblock (an mLSTM and an
+# sLSTM block, full width): a full-depth step launches ~300k kernels, whose
+# trace takes minutes to read back. Full-depth host time is xlstm_train's.
+XLSTM_PROFILE_LAYERS = 2
 # xlstm-350m decode against forward in bf16. Both paths compute the same
 # function and each rounds to bf16 in its own way; this model amplifies
 # such roundings far more than smollm, and so does the JAX reference: at
@@ -217,6 +263,24 @@ class Timer:
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and "fill" not in e.key.lower())
         return total / 1e3 / reps if total > 0 else None
+
+    def kernels_by_name(self, fn, reps: int = 10) -> dict:
+        """Mean device ms per call of each kernel ``fn`` launches, by name."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                name = re.search(r"(\w+_kernel)\b", e.key)
+                key = name.group(1) if name else e.key[:60]
+                out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / reps
+        return out
 
 
 def bound(nbytes: float, flops: float, dtype, rate: float | None = None) -> tuple[float, str]:
@@ -424,6 +488,76 @@ def check_mlstm(ops, ref, timer, dev, B, S, H, hd, with_state, seed=2, chunk=64)
     }
 
 
+def check_mlstm_bwd(ops, ref, timer, dev, B, S, H, hd, with_state, final_grads, seed=4,
+                    chunk=64):
+    from repro_torch.kernels import mlstm_chunk as mlstm_kernel
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # the forward's scales (check_mlstm)
+    q, k, v = randn(B, S, H, hd) * hd ** -0.5, randn(B, S, H, hd), randn(B, S, H, hd)
+    log_f = F.logsigmoid(randn(B, S, H) + 2.0)
+    i_gate = torch.sigmoid(randn(B, S, H))
+    state = (randn(B, H, hd, hd) * 0.1, randn(B, H, hd)) if with_state else None
+    c = min(chunk, S)
+    y, _, saved = mlstm_kernel.launch(q, k, v, log_f, i_gate, chunk=c, state=state, save=True)
+    assert torch.equal(y, mlstm_kernel.launch(q, k, v, log_f, i_gate, chunk=c, state=state)[0])
+    dy = randn(B, S, H, hd)
+    dC, dn = (randn(B, H, hd, hd), randn(B, H, hd)) if final_grads else (None, None)
+    args = (q, k, v, log_f, i_gate, y, dy)
+    kw = dict(chunk=c, state=state, dC=dC, dn=dn)
+    got = ops.mlstm_chunk_bwd(*args, saved=saved, **kw)
+    again = ops.mlstm_chunk_bwd(*args, saved=saved, **kw)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    del again
+    as64 = lambda t: None if t is None else t.double()  # noqa: E731
+    exact = ref.mlstm_chunk_bwd_ref(*(t.double() for t in args), chunk=c,
+                                    state=None if state is None else tuple(map(as64, state)),
+                                    dC=as64(dC), dn=as64(dn))
+    plain = ref.mlstm_chunk_bwd_ref(*args, **kw)
+    names = ("dq", "dk", "dv", "dlog_f", "di", "dC0", "dn0")
+    err, worst, worst_plain = {}, {}, {}
+
+    def over_tol(a, want):
+        want = want.double()
+        limit = MLSTM_BWD_TOL * (want.abs() + want.square().mean().sqrt())
+        return ((a.double() - want).abs() / limit).max().item()
+
+    for name, a, e, p in zip(names, got, exact, plain, strict=True):
+        if a is None:
+            continue
+        err[name] = (a.double() - e).abs().max().item()
+        worst[name], worst_plain[name] = over_tol(a, e), over_tol(a, p)
+        assert worst[name] <= 1.0 and worst_plain[name] <= 1.0, (name, worst, worst_plain)
+    del exact, plain
+    n_chunks = -(-S // c)
+    n_pairs = sum(n * (n + 1) // 2 for n in (min(c, S - s0) for s0 in range(0, S, c)))
+    flops = B * H * (10.0 * hd * n_pairs + 8.0 * hd * hd * S + 2.0 * hd * hd * n_chunks)
+    elems = (5 * B * S * H * hd + 3 * B * S * H          # q, k, v, y, dy; gates and nrm
+             + B * H * n_chunks * (hd * hd + hd)          # the saved states
+             + (B * H * (hd * hd + hd) if final_grads else 0)
+             + 3 * B * S * H * hd + 2 * B * S * H         # dq, dk, dv; d log f, d i
+             + (B * H * (hd * hd + hd) if with_state else 0))
+    t_bound, by = bound(4.0 * elems, flops, torch.float32)
+    mine = lambda: ops.mlstm_chunk_bwd(*args, saved=saved, **kw)  # noqa: E731
+    return {
+        "shape": f"B={B} S={S} H={H} hd={hd} chunk={c} state={with_state} "
+                 f"final_grads={final_grads}", "dtype": "f32",
+        "kernel": "rows + scores + sweep + tiles + gates, fp32 FMAs", "bitwise_repeatable": True,
+        "forward_output_unchanged_by_saving": True,
+        "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
+        "tol": f"{MLSTM_BWD_TOL} x (|ref| + rms(ref)), plain version in float64 and in fp32",
+        "err_over_tol_by_grad": worst, "err_over_tol_fp32_plain_by_grad": worst_plain,
+        "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
+        "kernel_ms_by_kernel": timer.kernels_by_name(mine),
+        "plain_ms": timer(lambda: ref.mlstm_chunk_bwd_ref(*args, **kw)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+    }
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """Registers, shared memory and spills of each kernel in an
     ``-Xptxas=-v`` log, by the kernel's name with its template arguments
@@ -497,11 +631,25 @@ def reset(ops) -> None:
     for name in KERNELS:
         getattr(ops, name).launches = 0
     ops.flash_attention.bwd_launches = 0
+    ops.mlstm_chunk.bwd_launches = 0
 
 
 def counts(ops) -> dict:
     return {**{name: getattr(ops, name).launches for name in KERNELS},
-            "flash_attention_bwd": ops.flash_attention.bwd_launches}
+            "flash_attention_bwd": ops.flash_attention.bwd_launches,
+            "mlstm_chunk_bwd": ops.mlstm_chunk.bwd_launches}
+
+
+def train_launches(cfg, runs: int) -> dict:
+    """The kernel launches of ``runs`` train-step runs of ``cfg``: per layer
+    one forward (two under ``remat``: the forward and its recomputation in
+    the backward) and one backward."""
+    n_attn = sum(cfg.mixer_of(e) == "attn" for e in cfg.block_pattern) * cfg.n_repeats
+    n_mlstm = sum(cfg.mixer_of(e) == "mlstm" for e in cfg.block_pattern) * cfg.n_repeats
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * n_attn * runs, "decode_attention": 0,
+            "mlstm_chunk": fwd * n_mlstm * runs, "flash_attention_bwd": n_attn * runs,
+            "mlstm_chunk_bwd": n_mlstm * runs}
 
 
 def main() -> int:
@@ -564,6 +712,14 @@ def main() -> int:
     mlstm_cases = [check_mlstm(ops, ref, timer, dev, 2, 512, 4, 512, False),
                    check_mlstm(ops, ref, timer, dev, 2, 300, 4, 512, True),
                    check_mlstm(ops, ref, timer, dev, 1, 256, 4, 64, False)]
+    # its backward: xLSTM's training shape, with and without an initial state and
+    # final-state gradients; hd 64; reduced xlstm's hd 32 at a ragged S
+    mlstm_bwd_cases = [
+        check_mlstm_bwd(ops, ref, timer, dev, XLSTM_TRAIN_B, XLSTM_TRAIN_S, 4, 512, False, False),
+        check_mlstm_bwd(ops, ref, timer, dev, XLSTM_TRAIN_B, XLSTM_TRAIN_S, 4, 512, True, True),
+        check_mlstm_bwd(ops, ref, timer, dev, 2, 300, 4, 512, True, False),
+        check_mlstm_bwd(ops, ref, timer, dev, 1, 256, 4, 64, False, True),
+        check_mlstm_bwd(ops, ref, timer, dev, 2, 200, 4, 32, True, True)]
     # the flash backward at smollm's training shapes and qwen2-72b's width
     bwd_cases = [check_flash_bwd(ops, ref, timer, dev, dtype, B, S, True, window)
                  for dtype in (torch.bfloat16, torch.float32)
@@ -574,7 +730,7 @@ def main() -> int:
     for dtype, S in ((torch.bfloat16, 2048), (torch.float32, 512)):  # nemotron's width
         bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, dtype, 1, S, True, None,
                                          H=NEMOTRON_H, K=NEMOTRON_K, hd=192))
-    for rec in decode_cases + flash_cases + mlstm_cases + bwd_cases:
+    for rec in decode_cases + flash_cases + mlstm_cases + mlstm_bwd_cases + bwd_cases:
         emit({"phase": "kernel_check", **rec})
     del timer
     free_memory()
@@ -600,7 +756,7 @@ def main() -> int:
               "rel_err": err, "tol": tol, "launches": c, **truth})
         assert err < tol, (name, err, tol)
         assert c == {"flash_attention": dcfg.n_layers, "decode_attention": 64 * dcfg.n_layers,
-                     "mlstm_chunk": 0, "flash_attention_bwd": 0}, c
+                     "mlstm_chunk": 0, "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, c
     free_memory()
 
     # 6. serve through the copied engine, full width
@@ -624,7 +780,8 @@ def main() -> int:
     train = run_train(M, ops, cfg, dev)
     emit({"phase": "train", "card": smi, **train})
     print(f"train: {train['host_s_per_step']:.4f} s per step, "
-          f"{train['tokens_per_s']:.0f} tokens/s ({smi})", flush=True)
+          f"{train['tokens_per_s']:.0f} tokens/s, peak {train['peak_device_gb']:.1f} GiB "
+          f"({smi})", flush=True)
     free_memory()
     emit({"phase": "train_reference", "config": "reduced smollm f32, H=6 K=2",
           **train_reference(M, ops, small, dev)})
@@ -637,6 +794,28 @@ def main() -> int:
 
     # 13. the paper's workloads through the engine, at paper scale
     run_apps(ops, smi)
+    free_memory()
+
+    # 14. xLSTM training: full width through the engine, card against CPU, profile
+    xcfg = get_config("xlstm_350m")
+    t_phase = time.perf_counter()
+    xtrain = run_train(M, ops, xcfg, dev, batch=XLSTM_TRAIN_B, seq=XLSTM_TRAIN_S,
+                       steps=XLSTM_TRAIN_STEPS, faults=XLSTM_TRAIN_FAULTS)
+    emit({"phase": "xlstm_train", "card": smi, **xtrain,
+          "phase_s": time.perf_counter() - t_phase})
+    print(f"xlstm train: {xtrain['host_s_per_step']:.3f} s per step, "
+          f"{xtrain['tokens_per_s']:.0f} tokens/s, loss {xtrain['losses'][0]:.4f} -> "
+          f"{xtrain['losses'][-1]:.4f} ({smi})", flush=True)
+    free_memory()
+    t_phase = time.perf_counter()
+    emit({"phase": "xlstm_train_reference", "config": "reduced xlstm f32",
+          **train_reference(M, ops, reduced(xcfg), dev),
+          "phase_s": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    emit({"phase": "xlstm_train_step_profile", "card": smi, "layers": XLSTM_PROFILE_LAYERS,
+          **profile_train(M, dataclasses.replace(xcfg, n_layers=XLSTM_PROFILE_LAYERS), dev,
+                          batch=XLSTM_TRAIN_B, seq=XLSTM_TRAIN_S, warm=1, steps=2),
+          "phase_s": time.perf_counter() - t_phase})
     free_memory()
 
     kernels = [
@@ -655,6 +834,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/linear_attention.py:83",
          "launches": xlstm_launches, **_headline(mlstm_cases[0]), "cases": mlstm_cases},
+        {"name": "mlstm_chunk_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
+         "replaces": None,
+         "note": "no TPU kernel: the JAX package has no Pallas backward for mlstm_chunk; its "
+                 "training differentiates the jnp recurrence (models/ssm.py) through XLA",
+         "launches": xtrain["launches"]["mlstm_chunk_bwd"], **_headline(mlstm_bwd_cases[0]),
+         "cases": mlstm_bwd_cases},
         {"name": "flash_attention_bwd", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); f32 runs csrc/flash_attention_bwd.cu
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
@@ -687,7 +873,8 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
     M.forward(params, cfg, tokens)                   # first call: set-up costs
     fwd_s, fwd_counts = timed_forward(M, ops, cfg, params, tokens)
     assert fwd_counts == {"flash_attention": 0, "decode_attention": 0,
-                          "mlstm_chunk": n_mlstm, "flash_attention_bwd": 0}, fwd_counts
+                          "mlstm_chunk": n_mlstm, "flash_attention_bwd": 0,
+                          "mlstm_chunk_bwd": 0}, fwd_counts
     # a third forward with each sLSTM call timed (synchronised around it)
     slstm_s, slstm = 0.0, ssm.slstm
 
@@ -720,7 +907,7 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
               "positions": 64, "rel_err": err, "tol": tol, "launches": c, **truth})
         assert err < tol, (name, err, tol)
         assert c == {"flash_attention": 0, "decode_attention": 0, "mlstm_chunk": n_mlstm,
-                     "flash_attention_bwd": 0}, c
+                     "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, c
     free_memory()
 
     rep, serve_counts = serve_full_width(serve_mod, ops, "xlstm_350m", cfg.vocab)
@@ -751,7 +938,7 @@ def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 512)), device=dev)
     fwd_s, fwd_counts = timed_forward(M, ops, cfg, params, tokens)
     assert fwd_counts == {"flash_attention": 2, "decode_attention": 0, "mlstm_chunk": 0,
-                          "flash_attention_bwd": 0}, fwd_counts
+                          "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, fwd_counts
     emit({"phase": "nemotron_forward", "layers": 2, "shape": [1, 512], "dtype": "bf16",
           "seconds": fwd_s, "tokens_per_s": 512 / fwd_s, "launches": fwd_counts,
           "weights_gb": sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9,
@@ -762,7 +949,7 @@ def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
           "positions": 64, "rel_err": err, "tol": 5e-2, "launches": c})
     assert err < 5e-2, err
     assert c == {"flash_attention": 2, "decode_attention": 64 * 2, "mlstm_chunk": 0,
-                 "flash_attention_bwd": 0}, c
+                 "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, c
     reset(ops)
     t0 = time.perf_counter()
     rep = serve_mod.serve(cfg, params, requests=2, batch=2, prompt_len=32, gen_len=16, seed=0,
@@ -788,7 +975,7 @@ def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
           "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
     assert err < 1e-3, err
     assert c == {"flash_attention": 1, "decode_attention": 64, "mlstm_chunk": 0,
-                 "flash_attention_bwd": 0}, c
+                 "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, c
     print(f"nemotron (2 layers, bf16): forward {fwd_s:.3f} s, serving "
           f"{summary['mean_tps']:.1f} tokens/s ({smi})", flush=True)
     return fwd_counts["flash_attention"]
@@ -930,56 +1117,57 @@ def profile_app(apps_mod, app, ideal) -> dict:
                                                          key=lambda c: -c[1][0])[:5]]}
 
 
-def run_train(M, ops, cfg, dev) -> dict:
-    """Phase 9: ``TRAIN_STEPS`` full-width steps on one fixed batch as tasks
-    of the copied engine with injected failures; the loss must be finite
-    and fall, and each step run must launch one flash forward and one flash
-    backward per layer."""
+def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+              faults=TRAIN_FAULTS) -> dict:
+    """Phases 9 and 14: ``steps`` full-width steps on one fixed batch as
+    tasks of the copied engine with injected failures; the loss must be
+    finite and fall, and each step run must launch each layer's kernels as
+    ``train_launches`` says (under ``remat`` the forward twice)."""
     from repro_torch.core import EngineConfig, FaultConfig
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.orchestrator import build_training_workflow, run_training_workflow
     from repro_torch.runtime.train import build_train_step, synthetic_batch
 
     params = M.init_model(cfg, seed=0, device=dev)
-    batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, seed=7, device=dev)
+    data = synthetic_batch(cfg, batch, seq, seed=7, device=dev)
     step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
     step_s: list[float] = []
 
     def step_fn(state, i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p, o, m = step(*state, batch)
+        p, o, m = step(*state, data)
         loss = float(m["loss"])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         return (p, o), {"loss": loss}
 
     dag, final_key, mk = build_training_workflow(
-        n_steps=TRAIN_STEPS, step_fn=step_fn, init_fn=lambda: (params, adamw_init(params)))
+        n_steps=steps, step_fn=step_fn, init_fn=lambda: (params, adamw_init(params)))
     reset(ops)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     res = run_training_workflow(dag, final_key, mk, EngineConfig(
-        faults=FaultConfig(**TRAIN_FAULTS), job_timeout_s=3600.0))
+        faults=FaultConfig(**faults), job_timeout_s=3600.0))
     seconds = time.perf_counter() - t0
     launches = counts(ops)
     losses = [res.report.results[k]["loss"] for k in mk]
     _, final_opt = res.report.results[final_key]
     runs = len(step_s)
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
-    assert int(final_opt["count"]) == TRAIN_STEPS
+    assert int(final_opt["count"]) == steps
     assert res.report.fault_stats["injected_failures"] > 0, res.report.fault_stats
-    assert runs >= TRAIN_STEPS
-    assert launches["flash_attention"] == launches["flash_attention_bwd"] == cfg.n_layers * runs, \
-        (launches, runs)
+    assert runs >= steps
+    assert launches == train_launches(cfg, runs), (launches, runs)
     per_step = statistics.median(step_s[1:])
-    return {"shape": [TRAIN_B, TRAIN_S], "dtype": "bf16", "steps": TRAIN_STEPS,
+    return {"arch": cfg.name, "shape": [batch, seq], "dtype": "bf16", "remat": cfg.remat,
+            "steps": steps,
             "step_runs": runs, "losses": losses, "fault_stats": res.report.fault_stats,
             "injected_failures": res.report.fault_stats["injected_failures"],
             "launches": launches,
             "launches_per_step_run": {k: v / runs for k, v in launches.items()},
             "workflow_seconds": seconds, "step_run_seconds": step_s,
-            "host_s_per_step": per_step, "tokens_per_s": TRAIN_B * TRAIN_S / per_step,
+            "host_s_per_step": per_step, "tokens_per_s": batch * seq / per_step,
             "charged_ms": res.report.charged_ms,
             "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
 
@@ -1010,29 +1198,32 @@ def train_reference(M, ops, small, dev, steps=3) -> dict:
                     for a, b in zip(leaves(states["cuda"][0]), leaves(states["cpu"][0])))
     assert max(loss_err) < 1e-4, loss_err
     assert param_err < 2e-3, param_err
-    assert launches["flash_attention_bwd"] == steps * small.n_layers, launches
+    assert launches == train_launches(small, steps), launches
     return {"steps": steps, "loss_abs_err": loss_err, "param_max_abs_err": param_err,
             "tol": {"loss": 1e-4, "params": 2e-3}, "launches": launches}
 
 
-def profile_train(M, cfg, dev, warm=2, steps=3) -> dict:
-    """Phase 11: host ms of a full-width training step without the profiler,
-    then a ``torch.profiler`` trace of one step for device time, kernel
-    launches, the top kernels and the flash kernels' shares."""
+def profile_train(M, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, warm=2, steps=3) -> dict:
+    """Phases 11 and 14: host ms of a full-width training step without the
+    profiler, then a ``torch.profiler`` trace of one step for device time,
+    kernel launches, the top kernels and the kernels' shares; for xLSTM also
+    the sLSTM loop's share of the step."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.models import ssm
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.train import build_train_step, synthetic_batch
+    from repro_torch.tree import leaves, map_tree
 
     params = M.init_model(cfg, seed=0, device=dev)
     state = (params, adamw_init(params))
-    batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, seed=7, device=dev)
+    data = synthetic_batch(cfg, batch, seq, seed=7, device=dev)
     step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
 
     def run(n):
         nonlocal state
         for _ in range(n):
-            p, o, _ = step(*state, batch)
+            p, o, _ = step(*state, data)
             state = (p, o)
         torch.cuda.synchronize()
 
@@ -1040,6 +1231,30 @@ def profile_train(M, cfg, dev, warm=2, steps=3) -> dict:
     t0 = time.perf_counter()
     run(steps)
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    slstm = slstm_share(cfg, ssm, state[0], run, step_ms, batch, seq, dev)
+
+    def peak_gib(fn) -> float:
+        """Peak device memory of ``fn()`` above what is allocated before it
+        (the params, AdamW state and batch)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        return peak / 2**30
+
+    def loss_and_grads(c):
+        p = map_tree(lambda t: t.detach().requires_grad_(), state[0])
+        return torch.autograd.grad(M.loss_fn(p, c, data["tokens"], data["labels"]), leaves(p))
+
+    peak = {}
+    for name, remat in (("remat", True), ("no_remat", False)):
+        c = dataclasses.replace(cfg, remat=remat)
+        st = build_train_step(c, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
+        peak[name] = {"step": peak_gib(lambda: st(*state, data)),
+                      "loss_and_grads": peak_gib(lambda: loss_and_grads(c))}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(1)
@@ -1052,14 +1267,60 @@ def profile_train(M, cfg, dev, warm=2, steps=3) -> dict:
         return sum(e.self_device_time_total for e in kernels if pred(e.key)) / 1e3 / device_ms
 
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {"shape": [TRAIN_B, TRAIN_S], "dtype": "bf16", "step_ms": step_ms,
+    return {"arch": cfg.name, "shape": [batch, seq], "dtype": "bf16", "remat": cfg.remat,
+            "step_ms": step_ms, **slstm, "peak_gib_above_state": peak,
             "traced_step_ms": traced_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / step_ms,
             "kernel_launches_per_step": sum(e.count for e in kernels),
             "flash_fwd_share": share(lambda k: "flash" in k and "bwd" not in k),
             "flash_bwd_share": share(lambda k: "flash_bwd" in k),
+            "mlstm_fwd_share": share(lambda k: "mlstm" in k and "bwd" not in k),
+            "mlstm_bwd_share": share(lambda k: "mlstm_bwd" in k),
             "top_kernels": [{"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3,
                              "launches_per_step": e.count} for e in top]}
+
+
+def slstm_share(cfg, ssm, params, run, step_ms, batch, seq, dev) -> dict:
+    """For a config with sLSTM blocks: the host seconds of a step's sLSTM
+    forward calls (the forward and, under ``remat``, its recomputation; each
+    call synchronised around), and of one sLSTM layer's backward at the
+    step's shape (input in the model's dtype, the first layer's weights)
+    times the layers;
+    their sum over ``step_ms`` is the loop's share of the step."""
+    from repro_torch.models.layers import dtype_of
+
+    n_slstm = sum(cfg.mixer_of(e) == "slstm" for e in cfg.block_pattern) * cfg.n_repeats
+    if n_slstm == 0:
+        return {}
+    fwd_s, slstm = 0.0, ssm.slstm
+
+    def timed(*args, **kw):
+        nonlocal fwd_s
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = slstm(*args, **kw)
+        torch.cuda.synchronize()
+        fwd_s += time.perf_counter() - t
+        return out
+
+    ssm.slstm = timed
+    try:
+        run(1)
+    finally:
+        ssm.slstm = slstm
+    pos = cfg.block_pattern.index("slstm")
+    layer = {k: t[0].detach().requires_grad_() for k, t in params["blocks"][pos]["mixer"].items()}
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g, device=dev).to(dtype_of(cfg))
+    y, _ = slstm(layer, x.requires_grad_(), cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    bwd_s = (time.perf_counter() - t) * n_slstm
+    return {"slstm_layers": n_slstm, "slstm_forward_s_in_step": fwd_s,
+            "slstm_backward_s_estimate": bwd_s,
+            "slstm_share": (fwd_s + bwd_s) / (step_ms / 1e3)}
 
 
 def timed_forward(M, ops, cfg, params, tokens) -> tuple[float, dict]:

@@ -52,6 +52,11 @@
 //    done beside the products. The state kernel starts under the scores
 //    kernel's tail (programmatic dependent launch) and waits for it only
 //    before its first copy.
+//
+// For the backward (csrc/mlstm_chunk_bwd.cu), when the caller passes the
+// buffers, the state kernel also writes each chunk's entering state C_j
+// (its value tile, from shared memory) and n_j, and each row's normaliser
+// nrm. Without them it writes nothing more, and its output is the same.
 #include <cuda.h>  // CUtensorMap and the driver's enums only: no -lcuda
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -409,7 +414,8 @@ mlstm_state_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
                    const __grid_constant__ CUtensorMap tv, const float* __restrict__ ws,
                    const float* __restrict__ C0, const float* __restrict__ n0,
                    float* __restrict__ y, float* __restrict__ C_out, float* __restrict__ n_out,
-                   int S, int H, int chunk, int n_chunks) {
+                   float* __restrict__ C_states, float* __restrict__ n_states,
+                   float* __restrict__ nrm_out, int S, int H, int chunk, int n_chunks) {
   using L = StateSmem<HD>;
   constexpr int KS = L::KS, NS = L::NS, NST = L::NST;
   // Aligned by an offset from the shared array itself, so that the compiler
@@ -545,6 +551,15 @@ mlstm_state_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       const float* Rs = Fc + 2 * CM;
       const float* U = Fc + GATES;
       const int c0 = ci * chunk, valid = min(chunk, S - c0);
+      if (C_states) {  // the state entering this chunk, for the backward (C and n are
+                       // complete: the last chunk's update ended in a barrier)
+        float* cj = C_states + ((size_t)bh * n_chunks + ci) * HD * HD + v0;
+        for (int e = tid; e < HD * VT; e += THREADS)
+          cj[(size_t)(e / VT) * HD + e % VT] = Cs[swz(e / VT, e % VT)];
+        if (vt == 0)
+          for (int d = tid; d < HD; d += THREADS)
+            n_states[((size_t)bh * n_chunks + ci) * HD + d] = Ns[d];
+      }
 
       // q part: q[:, d0:d0+KS] · C[d0:d0+KS, vt], C as before the chunk. Rows
       // past the chunk's end hold zeros or the next chunk's positions: their
@@ -721,6 +736,8 @@ mlstm_state_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
             yacc[j][2 * half + 1] = s.y;
           }
 #pragma unroll
+        if (nrm_out && vt == 0 && tid < valid)
+          nrm_out[((size_t)b * S + c0 + tid) * H + h] = Nrm[tid];
         for (int half = 0; half < 2; ++half) {
           const int s = 16 * pm + g + 8 * half;
           if (s < valid) {
@@ -826,8 +843,8 @@ cudaError_t set_attributes() {
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* log_f,
                    const float* i_gate, const float* C0, const float* n0, float* y,
-                   float* C_out, float* n_out, float* ws, int B, int S, int H, int chunk,
-                   cudaStream_t stream) {
+                   float* C_out, float* n_out, float* ws, float* C_states, float* n_states,
+                   float* nrm, int B, int S, int H, int chunk, cudaStream_t stream) {
   static_assert(HD % 32 == 0 && (HD <= 64 || HD % 64 == 0), "slabs of 32 or 64 columns");
   static_assert((HD / VT) % cluster_size_for(HD) == 0, "whole clusters of value tiles");
   static_assert(CM / cluster_size_for(HD) % 8 == 0, "each box whole 1024-byte swizzle atoms");
@@ -850,7 +867,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.numAttrs = 2;
   err = cudaLaunchKernelEx(&cfg, mlstm_state_kernel<HD>, tq, tk, tv, (const float*)ws, C0, n0, y,
-                           C_out, n_out, S, H, chunk, n_chunks);
+                           C_out, n_out, C_states, n_states, nrm, S, H, chunk, n_chunks);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -861,14 +878,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // (zero initial state). 1 <= chunk <= 64. workspace: fp32 scratch of
 // B·H·ceil(S/chunk)·(64·68 + 3·64) floats, one record per (b, h, chunk): P
 // in rows of 68, then fcum, W and the row sums (the scores kernel writes
-// it, the state kernel reads it). Returns cudaGetLastError() after the launches.
+// it, the state kernel reads it). C_states (B,H,ceil(S/chunk),hd,hd),
+// n_states (B,H,ceil(S/chunk),hd) and nrm (B,S,H): all null, or all given,
+// and then written with each chunk's entering state and each row's
+// normaliser for the backward. Returns cudaGetLastError() after the launches.
 extern "C" int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                                const void* log_f, const void* i_gate, const void* C0,
                                const void* n0, void* y, void* C_out, void* n_out,
-                               void* workspace, int B, int S, int H, int hd, int chunk,
-                               void* stream) {
+                               void* workspace, void* C_states, void* n_states, void* nrm,
+                               int B, int S, int H, int hd, int chunk, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || chunk < 1 || chunk > CM ||
-      (C0 == nullptr) != (n0 == nullptr) || workspace == nullptr)
+      (C0 == nullptr) != (n0 == nullptr) || workspace == nullptr ||
+      (C_states == nullptr) != (n_states == nullptr) || (C_states == nullptr) != (nrm == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qf = static_cast<const float*>(q);
@@ -882,10 +903,13 @@ extern "C" int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
   auto* co = static_cast<float*>(C_out);
   auto* no = static_cast<float*>(n_out);
   auto* ws = static_cast<float*>(workspace);
+  auto* cs = static_cast<float*>(C_states);
+  auto* ns = static_cast<float*>(n_states);
+  auto* nr = static_cast<float*>(nrm);
   switch (hd) {
-    case 32: return launch<32>(qf, kf, vf, ff, gf, cf, nf, yf, co, no, ws, B, S, H, chunk, st);
-    case 64: return launch<64>(qf, kf, vf, ff, gf, cf, nf, yf, co, no, ws, B, S, H, chunk, st);
-    case 512: return launch<512>(qf, kf, vf, ff, gf, cf, nf, yf, co, no, ws, B, S, H, chunk, st);
+    case 32: return launch<32>(qf, kf, vf, ff, gf, cf, nf, yf, co, no, ws, cs, ns, nr, B, S, H, chunk, st);
+    case 64: return launch<64>(qf, kf, vf, ff, gf, cf, nf, yf, co, no, ws, cs, ns, nr, B, S, H, chunk, st);
+    case 512: return launch<512>(qf, kf, vf, ff, gf, cf, nf, yf, co, no, ws, cs, ns, nr, B, S, H, chunk, st);
     default: return cudaErrorInvalidValue;
   }
 }

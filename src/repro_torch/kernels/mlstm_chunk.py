@@ -7,7 +7,10 @@ kernel it takes an initial state, returns the final one and masks a
 ragged last chunk itself. fp32 only, as the TPU kernel's signature and the
 model's casts (``models/ssm.mlstm``). One call runs two kernels: the
 scores of each chunk into a workspace, then the state pass over value
-tiles of C; every product is 3xTF32 on the tensor cores. Launch through
+tiles of C; every product is 3xTF32 on the tensor cores. Asked to
+``save``, the state pass also writes each chunk's entering state and each
+row's normaliser, which the backward (``csrc/mlstm_chunk_bwd.cu``,
+``launch_bwd``: five kernels on fp32 FMAs) reads. Launch through
 ``ops.mlstm_chunk``.
 """
 from __future__ import annotations
@@ -35,28 +38,35 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _fn():
     fn = _build.library("mlstm_chunk").mlstm_chunk_fwd
-    fn.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    fn.argtypes = [_P] * 14 + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
-           i_gate: torch.Tensor, *, chunk: int,
-           state: tuple[torch.Tensor, torch.Tensor] | None
-           ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """q/k/v (B,S,H,hd), gates (B,S,H), state (C (B,H,hd,hd), n (B,H,hd)) or
-    None, all fp32 on one CUDA device -> (y (B,S,H,hd), (C, n))."""
-    B, S, H, hd = q.shape
-    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate)]
-    if state is not None:
-        named += [("C", state[0]), ("n", state[1])]
+@functools.cache
+def _bwd():
+    lib = _build.library("mlstm_chunk_bwd")
+    fn = lib.mlstm_chunk_bwd
+    fn.argtypes = [_P] * 20 + [_I] * 5 + [_P]
+    fn.restype = _I
+    size = lib.mlstm_chunk_bwd_workspace_floats
+    size.argtypes = [_I] * 5
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def _check(named: list[tuple[str, torch.Tensor]], device: torch.device) -> None:
     for name, t in named:
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"mlstm_chunk: {name} on {t.device}, q on {q.device}")
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"mlstm_chunk: {name} on {t.device}, q on {device}")
         if t.dtype != torch.float32:
             raise ValueError(f"mlstm_chunk: {name} is {t.dtype}, need torch.float32")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"mlstm_chunk: {name} is not contiguous and 16-byte aligned")
+
+
+def _check_shapes(q, k, v, log_f, i_gate, chunk, state) -> None:
+    B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"mlstm_chunk: head dim {hd} not in {HEAD_DIMS}")
     if (k.shape != q.shape or v.shape != q.shape or log_f.shape != (B, S, H)
@@ -70,16 +80,80 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tenso
                          f"{tuple(state[1].shape)}, need ({B},{H},{hd},{hd})/({B},{H},{hd})")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"mlstm_chunk: chunk {chunk} not in [1, {MAX_CHUNK}]")
+
+
+def saved_shapes(B: int, S: int, H: int, hd: int, chunk: int) -> tuple[tuple[int, ...], ...]:
+    """Shapes of what the forward saves for the backward: each chunk's
+    entering C (B,H,n_chunks,hd,hd) and n (B,H,n_chunks,hd), and each row's
+    normaliser (B,S,H)."""
+    n_chunks = -(-S // chunk)
+    return (B, H, n_chunks, hd, hd), (B, H, n_chunks, hd), (B, S, H)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+           i_gate: torch.Tensor, *, chunk: int,
+           state: tuple[torch.Tensor, torch.Tensor] | None, save: bool = False):
+    """q/k/v (B,S,H,hd), gates (B,S,H), state (C (B,H,hd,hd), n (B,H,hd)) or
+    None, all fp32 on one CUDA device -> (y (B,S,H,hd), (C, n)), and with
+    ``save`` a third item: the tensors of ``saved_shapes`` for ``launch_bwd``.
+    Without ``save`` nothing more is allocated or written."""
+    B, S, H, hd = q.shape
+    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate)]
+    if state is not None:
+        named += [("C", state[0]), ("n", state[1])]
+    _check(named, q.device)
+    _check_shapes(q, k, v, log_f, i_gate, chunk, state)
     y = torch.empty_like(q)
     C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
     n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     n_chunks = -(-S // chunk)
     ws = torch.empty(B * H * n_chunks * record_floats(hd), dtype=torch.float32, device=q.device)
     C0, n0 = (None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())
+    saved = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                  for shape in saved_shapes(B, S, H, hd, chunk)) if save else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
                     i_gate.data_ptr(), C0, n0, y.data_ptr(), C.data_ptr(), n.data_ptr(),
-                    ws.data_ptr(), B, S, H, hd, chunk, stream)
+                    ws.data_ptr(), *((t.data_ptr() for t in saved) if save else (None,) * 3),
+                    B, S, H, hd, chunk, stream)
     _build.check(err, "mlstm_chunk_fwd")
-    return y, (C, n)
+    return (y, (C, n), saved) if save else (y, (C, n))
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+               i_gate: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+               saved: tuple[torch.Tensor, torch.Tensor, torch.Tensor], *, chunk: int,
+               dC: torch.Tensor | None, dn: torch.Tensor | None, state_grads: bool):
+    """(dq, dk, dv, dlog_f, di, dC0, dn0) of ``launch`` at these inputs, whose
+    output was ``y`` and which saved ``saved``, against the output's gradient
+    ``dy`` and the final state's (``dC``, ``dn``; None: zeros). dC0 and dn0
+    are None unless ``state_grads``. All fp32 on one CUDA device."""
+    B, S, H, hd = q.shape
+    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate), ("y", y),
+             ("dy", dy), ("C_states", saved[0]), ("n_states", saved[1]), ("nrm", saved[2])]
+    if (dC is None) != (dn is None):
+        raise ValueError("mlstm_chunk_bwd: pass both final-state gradients or neither")
+    if dC is not None:
+        named += [("dC", dC), ("dn", dn)]
+    _check(named, q.device)
+    _check_shapes(q, k, v, log_f, i_gate, chunk, None)
+    want = ((q.shape,) * 2 + saved_shapes(B, S, H, hd, chunk)
+            + (((B, H, hd, hd), (B, H, hd)) if dC is not None else ()))
+    for (name, t), shape in zip(named[5:], want, strict=True):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"mlstm_chunk_bwd: {name} {tuple(t.shape)}, need {tuple(shape)}")
+    fn, size = _bwd()
+    ws = torch.empty(size(B, S, H, hd, chunk), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dlf, di = (torch.empty_like(log_f) for _ in range(2))
+    dC0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device) if state_grads else None
+    dn0 = torch.empty((B, H, hd), dtype=torch.float32, device=q.device) if state_grads else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(ptr(t) for t in (q, k, v, log_f, i_gate, y, dy, *saved, dC, dn, dq, dk, dv,
+                                    dlf, di, dC0, dn0, ws)),
+                 B, S, H, hd, chunk, stream)
+    _build.check(err, "mlstm_chunk_bwd")
+    return dq, dk, dv, dlf, di, dC0, dn0

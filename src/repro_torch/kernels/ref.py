@@ -6,6 +6,9 @@ recurrence in fp32 chunk by chunk. On a CPU tensor the wrappers in
 ``ops`` run these; on the card ``chip_smoke.py`` holds each CUDA kernel
 against them. ``flash_attention_bwd_ref`` is autograd of
 ``flash_attention_ref``: the gradient the backward kernel is held to.
+``mlstm_chunk_bwd_ref`` is the backward of ``mlstm_chunk_ref`` written
+out in its formulas, chunk by chunk in reverse: the spec of the
+``mlstm_chunk`` backward kernel.
 ``flash_attention_bwd_fp32_ref`` computes the same gradient by its
 formulas in fp32 from the forward's output as given, the arithmetic of the
 backward kernel, so a bf16 kernel can be held to it elementwise; given the
@@ -170,8 +173,8 @@ def mlstm_chunk_ref(
         q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         log_f, i_gate = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (log_f, i_gate))
     if state is None:
-        C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device)
-        nv = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+        C = torch.zeros((B, H, hd, hd), dtype=q.dtype, device=q.device)
+        nv = torch.zeros((B, H, hd), dtype=q.dtype, device=q.device)
     else:
         C, nv = state
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
@@ -198,3 +201,122 @@ def mlstm_chunk_ref(
         C = torch.exp(ftot)[..., None, None] * C + torch.einsum("bshk,bshv->bhkv", kd, vc)
         nv = torch.exp(ftot)[..., None] * nv + kd.sum(dim=1)
     return torch.cat(ys, dim=1)[:, :S], (C, nv)
+
+
+def mlstm_chunk_bwd_ref(
+    q: torch.Tensor,            # (B, S, H, hd)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_f: torch.Tensor,        # (B, S, H)
+    i_gate: torch.Tensor,       # (B, S, H)
+    y: torch.Tensor,            # (B, S, H, hd): the forward's output
+    dy: torch.Tensor,           # (B, S, H, hd): its gradient
+    *,
+    chunk: int = 64,
+    state: tuple[torch.Tensor, torch.Tensor] | None = None,
+    dC: torch.Tensor | None = None,   # (B, H, hd, hd): gradient of the final C, or None
+    dn: torch.Tensor | None = None,   # (B, H, hd): gradient of the final n, or None
+) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dlog_f, di, dC0, dn0) of ``mlstm_chunk_ref`` at these
+    inputs, in their dtype (at least fp32). A final-state gradient that is
+    None counts as zeros; dC0 and dn0 are returned whether or not a state
+    was given.
+
+    Per chunk, with a_s = e^fcum_s, E[s,t] = e^(fcum_s − fcum_t) (t ≤ s, else
+    0), D = E·i_t, P = (q·kᵀ)⊙D, nrm_s = a_s q_s·n + Σ_t P[s,t], m_s =
+    max(|nrm_s|, 1), W_t = i_t e^(ftot − fcum_t), and dC', dn' the gradients
+    of the state after the chunk:
+
+    - g_s = dy_s / m_s; d nrm_s = −(dy_s·y_s)/m_s · sign(nrm_s) · [|nrm_s| ≥ 1]
+      (at |nrm_s| = 1 the gradient passes, as ``torch.clamp(min=1)``'s does;
+      JAX's ``jnp.maximum`` would pass half);
+    - dP = g·vᵀ + d nrm (per row), dS = dP ⊙ D;
+    - dq_s = a_s (C g_s + d nrm_s n) + Σ_t dS[s,t] k_t;
+      dk_t = Σ_s dS[s,t] q_s + W_t (dC' v_t + dn');
+      dv_t = Σ_s P[s,t] g_s + W_t dC'ᵀ k_t;
+    - the gates: d fcum_s = a_s (q_s·C g_s + d nrm_s q_s·n) + Σ_t (dP⊙P)[s,t]
+      − Σ_r (dP⊙P)[r,s] − dW_s W_s with dW_t = k_t·(dC' v_t + dn');
+      d ftot = e^ftot (Σ C⊙dC' + n·dn') + Σ_t dW_t W_t;
+      d log_f_u = Σ_{s ≥ u} d fcum_s + d ftot (a reverse cumulative sum);
+      d i_t = Σ_s (dP⊙(q·kᵀ)⊙E)[s,t] + dW_t e^(ftot − fcum_t);
+    - the carry: dC ← e^ftot dC' + Σ_s a_s q_s g_sᵀ, dn ← e^ftot dn' +
+      Σ_s a_s d nrm_s q_s.
+
+    The padded positions of a ragged last chunk get no gradient.
+    """
+    B, S, H, hd = q.shape
+    dt = torch.promote_types(q.dtype, torch.float32)
+    q, k, v, log_f, i_gate, y, dy = (t.to(dt) for t in (q, k, v, log_f, i_gate, y, dy))
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        q, k, v, y, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                          for t in (q, k, v, y, dy))
+        log_f, i_gate = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (log_f, i_gate))
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=q.device)  # noqa: E731
+    C, nv = (zeros(B, H, hd, hd), zeros(B, H, hd)) if state is None else (
+        state[0].to(dt), state[1].to(dt))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    states = []  # the state entering each chunk
+    for j in range(n_chunks):
+        states.append((C, nv))
+        sl = slice(j * chunk, (j + 1) * chunk)
+        kc, vc, fc, ic = k[:, sl], v[:, sl], log_f[:, sl], i_gate[:, sl]
+        fcum = torch.cumsum(fc, dim=1)
+        ftot = fcum[:, -1]
+        kd = kc * (ic * torch.exp(ftot[:, None, :] - fcum))[..., None]
+        C = torch.exp(ftot)[..., None, None] * C + torch.einsum("bshk,bshv->bhkv", kd, vc)
+        nv = torch.exp(ftot)[..., None] * nv + kd.sum(dim=1)
+
+    dCn = zeros(B, H, hd, hd) if dC is None else dC.to(dt)
+    dnn = zeros(B, H, hd) if dn is None else dn.to(dt)
+    grads = []
+    for j in reversed(range(n_chunks)):
+        C, nv = states[j]
+        sl = slice(j * chunk, (j + 1) * chunk)
+        qc, kc, vc, fc, ic = q[:, sl], k[:, sl], v[:, sl], log_f[:, sl], i_gate[:, sl]
+        yc, dyc = y[:, sl], dy[:, sl]
+        fcum = torch.cumsum(fc, dim=1)                       # (B, c, H)
+        ftot = fcum[:, -1]                                   # (B, H)
+        a = torch.exp(fcum)
+        rel = fcum[:, :, None, :] - fcum[:, None, :, :]      # (B, s, t, H)
+        E = torch.exp(rel.masked_fill(~mask[None, :, :, None], float("-inf")))
+        D = E * ic[:, None, :, :]
+        Sc = torch.einsum("bshk,bthk->bsth", qc, kc)
+        P = Sc * D
+        qn = torch.einsum("bshk,bhk->bsh", qc, nv)
+        nrm = a * qn + P.sum(dim=2)
+        m = torch.clamp(nrm.abs(), min=1.0)
+        g = dyc / m[..., None]
+        dnrm = (-(dyc * yc).sum(-1) / m) * torch.sign(nrm) * (nrm.abs() >= 1.0)
+        # the output and the normaliser
+        CG = torch.einsum("bshv,bhkv->bshk", g, C)           # C g_s
+        dq = a[..., None] * (CG + dnrm[..., None] * nv[:, None])
+        da = (qc * CG).sum(-1) + dnrm * qn
+        dP = torch.einsum("bshv,bthv->bsth", g, vc) + dnrm[:, :, None, :]
+        dS = dP * D
+        dq = dq + torch.einsum("bsth,bthk->bshk", dS, kc)
+        dk = torch.einsum("bsth,bshk->bthk", dS, qc)
+        dv = torch.einsum("bsth,bshv->bthv", P, g)
+        dPP = dP * P
+        dfcum = a * da + dPP.sum(dim=2) - dPP.sum(dim=1)
+        di = (dP * Sc * E).sum(dim=1)
+        # the state update
+        decay_k = torch.exp(ftot[:, None, :] - fcum)
+        W = ic * decay_k
+        DV = torch.einsum("bthv,bhkv->bthk", vc, dCn) + dnn[:, None]   # dC' v_t + dn'
+        dk = dk + W[..., None] * DV
+        dv = dv + W[..., None] * torch.einsum("bthk,bhkv->bthv", kc, dCn)
+        dW = (kc * DV).sum(-1)
+        di = di + dW * decay_k
+        dfcum = dfcum - dW * W
+        dftot = (torch.exp(ftot) * ((C * dCn).sum((-2, -1)) + (nv * dnn).sum(-1))
+                 + (dW * W).sum(dim=1))
+        dlf = torch.flip(torch.cumsum(torch.flip(dfcum, (1,)), dim=1), (1,)) + dftot[:, None]
+        grads.append((dq, dk, dv, dlf, di))
+        # the carry to the chunk before
+        dCn = (torch.exp(ftot)[..., None, None] * dCn
+               + torch.einsum("bshk,bshv->bhkv", a[..., None] * qc, g))
+        dnn = torch.exp(ftot)[..., None] * dnn + torch.einsum("bsh,bshk->bhk", a * dnrm, qc)
+    out = [torch.cat(parts[::-1], dim=1)[:, :S] for parts in zip(*grads)]
+    return (*out, dCn, dnn)

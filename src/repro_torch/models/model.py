@@ -8,16 +8,22 @@ reference's pytree as plain dictionaries: per pattern position, each leaf
 stacked over ``n_repeats`` along a leading axis. ``jax.lax.scan`` over the
 stack becomes a Python loop over the repeats.
 
+``loss_fn`` trains every ported block: attention and mLSTM through their
+kernels' autograd Functions, sLSTM's time loop through autograd. With
+``cfg.remat`` set, ``forward`` wraps each superblock (one repeat of the
+whole block pattern) in non-reentrant ``torch.utils.checkpoint``, as the
+reference wraps it in ``jax.checkpoint``: only the superblocks' inputs are
+kept, and the backward runs each superblock's forward again.
+
 Mamba, MoE MLPs and the encoder-decoder raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings them. ``loss_fn`` trains the
-``attn+dense`` decoders only: the mLSTM kernel has no backward yet.
-``remat`` is not ported (every activation is kept for the backward).
+naming the ``ROADMAP.md`` item that brings them.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -35,9 +41,9 @@ from repro_torch.models.layers import (
 )
 
 _NOT_PORTED = {
-    "mamba": "ROADMAP.md queue 1 item 8 (recurrent mixers: mamba)",
-    "moe": "ROADMAP.md queue 1 item 7 (MoE)",
-    "enc_dec": "ROADMAP.md queue 1 item 9 (encoder-decoder)",
+    "mamba": "ROADMAP.md queue 1 item 7 (recurrent mixers: mamba)",
+    "moe": "ROADMAP.md queue 1 item 6 (MoE)",
+    "enc_dec": "ROADMAP.md queue 1 item 8 (encoder-decoder)",
 }
 _MIXERS = ("attn", "mlstm", "slstm")
 _MLPS = ("dense", None)
@@ -61,15 +67,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every block is ``attn+dense``:
-    the only blocks whose kernels have a backward."""
+    """Raise ``NotImplementedError`` unless every block can be trained: its
+    mixer is ``attn``, ``mlstm`` or ``slstm`` and its MLP ``dense`` or absent.
+    Every block that ``check_supported`` takes has a backward, so the two
+    checks are one."""
     check_supported(cfg)
-    for entry in cfg.block_pattern:
-        if (cfg.mixer_of(entry), cfg.mlp_of(entry)) != ("attn", "dense"):
-            raise NotImplementedError(
-                f"{cfg.name}: training block {entry!r} is not ported yet; ROADMAP.md "
-                f"queue 1 item 3 brings it (xLSTM training needs an mlstm_chunk "
-                f"backward kernel and the sLSTM loop's)")
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +150,26 @@ def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> tor
     return x
 
 
+def _superblock(x: torch.Tensor, bps: list[Params], cfg: ModelConfig) -> torch.Tensor:
+    """One repeat of the whole block pattern, in order (Jamba's interleave)."""
+    for bp, entry in zip(bps, cfg.block_pattern):
+        x = _block_fwd(bp, x, entry, cfg)
+    return x
+
+
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token logits for training / prefill: (B, S) ints -> (B, S, vocab) fp32."""
+    """Token logits for training / prefill: (B, S) ints -> (B, S, vocab) fp32.
+    Under ``cfg.remat`` and autograd each superblock is recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant)."""
     x = p["embed"][tokens].to(dtype_of(cfg))
     layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
+    remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.n_repeats):
-        for stack, entry in zip(layers, cfg.block_pattern):
-            x = _block_fwd(stack[r], x, entry, cfg)
+        bps = [stack[r] for stack in layers]
+        if remat:
+            x = checkpoint(_superblock, x, bps, cfg, use_reentrant=False)
+        else:
+            x = _superblock(x, bps, cfg)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return (x @ _head(p, cfg)).float()
 

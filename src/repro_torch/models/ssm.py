@@ -9,9 +9,11 @@ the same code serves the forward (state zeros, full sequence) and decode
 
 - ``mlstm`` computes the reference's projections and gates and runs the
   chunkwise recurrence through ``ops.mlstm_chunk``: the hand-written CUDA
-  kernel on the card, its plain version on the CPU.
-- ``slstm`` is a Python loop over time in plain PyTorch: its recurrence is
-  sequential and the JAX package has no kernel for it.
+  kernels (forward and backward) on the card, their plain versions on the
+  CPU.
+- ``slstm`` is a Python loop over time in plain PyTorch, which trains
+  through autograd: its recurrence is sequential and the JAX package has no
+  kernel for it.
 - Mamba (Jamba's mixer) is not ported yet.
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.models.layers import Params, _init, dtype_of
 
 MLSTM_CHUNK = 256  # the reference's chunk, kept for its S % chunk assertion
 
-_MAMBA = "ROADMAP.md queue 1 item 8 (recurrent mixers: mamba)"
+_MAMBA = "ROADMAP.md queue 1 item 7 (recurrent mixers: mamba)"
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Params:

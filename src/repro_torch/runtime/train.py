@@ -24,7 +24,8 @@ from repro_torch.tree import leaves, map_tree, unflatten
 
 
 def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1):
-    """The train step of ``cfg`` (``attn+dense`` blocks only) under ``opt``;
+    """The train step of ``cfg`` (``attn+dense`` decoders and xLSTM's
+    mLSTM / sLSTM blocks: ``model.check_trainable``) under ``opt``;
     ``batch`` = {"tokens", "labels"}: (B, S) integer tensors, B divisible by
     ``n_microbatches``. Metrics are 0-d tensors: loss, grad_norm, lr_scale."""
     M.check_trainable(cfg)

@@ -16,8 +16,14 @@ formulas on the same inputs and forward output (the kernel's arithmetic),
 |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one bf16 ulp)
 and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and
 bf16 3e-2, against autograd of the plain version; two runs on the same
-inputs give the same bits. A reduced f32 model's train step on the card:
-loss 1e-4, params 2e-3 against the same step on the CPU. The paper's
+inputs give the same bits. The mLSTM backward, per gradient, elementwise against its plain
+version ``mlstm_chunk_bwd_ref`` on the same inputs and forward output,
+|err| <= 1e-4·(|ref| + rms(ref)) (the f32 flash backward's rule), against
+the plain version in float64 (the truth) and in fp32 (the plain version as
+the port runs it); two runs give the same bits, and saving the states for
+it leaves the forward's output as it was, to the bit. A reduced f32
+model's train step on the card (smollm, and xLSTM with and without
+``remat``): loss 1e-4, params 2e-3 against the same step on the CPU. The paper's
 workloads (``repro_torch.apps``, library payloads) on the card: each within
 ``launch.apps``'s limits of its float64 reference there, with the same
 ``charged_ms`` and ``kv_stats`` as on the CPU.
@@ -37,8 +43,10 @@ from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
+    mlstm_chunk_bwd_ref,
     mlstm_chunk_ref,
 )
+from repro_torch.kernels import mlstm_chunk as mlstm_kernel
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -50,6 +58,7 @@ TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 BWD_ELT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 LSE_TOL = 1e-4
+MLSTM_BWD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -299,12 +308,107 @@ def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
         ops.decode_attention(q, cache, cache, lens)
     with torch.no_grad():
         ops.decode_attention(q, cache, cache, lens)
-    x = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
-    gate = torch.zeros((1, 64, 2), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        ops.mlstm_chunk(x, x, x, gate, gate)
+
+
+def _mlstm_inputs(cuda, B, S, H, hd, with_state, seed):
+    """The model's scales: q carries hd^-0.5, forget gates near sigmoid(2)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    q, k, v = randn(B, S, H, hd) * hd ** -0.5, randn(B, S, H, hd), randn(B, S, H, hd)
+    log_f = torch.nn.functional.logsigmoid(randn(B, S, H) + 2.0)
+    i_gate = torch.sigmoid(randn(B, S, H))
+    state = (randn(B, H, hd, hd) * 0.1, randn(B, H, hd)) if with_state else None
+    return (q, k, v, log_f, i_gate), state, randn
+
+
+def _hold_elementwise(got, want, tol):
+    """|got − want| <= tol·(|want| + rms(want)); returns the worst err/tol."""
+    want = want.double()
+    limit = tol * (want.abs() + want.square().mean().sqrt())
+    ratio = ((got.double() - want).abs() / limit).max().item()
+    assert ratio <= 1.0, ratio
+    return ratio
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,chunk,with_state,final_grads", [
+    (2, 512, 4, 512, 64, False, False),   # xlstm-350m's training shape
+    (2, 512, 4, 512, 64, True, True),     # with an initial state and final-state gradients
+    (2, 300, 4, 512, 64, True, False),    # ragged
+    (1, 65, 4, 512, 64, False, True),     # ragged second chunk of one position
+    (2, 256, 4, 64, 64, True, True),      # hd 64
+    (2, 200, 4, 32, 64, False, False),    # hd 32 (reduced xlstm), ragged
+    (2, 100, 3, 32, 32, True, True),      # chunk 32
+    (2, 1, 3, 64, 64, True, True),        # one position
+])
+def test_mlstm_bwd_kernel_on_card(cuda, B, S, H, hd, chunk, with_state, final_grads):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs, state, randn = _mlstm_inputs(cuda, B, S, H, hd, with_state, seed=14)
+    c = min(chunk, S)
+    y, (C, n), saved = mlstm_kernel.launch(*inputs, chunk=c, state=state, save=True)
+    plain_y, _ = mlstm_kernel.launch(*inputs, chunk=c, state=state)
+    assert torch.equal(y, plain_y)  # saving leaves the output as it was
+    dy = randn(B, S, H, hd)
+    dC, dn = (randn(B, H, hd, hd), randn(B, H, hd)) if final_grads else (None, None)
+    n_bwd = ops.mlstm_chunk.bwd_launches
+    got = ops.mlstm_chunk_bwd(*inputs, y, dy, saved=saved, chunk=c, state=state, dC=dC, dn=dn)
+    again = ops.mlstm_chunk_bwd(*inputs, y, dy, saved=saved, chunk=c, state=state, dC=dC, dn=dn)
+    torch.cuda.synchronize()
+    assert ops.mlstm_chunk.bwd_launches == n_bwd + 2
+    names = ("dq", "dk", "dv", "dlog_f", "di", "dC0", "dn0")
+    for name, a, b in zip(names, got, again, strict=True):
+        assert (a is None) == (state is None) if name in ("dC0", "dn0") else a is not None, name
+        assert a is None or torch.equal(a, b), name  # no atomics: the same bits
+    as64 = lambda t: None if t is None else t.double()  # noqa: E731
+    exact = mlstm_chunk_bwd_ref(*(t.double() for t in inputs), y.double(), dy.double(), chunk=c,
+                                state=None if state is None else tuple(map(as64, state)),
+                                dC=as64(dC), dn=as64(dn))
+    plain = mlstm_chunk_bwd_ref(*inputs, y, dy, chunk=c, state=state, dC=dC, dn=dn)
+    for name, a, e, p in zip(names, got, exact, plain, strict=True):
+        if a is None:
+            continue
+        assert a.dtype == torch.float32 and a.shape == p.shape, name
+        _hold_elementwise(a, e, MLSTM_BWD_TOL)
+        _hold_elementwise(a, p, MLSTM_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_saves_nothing_without_a_graph_on_card(cuda):
+    inputs, state, _ = _mlstm_inputs(cuda, 1, 100, 2, 64, True, seed=15)
+    x = [t.clone().requires_grad_() for t in inputs]
+
+    def allocations():
+        return torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+
     with torch.no_grad():
-        ops.mlstm_chunk(x, x, x, gate, gate)
+        before = allocations()
+        y, _ = ops.mlstm_chunk(*x, state=state)
+        assert y.grad_fn is None
+        assert allocations() == before + 4  # y, C, n and the scores' workspace
+    before = allocations()
+    y2, _ = ops.mlstm_chunk(*x, state=state)
+    assert allocations() == before + 7  # and the saved C_j, n_j, nrm
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_mlstm_function_launches_the_backward_on_card(cuda):
+    inputs, state, randn = _mlstm_inputs(cuda, 2, 130, 4, 64, True, seed=16)
+    fwd, bwd = ops.mlstm_chunk.launches, ops.mlstm_chunk.bwd_launches
+    grads = []
+    for dev in (cuda, "cpu"):
+        x = [t.detach().to(dev).requires_grad_() for t in (*inputs, *state)]
+        y, (C, n) = ops.mlstm_chunk(*x[:5], state=(x[5], x[6]))
+        assert y.grad_fn is not None
+        (y.square().sum() + C.sum()).backward()  # n's gradient stays None
+        grads.append([t.grad.cpu() for t in x])
+    assert ops.mlstm_chunk.launches == fwd + 1
+    assert ops.mlstm_chunk.bwd_launches == bwd + 1
+    for a, b in zip(*grads, strict=True):
+        _hold_elementwise(a, b, MLSTM_BWD_TOL)
 
 
 def _small_config():
@@ -329,23 +433,30 @@ def test_attention_gradients_reach_the_projections_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_train_step_on_card_equals_cpu(cuda):
+@pytest.mark.parametrize("arch,remat", [("smollm_360m", False), ("xlstm_350m", False),
+                                        ("xlstm_350m", True)])
+def test_train_step_on_card_equals_cpu(cuda, arch, remat):
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _small_config()
+    if arch == "smollm_360m":
+        cfg = _small_config()
+    else:
+        cfg = dataclasses.replace(reduced(get_config(arch)), remat=remat)
     step = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup=2))
     p_cpu = M.init_model(cfg, seed=5, device="cpu")
     batch = synthetic_batch(cfg, 2, 100, seed=6, device="cpu")
     states = {"cpu": (p_cpu, adamw_init(p_cpu)),
               "cuda": (map_tree(lambda t: t.to(cuda), p_cpu), None)}
     states["cuda"] = (states["cuda"][0], adamw_init(states["cuda"][0]))
-    bwd = ops.flash_attention.bwd_launches
+    bwd = ops.flash_attention.bwd_launches + ops.mlstm_chunk.bwd_launches
     for _ in range(2):
         (pc, oc), (pg, og) = states["cpu"], states["cuda"]
         pc, oc, mc = step(pc, oc, batch)
         pg, og, mg = step(pg, og, map_tree(lambda t: t.to(cuda), batch))
         assert abs(mc["loss"].item() - mg["loss"].item()) < 1e-4
         states = {"cpu": (pc, oc), "cuda": (pg, og)}
-    assert ops.flash_attention.bwd_launches == bwd + 2 * cfg.n_layers
+    kernel_layers = cfg.n_layers if arch == "smollm_360m" else cfg.n_layers // 2
+    assert (ops.flash_attention.bwd_launches + ops.mlstm_chunk.bwd_launches
+            == bwd + 2 * kernel_layers)
     for a, b in zip(leaves(states["cpu"][0]), leaves(states["cuda"][0]), strict=True):
         torch.testing.assert_close(b.cpu(), a, atol=2e-3, rtol=0)
 

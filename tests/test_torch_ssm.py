@@ -6,6 +6,14 @@ numpy), and both frameworks see the same values. Tolerances:
 f32 relative max error 1e-4 on reduced xlstm-350m. On the CPU
 ``ops.mlstm_chunk`` runs its plain version; the CUDA kernel runs only on
 the card (``tests/test_torch_cuda.py``, ``python3 chip_smoke.py``).
+
+The backward: ``mlstm_chunk_bwd_ref`` against ``torch.autograd`` of
+``mlstm_chunk_ref`` in float64, max abs error <= 1e-10 x max|autograd|
+(the two sum the same terms in another order); ``ops.mlstm_chunk``'s
+gradients in f32 against ``jax.grad`` of the JAX oracle at S <= 64, max
+abs error <= 1e-4 x max(1, max|g|) (the f32 train tests' rule). JAX's
+``wf`` gradient is NaN at S = 256 (its mask applies ``exp`` before the
+``where``); the port's must be finite there.
 """
 import dataclasses
 import functools
@@ -23,7 +31,7 @@ from repro.kernels.ref import mlstm_chunk_ref as jax_mlstm_ref
 from repro.models import ssm as jssm
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import mlstm_chunk_ref
+from repro_torch.kernels.ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref
 from repro_torch.models import ssm
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -141,6 +149,93 @@ def test_ops_mlstm_chunk_on_cpu_is_the_plain_version_and_counts_nothing():
     assert ops.mlstm_chunk.launches == before == 0
 
 
+def normalisers(q, k, log_f, i_gate, n0=None):
+    """nrm_t = q_t·n_t of the float64 recurrence (n <- f n + i k)."""
+    B, S, H, hd = q.shape
+    n = np.zeros((B, H, hd)) if n0 is None else n0.astype(np.float64)
+    out = []
+    for t in range(S):
+        n = np.exp(log_f[:, t])[..., None] * n + i_gate[:, t][..., None] * k[:, t]
+        out.append(np.einsum("bhk,bhk->bh", q[:, t], n))
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S,chunk", [(64, 64), (70, 32)])      # whole chunks; ragged last chunk
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("final_grads", [False, True])
+def test_mlstm_chunk_bwd_ref_matches_autograd(hd, S, chunk, with_state, final_grads):
+    B, H = 2, 3
+    arrays = [a.astype(np.float64) for a in gate_inputs(12, B, S, H, hd)]
+    rng = np.random.default_rng(13)
+    state = (rng.standard_normal((B, H, hd, hd)) * 0.1,
+             rng.standard_normal((B, H, hd))) if with_state else None
+    nrm = np.abs(normalisers(arrays[0], arrays[1], arrays[3], arrays[4],
+                             None if state is None else state[1]))
+    assert (nrm > 1).any() and (nrm < 1).any()  # both branches of max(|nrm|, 1)
+    x = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    st = None if state is None else tuple(torch.from_numpy(a).requires_grad_() for a in state)
+    y, (C, n) = mlstm_chunk_ref(*x, chunk=chunk, state=st)
+    dy = torch.from_numpy(rng.standard_normal(y.shape))
+    dC, dn = ((torch.from_numpy(rng.standard_normal(C.shape)),
+               torch.from_numpy(rng.standard_normal(n.shape))) if final_grads else (None, None))
+    outs, grads_out = [y], [dy]
+    if final_grads:
+        outs, grads_out = [y, C, n], [dy, dC, dn]
+    wrt = x + ([] if st is None else list(st))
+    want = torch.autograd.grad(outs, wrt, grads_out)
+    got = mlstm_chunk_bwd_ref(*(t.detach() for t in x), y.detach(), dy, chunk=chunk,
+                              state=None if st is None else tuple(t.detach() for t in st),
+                              dC=dC, dn=dn)
+    assert len(got) == 7
+    for g, w in zip(got, want):  # dq dk dv dlog_f di [dC0 dn0]
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-10 * w.abs().max().item()
+    if not with_state:  # dC0, dn0 are returned all the same
+        assert got[5].shape == (B, H, hd, hd) and got[6].shape == (B, H, hd)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 64), (64, 16), (48, 48)])
+def test_ops_mlstm_chunk_grad_matches_jax_grad(S, chunk):
+    """At S <= 64 the JAX oracle's masked exp cannot overflow (see the S =
+    256 test), so its gradient is the reference."""
+    arrays = gate_inputs(14, 2, S, 3, 32)
+    dy = np.random.default_rng(15).standard_normal((2, S, 3, 32), dtype=np.float32)
+    _, vjp = jax.vjp(lambda *a: jax_mlstm_ref(*a, chunk=chunk), *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(dy))
+    x = [t.requires_grad_() for t in torch_of(*arrays)]
+    before = ops.mlstm_chunk.bwd_launches
+    y, _ = ops.mlstm_chunk(*x, chunk=chunk)
+    assert y.grad_fn is not None
+    y.backward(torch.from_numpy(dy))
+    assert ops.mlstm_chunk.bwd_launches == before == 0  # the CPU runs the plain version
+    for t, w in zip(x, want, strict=True):
+        w = np.asarray(w)
+        assert np.abs(t.grad.numpy() - w).max() <= 1e-4 * max(1.0, float(np.abs(w).max()))
+
+
+def test_mlstm_gradient_at_s256_is_finite_where_jax_wf_gradient_is_nan():
+    """The reference behaviour the port must not copy: JAX differentiates
+    ``where(mask, exp(rel), 0)``, and above the diagonal of a 256-position
+    chunk ``exp(rel)`` overflows, so ``wf``'s gradient is 0 · inf = NaN. The
+    port masks ``rel`` with -inf before ``exp``: finite at the reference's
+    chunk (256) as at the port's (64)."""
+    jcfg, tcfg, jm, _, tm, _ = mixer_case()
+    x = np.random.default_rng(16).standard_normal((2, 256, jcfg.d_model), dtype=np.float32)
+    jg = jax.grad(lambda p: jssm.mlstm(p, jnp.asarray(x), jcfg)[0].sum())(jm)
+    assert bool(jnp.isnan(jg["wf"]).any())
+    p = {k: t.clone().requires_grad_() for k, t in tm.items()}
+    ssm.mlstm(p, torch.from_numpy(x), tcfg)[0].sum().backward()
+    for name, t in p.items():
+        assert bool(torch.isfinite(t.grad).all()), name
+    # the plain version at the reference's chunk of 256
+    q = [t.requires_grad_() for t in torch_of(*gate_inputs(17, 2, 256, 2, 32))]
+    y, _ = ops.mlstm_chunk(*q, chunk=256)
+    y.sum().backward()
+    for t in q:
+        assert bool(torch.isfinite(t.grad).all())
+
+
 def test_ops_mlstm_chunk_refuses_other_devices():
     q = torch.empty((1, 8, 2, 32), device="meta")
     g = torch.empty((1, 8, 2), device="meta")
@@ -247,7 +342,7 @@ def test_init_matches_reference_layout_scales_and_dtypes(mixer):
 
 def test_mamba_raises_with_roadmap_item():
     cfg = reduced(get_config("jamba_1_5_large_398b"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ssm.init_mamba(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ssm.mamba({}, torch.zeros((1, 4, cfg.d_model)), cfg)

@@ -15,6 +15,9 @@ Tolerances:
   the other framework; the gradients are held tightly, the params loosely,
   as in tests/test_models.py);
 - microbatched against full batch: loss 1e-3, params 2e-3;
+- ``remat`` on and off: loss and gradients equal to the bit on the CPU (the
+  recomputed forward repeats the same operations); under ``remat`` held to
+  the JAX package under ``remat`` with the tolerances above;
 - ``ops.flash_attention``'s autograd Function, and the backward's fp32
   formulas (``ref.flash_attention_bwd_fp32_ref``), against ``jax.grad`` of
   ``repro.models.layers.sdpa``: 1e-5.
@@ -22,6 +25,9 @@ Tolerances:
 Also: the step as a task of the copied engine (injected failures,
 identical pricing to the JAX workflow), its purity under re-execution,
 checkpoints written by the JAX package and by the port, and the launcher.
+xLSTM (reduced xlstm-350m: mLSTM hd 32, sLSTM) is held at S = 64, where
+the JAX package's chunk is the whole sequence and its masked ``exp``
+cannot overflow (``tests/test_torch_ssm.py``).
 """
 import dataclasses
 import functools
@@ -60,8 +66,9 @@ from repro_torch.tree import leaves, map_tree, paths
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192"]
+ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192", "xlstm_350m"]
 B, S = 4, 16
+SEQ = {"xlstm_350m": 64}     # S by arch, where not S
 OPT = dict(lr=1e-3, warmup=3)
 
 
@@ -83,10 +90,10 @@ def tensors(tree):
 
 
 @functools.cache
-def case(arch):
+def case(arch, remat=False):
     """JAX params (qkv biases made non-zero), a batch, and JAX's loss,
-    gradients and one full train step; built once per arch."""
-    jcfg, tcfg = configs(arch)
+    gradients and one full train step; built once per arch (and remat)."""
+    jcfg, tcfg = configs(arch, remat=remat)
     jparams, _ = JM.init_model(jax.random.PRNGKey(3), jcfg)
     tree = to_numpy(jparams)
     if jcfg.qkv_bias:  # the reference inits biases at zero: make them count
@@ -96,7 +103,7 @@ def case(arch):
                 blk["mixer"][name] = rng.standard_normal(
                     blk["mixer"][name].shape, dtype=np.float32) * 0.1
         jparams = jax.tree.map(jnp.asarray, tree)
-    batch = to_numpy(jsynthetic_batch(jcfg, B, S, seed=5))
+    batch = to_numpy(jsynthetic_batch(jcfg, B, SEQ.get(arch, S), seed=5))
     jbatch = jax.tree.map(jnp.asarray, batch)
     loss, grads = jax.jit(jax.value_and_grad(JM.loss_fn), static_argnums=1)(
         jparams, jcfg, jbatch["tokens"], jbatch["labels"])
@@ -136,22 +143,27 @@ def test_loss_fn_matches_jax(arch):
     assert abs(loss.item() - c["loss"]) < 1e-5, (loss.item(), c["loss"])
 
 
-def port_grads(c):
+def port_grads(c, cfg=None):
     p = map_tree(lambda t: t.requires_grad_(), port_params(c))
     b = port_batch(c)
-    M.loss_fn(p, c["tcfg"], b["tokens"], b["labels"]).backward()
-    return map_tree(lambda t: t.grad, p)
+    loss = M.loss_fn(p, cfg or c["tcfg"], b["tokens"], b["labels"])
+    loss.backward()
+    return loss.detach(), map_tree(lambda t: t.grad, p)
+
+
+def assert_grads_match(got, want):
+    for _, g, w in pairs(got, want):
+        assert g is not None and tuple(g.shape) == w.shape
+        err = max_abs(g, w)
+        assert err <= 1e-4 * max(1.0, float(np.max(np.abs(w)))), err
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_gradients_match_jax_grad(arch):
     c = case(arch)
-    got = port_grads(c)
-    for _, g, w in pairs(got, c["grads"]):
-        assert g is not None and tuple(g.shape) == w.shape
-        err = max_abs(g, w)
-        assert err <= 1e-4 * max(1.0, float(np.max(np.abs(w)))), err
-    # the attention projections get a gradient through the attention output
+    _, got = port_grads(c)
+    assert_grads_match(got, c["grads"])
+    # the attention (or mLSTM) projections get a gradient through the mixer's output
     mixer = got["blocks"][0]["mixer"]
     for name in ("wq", "wk", "wv"):
         assert float(mixer[name].abs().max()) > 0, name
@@ -173,6 +185,24 @@ def test_train_step_matches_jax(arch):
     for key in ("mu", "nu"):  # the moments see the same clipped gradients
         for _, got, want in pairs(o1[key], c["step_opt"][key]):
             assert max_abs(got, want) <= 1e-4 * max(1.0, float(np.max(np.abs(want))))
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m"])
+def test_remat_gives_the_same_loss_and_gradients(arch):
+    """``remat`` recomputes each superblock in the backward: on the CPU the
+    same loss and gradients to the bit; under ``remat`` the port matches the
+    JAX package under ``remat``."""
+    c = case(arch)
+    loss, grads = port_grads(c)
+    remat_cfg = dataclasses.replace(c["tcfg"], remat=True)
+    loss_r, grads_r = port_grads(c, remat_cfg)
+    assert torch.equal(loss, loss_r)
+    for x, y in zip(leaves(grads), leaves(grads_r), strict=True):
+        assert torch.equal(x, y)
+    jc = case(arch, remat=True)
+    assert jc["jcfg"].remat and remat_cfg.remat
+    assert abs(loss_r.item() - jc["loss"]) < 1e-5
+    assert_grads_match(grads_r, jc["grads"])
 
 
 def random_opt_inputs(seed=0):
@@ -245,8 +275,10 @@ def test_microbatching_matches_full_batch():
     assert max(max_abs(a, b) for a, b in zip(leaves(p1), leaves(p4))) < 2e-3
 
 
-def test_step_twice_on_one_state_is_identical_and_leaves_it_unchanged():
-    c = case("smollm_360m")
+def step_twice(arch):
+    """Two runs of one step on one state (the engine may re-run a task):
+    identical results, the state left as it was."""
+    c = case(arch)
     p0, b = port_params(c), port_batch(c)
     o0 = adamw_init(p0)
     o0 = {**o0, "count": torch.tensor(2, dtype=torch.int32)}
@@ -260,14 +292,26 @@ def test_step_twice_on_one_state_is_identical_and_leaves_it_unchanged():
     assert not any(t.requires_grad for t in leaves(first))
 
 
-def test_training_refuses_blocks_without_a_backward():
-    _, tcfg = configs("xlstm_350m")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+def test_step_twice_on_one_state_is_identical_and_leaves_it_unchanged():
+    step_twice("smollm_360m")
+
+
+def test_xlstm_step_twice_is_identical_and_leaves_the_state_unchanged():
+    step_twice("xlstm_350m")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("jamba_1_5_large_398b", "item 7"),   # mamba
+    ("mixtral_8x7b", "item 6"),           # MoE
+    ("whisper_large_v3", "item 8"),       # encoder-decoder
+])
+def test_training_refuses_blocks_without_a_backward(arch, item):
+    _, tcfg = configs(arch)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         build_train_step(tcfg, AdamWConfig())
-    p = M.init_model(tcfg, device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="mlstm_chunk"):
-        M.loss_fn(p, tcfg, tok, tok)
+    with pytest.raises(NotImplementedError, match=item):
+        M.loss_fn({}, tcfg, tok, tok)
 
 
 def test_synthetic_batch_is_seeded_and_rolled():
@@ -365,6 +409,37 @@ def test_jax_checkpoint_restores_into_the_port(tmp_path, dtype):
     jlogits = np.asarray(JM.forward(jparams, jcfg, jnp.asarray(tokens)))
     tol = 1e-4 if dtype == "float32" else 5e-2
     assert max_abs(logits, jlogits) / float(np.max(np.abs(jlogits))) < tol
+
+
+def test_jax_xlstm_checkpoint_restores_into_the_port(tmp_path):
+    """xLSTM's params (mLSTM and sLSTM stacks) and AdamW state after one JAX
+    step, written by the JAX package: restored into the port leaf for leaf,
+    written again by the port and restored to the bit, and the restored
+    model's logits those of the JAX model (rel 1e-4)."""
+    c = case("xlstm_350m")
+    jparams = jax.tree.map(jnp.asarray, c["step_params"])
+    path = str(tmp_path / "jax.npz")
+    jckpt.save(path, {"params": jparams, "opt": jax.tree.map(jnp.asarray, c["step_opt"])},
+               step=1)
+    p0 = port_params(c)
+    restored, step = ckpt.restore(path, {"params": p0, "opt": adamw_init(p0)})
+    assert step == 1
+    for _, got, want in pairs(restored["params"], c["step_params"]):
+        assert torch.equal(got, torch.from_numpy(np.array(want)))
+    for key in ("mu", "nu"):
+        for _, got, want in pairs(restored["opt"][key], c["step_opt"][key]):
+            assert torch.equal(got, torch.from_numpy(np.array(want)))
+    assert int(restored["opt"]["count"]) == 1
+    again = str(tmp_path / "port.npz")
+    ckpt.save(again, restored, step=2, async_=True).join()
+    back, step = ckpt.restore(again, {"params": p0, "opt": adamw_init(p0)})
+    assert step == 2
+    for a, b in zip(leaves(back), leaves(restored), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    tokens = np.random.default_rng(3).integers(0, c["tcfg"].vocab, (2, 12), dtype=np.int32)
+    logits = M.forward(back["params"], c["tcfg"], torch.from_numpy(tokens))
+    jlogits = np.asarray(JM.forward(jparams, c["jcfg"], jnp.asarray(tokens)))
+    assert max_abs(logits, jlogits) / float(np.max(np.abs(jlogits))) < 1e-4
 
 
 def test_port_checkpoint_round_trip_is_bit_exact(tmp_path):
