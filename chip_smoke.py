@@ -7,8 +7,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
-   (``-Xptxas=-v``: registers and spills; for the two mlstm kernels also
-   their shared memory and how many state-kernel clusters the card holds;
+   (``-Xptxas=-v``: registers and spills; for the mlstm kernels and its
+   backward's also their registers and spills by kernel, the shared memory
+   of the two forward kernels and of the backward's tiles kernel, and how
+   many state-kernel clusters the card holds;
    for the flash backward kernels and every hd-192 instantiation of the
    forward and decode kernels their registers, spills and dynamic shared
    memory);
@@ -117,7 +119,7 @@ f32 1e-4; and against autograd of the plain version, max abs error <=
 tol x max(1, max|ref|), tol f32 1e-4 and bf16 3e-2 (the plain version
 rounds its bf16 products to bf16); and a second call must give the same
 bits. Phase 3 also checks the ``mlstm_chunk`` backward
-(``csrc/mlstm_chunk_bwd.cu``, fp32 FMAs), fed the chunk states and row
+(``csrc/mlstm_chunk_bwd.cu``, 3xTF32 ``mma.sync``), fed the chunk states and row
 normalisers the forward saved (which must leave the forward's output as it
 was, to the bit), at xLSTM's training shape with and without an initial
 state and final-state gradients, at hd 32 and 64 and a ragged S: per
@@ -126,10 +128,13 @@ version ``ref.mlstm_chunk_bwd_ref`` in float64 and in fp32 (the f32 flash
 backward's rule), two calls with the same bits; its bound counts 10·hd
 FLOPs per causal pair of a chunk (q·kᵀ, g·vᵀ, dS·k, dSᵀ·q, Pᵀ·g), 8·hd² per
 position (g·C_jᵀ, v·dC'ᵀ, k·dC', the state gradient) and 2·hd² per (b, h,
-chunk) (Σ C_j ⊙ dC') at the fp32 FMA rate, against the inputs (q, k, v, y,
-dy, the gates, the saved states and normalisers, the final-state
-gradients) read and the gradients written once; no single PyTorch call
-computes it (``library_ms`` null). The flash backward's bound counts
+chunk) (Σ C_j ⊙ dC') at the route's rate, 3xTF32 (the fp32 FMA bound
+beside it), against the inputs (q, k, v, y, dy, the gates, the saved
+states and normalisers, the final-state gradients) read and the gradients
+written once; no single PyTorch call computes it (``library_ms`` null).
+Each mLSTM record carries a SHA-256 digest of the forward's outputs (and
+of the states it saves for the backward): equal digests from two trees
+mean equal bits. The flash backward's bound counts
 10·hd FLOPs per visible (query, key) pair and query
 head (the five products q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q, ds·k) and q, k, v, o, dO
 read and dq, dk, dv written once; its library yardstick is the profiler's
@@ -147,6 +152,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import re
@@ -480,6 +486,7 @@ def check_mlstm(ops, ref, timer, dev, B, S, H, hd, with_state, seed=2, chunk=64)
     return {
         "shape": f"B={B} S={S} H={H} hd={hd} chunk={c} state={with_state}", "dtype": "f32",
         "kernel": "scores + state, 3xTF32 mma.sync", "max_abs_err": err, "tol": MLSTM_TOL,
+        "output_sha256": digest(got[0], *got[1]),
         "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=c,
                                                       state=state)),
@@ -505,6 +512,7 @@ def check_mlstm_bwd(ops, ref, timer, dev, B, S, H, hd, with_state, final_grads, 
     c = min(chunk, S)
     y, _, saved = mlstm_kernel.launch(q, k, v, log_f, i_gate, chunk=c, state=state, save=True)
     assert torch.equal(y, mlstm_kernel.launch(q, k, v, log_f, i_gate, chunk=c, state=state)[0])
+    forward_digest = digest(y, *saved)
     dy = randn(B, S, H, hd)
     dC, dn = (randn(B, H, hd, hd), randn(B, H, hd)) if final_grads else (None, None)
     args = (q, k, v, log_f, i_gate, y, dy)
@@ -541,13 +549,17 @@ def check_mlstm_bwd(ops, ref, timer, dev, B, S, H, hd, with_state, final_grads, 
              + (B * H * (hd * hd + hd) if final_grads else 0)
              + 3 * B * S * H * hd + 2 * B * S * H         # dq, dk, dv; d log f, d i
              + (B * H * (hd * hd + hd) if with_state else 0))
-    t_bound, by = bound(4.0 * elems, flops, torch.float32)
+    # the products are 3xTF32 on the tensor cores: held to that route's bound;
+    # the fp32-FMA bound (the first backward's route) is kept beside it
+    t_bound, by = bound(4.0 * elems, flops, torch.float32, TF32X3_FLOPS)
+    t_fma, fma_by = bound(4.0 * elems, flops, torch.float32)
     mine = lambda: ops.mlstm_chunk_bwd(*args, saved=saved, **kw)  # noqa: E731
     return {
         "shape": f"B={B} S={S} H={H} hd={hd} chunk={c} state={with_state} "
                  f"final_grads={final_grads}", "dtype": "f32",
-        "kernel": "rows + scores + sweep + tiles + gates, fp32 FMAs", "bitwise_repeatable": True,
-        "forward_output_unchanged_by_saving": True,
+        "kernel": "rows + scores + sweep + tiles + gates; scores, sweep and tiles on 3xTF32 "
+                  "mma.sync", "bitwise_repeatable": True,
+        "forward_output_unchanged_by_saving": True, "forward_sha256": forward_digest,
         "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
         "tol": f"{MLSTM_BWD_TOL} x (|ref| + rms(ref)), plain version in float64 and in fp32",
         "err_over_tol_by_grad": worst, "err_over_tol_fp32_plain_by_grad": worst_plain,
@@ -555,7 +567,16 @@ def check_mlstm_bwd(ops, ref, timer, dev, B, S, H, hd, with_state, final_grads, 
         "kernel_ms_by_kernel": timer.kernels_by_name(mine),
         "plain_ms": timer(lambda: ref.mlstm_chunk_bwd_ref(*args, **kw)),
         "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+        "bound_fp32_fma_ms": t_fma, "bound_fp32_fma_by": fma_by,
     }
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -609,13 +630,19 @@ def attention_build(_build, libs) -> dict:
 
 
 def mlstm_build(_build, libs) -> dict:
-    """ptxas's registers and spills of the mlstm kernels, the dynamic shared
-    memory each block takes at each head dim, and how many clusters of the
-    state kernel the card holds at once."""
+    """ptxas's registers and spills of the mlstm kernels and of its
+    backward's, the dynamic shared memory each block takes at each head dim
+    (of the backward: its tiles kernel), and how many clusters of the state
+    kernel the card holds at once."""
     lib = _build.library("mlstm_chunk")
-    return {"ptxas": ptxas_by_kernel(libs["mlstm_chunk"].with_suffix(".log").read_text()),
-            "smem_bytes": {f"{kind}<{hd}>": lib.mlstm_chunk_smem_bytes(hd, i)
-                           for hd in (32, 64, 512) for i, kind in enumerate(("scores", "state"))},
+    bwd = _build.library("mlstm_chunk_bwd")
+    return {"ptxas": {**ptxas_by_kernel(libs["mlstm_chunk"].with_suffix(".log").read_text()),
+                      **ptxas_by_kernel(libs["mlstm_chunk_bwd"].with_suffix(".log").read_text())},
+            "smem_bytes": {**{f"{kind}<{hd}>": lib.mlstm_chunk_smem_bytes(hd, i)
+                              for hd in (32, 64, 512)
+                              for i, kind in enumerate(("scores", "state"))},
+                           **{f"bwd_tiles<{hd}>": bwd.mlstm_chunk_bwd_smem_bytes(hd)
+                              for hd in (32, 64, 512)}},
             "state_max_active_clusters": {hd: lib.mlstm_chunk_max_clusters(hd)
                                           for hd in (32, 64, 512)}}
 
@@ -708,18 +735,7 @@ def main() -> int:
         decode_cases.append(check_decode(ops, ref, timer, dev, dtype, 4, 2048,
                                          [2048, 1, 1517, 700], H=NEMOTRON_H, K=NEMOTRON_K,
                                          hd=192))
-    # xlstm-350m's mLSTM: B=2, S=512, H=4, hd = 2·1024/4 = 512
-    mlstm_cases = [check_mlstm(ops, ref, timer, dev, 2, 512, 4, 512, False),
-                   check_mlstm(ops, ref, timer, dev, 2, 300, 4, 512, True),
-                   check_mlstm(ops, ref, timer, dev, 1, 256, 4, 64, False)]
-    # its backward: xLSTM's training shape, with and without an initial state and
-    # final-state gradients; hd 64; reduced xlstm's hd 32 at a ragged S
-    mlstm_bwd_cases = [
-        check_mlstm_bwd(ops, ref, timer, dev, XLSTM_TRAIN_B, XLSTM_TRAIN_S, 4, 512, False, False),
-        check_mlstm_bwd(ops, ref, timer, dev, XLSTM_TRAIN_B, XLSTM_TRAIN_S, 4, 512, True, True),
-        check_mlstm_bwd(ops, ref, timer, dev, 2, 300, 4, 512, True, False),
-        check_mlstm_bwd(ops, ref, timer, dev, 1, 256, 4, 64, False, True),
-        check_mlstm_bwd(ops, ref, timer, dev, 2, 200, 4, 32, True, True)]
+    mlstm_cases, mlstm_bwd_cases = mlstm_checks(ops, ref, timer, dev)
     # the flash backward at smollm's training shapes and qwen2-72b's width
     bwd_cases = [check_flash_bwd(ops, ref, timer, dev, dtype, B, S, True, window)
                  for dtype in (torch.bfloat16, torch.float32)
@@ -859,6 +875,24 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def mlstm_checks(ops, ref, timer, dev):
+    """The mLSTM kernel checks of phase 3, (forward, backward): the forward
+    at xlstm-350m's shape (B=2, S=512, H=4, hd = 2·1024/4 = 512), ragged with
+    a state, and at hd 64; its backward at xLSTM's training shape with and
+    without an initial state and final-state gradients, ragged, at hd 64 and
+    at reduced xlstm's hd 32 at a ragged S."""
+    fwd = [check_mlstm(ops, ref, timer, dev, 2, 512, 4, 512, False),
+           check_mlstm(ops, ref, timer, dev, 2, 300, 4, 512, True),
+           check_mlstm(ops, ref, timer, dev, 1, 256, 4, 64, False)]
+    B, S = XLSTM_TRAIN_B, XLSTM_TRAIN_S
+    bwd = [check_mlstm_bwd(ops, ref, timer, dev, B, S, 4, 512, False, False),
+           check_mlstm_bwd(ops, ref, timer, dev, B, S, 4, 512, True, True),
+           check_mlstm_bwd(ops, ref, timer, dev, 2, 300, 4, 512, True, False),
+           check_mlstm_bwd(ops, ref, timer, dev, 1, 256, 4, 64, False, True),
+           check_mlstm_bwd(ops, ref, timer, dev, 2, 200, 4, 32, True, True)]
+    return fwd, bwd
 
 
 def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:

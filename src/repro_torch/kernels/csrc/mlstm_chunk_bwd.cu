@@ -24,48 +24,70 @@
 // What bounds it on the H100: per position about 8·hd² FLOPs (g·C_jᵀ, v·dC'ᵀ,
 // k·dC' and the state gradient's (a ⊙ q)ᵀ·g) and 10·hd per causal pair of a
 // chunk (q·kᵀ, g·vᵀ, dS·k, dSᵀ·q, Pᵀ·g), against 28·hd bytes of inputs and
-// outputs per position plus the stored states: the operations bound it, on
-// fp32 FMAs at 67 TFLOP/s. This first version runs every product on FMAs
-// with register tiles of 4 × 4 (or 4 × 2) and no tensor cores. Operands
-// stream through shared memory in slabs of 32 columns (128 at the sweep);
-// each thread fetches its share of the next slab into registers before the
-// products of the current one, so that the loads overlap the arithmetic
-// (loaded and stored one by one, each load waited for the store before it).
+// outputs per position plus the stored states: the operations bound it. Every
+// product runs on the tensor cores at fp32 accuracy as 3xTF32, as the forward
+// does (tf32.cuh: each operand split into a TF32 high part and the
+// remainder, a·b = a_lo·b_hi + a_hi·b_lo + a_hi·b_hi on mma.sync.m16n8k8 with
+// fp32 sums; one TF32 product alone misses the tolerance at hd 512), so the
+// bound is a third of the TF32 rate, 165 TFLOP/s. Operands reach shared
+// memory by cp.async, the next slab's (or chunk's) copies in flight under the
+// current one's products, in padded rows on which the fragment loads of a
+// warp meet 32 distinct banks (dq's row-wise loads of dS two ways).
+// Splitting costs instructions beside every product, so each warp splits a
+// fragment once and uses it for all the output tiles it holds (2 × 4 of them
+// in the sweep and in the tiles kernel's hd-deep products). Those hd-deep
+// sums are taken two k-steps at a time on the tensor core and added to their
+// accumulators by fp32 adds (mma3_rn2): the tensor core truncates its sums,
+// which over 64 k-steps into one accumulator cost several times the error.
 //
 // Five kernels, one call, in stream order; none uses atomics, and every sum
 // is taken in a fixed order, so two calls on the same inputs agree to the bit:
 // 1. rows: g and d nrm for every row (one warp per row);
-// 2. scores, per (chunk, b·h): q·kᵀ and g·vᵀ over the chunk, P and dS into a
-//    record per (b, h, chunk) with fcum and W, and the gate terms that come
+// 2. scores, a cluster of CTAs per (chunk, b·h), each over a slice of the
+//    key width: the partial q·kᵀ and g·vᵀ over the causal 16 × 8 tiles, added
+//    in rank order through distributed shared memory; P and dS into a record
+//    per (b, h, chunk) with fcum, W and d nrm, and the gate terms that come
 //    from D (row and column sums of dP ⊙ P, and Σ_s dP ⊙ q·kᵀ ⊙ E);
-// 3. sweep, per (32 value columns, b·h): the chunks in reverse, carrying
-//    dC[:, 32 columns] in registers and dn in shared memory, writing each
-//    chunk's dC' and dn' to a workspace; ends with dC_0 and dn_0;
-// 4. tiles, per (64 columns, chunk, b·h): g·C_jᵀ, v·dC'ᵀ and k·dC' for its
-//    columns, then dq, dk, dv of those columns and per-row partial sums of
-//    the gate terms (q·(C_j g) and k·(dC' v + dn')) and of Σ C_j ⊙ dC';
+// 3. sweep, per (128 × 64 tile of dC, b·h): the chunks in reverse, carrying
+//    the tile in registers (dC ← e^ftot dC + (a ⊙ q)ᵀ·g) and, in the blocks of
+//    the first column tile, dn in shared memory; writes each chunk's dC' and
+//    dn' to a workspace; ends with dC_0 and dn_0;
+// 4. tiles, per (64 columns, chunk, b·h): g·C_jᵀ and v·dC'ᵀ over slabs of the
+//    value width, then k·dC' over slabs of the key width, through one ring of
+//    three stages; then dS·k, dSᵀ·q and Pᵀ·g over the chunk's causal pairs;
+//    dq, dk, dv of its columns and per-row partial sums of the gate terms
+//    (q·(C_j g) and k·(dC' v + dn')) and of Σ C_j ⊙ dC';
 // 5. gates, per (chunk, b·h): the partial sums added in column order, then
 //    d i and the reverse cumulative sum that is d log f.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
 
+using repro::cp_commit;
+using repro::cp_wait;
+using repro::load_tile;
+using repro::mma3;
+using repro::split;
+
 constexpr int CM = 64;        // most positions in a chunk
-constexpr int THREADS = 256;
-constexpr int TS = CM + 4;    // row stride of the 64-wide tiles in shared memory
-constexpr int SL = 32;        // columns per slab streamed through shared memory
+constexpr int THREADS = 256;  // rows, scores and tiles kernels: 8 warps
 // Record per (b, h, chunk), written by the scores kernel: P and dS (CM × CM,
-// row-major), then fcum, W, the d fcum terms from D and the d i terms from D.
-constexpr int REC = 2 * CM * CM + 4 * CM;
-constexpr int R_DS = CM * CM, R_FC = 2 * CM * CM, R_W = R_FC + CM, R_DF = R_W + CM,
-              R_DI = R_DF + CM;
+// row-major), then fcum, W, d nrm, the d fcum terms from D and the d i terms
+// from D.
+constexpr int REC = 2 * CM * CM + 5 * CM;
+constexpr int R_DS = CM * CM, R_FC = 2 * CM * CM, R_W = R_FC + CM, R_DN = R_W + CM,
+              R_DF = R_DN + CM, R_DI = R_DF + CM;
 // Partial sums per (b, h, chunk, column tile), written by the tiles kernel:
 // q_s·(C g_s + d nrm_s n) and k_t·(dC' v_t + dn') over its columns, and its
 // share of Σ C ⊙ dC' + n·dn'.
 constexpr int PART = 2 * CM + 4;
 
 __host__ __device__ constexpr int tile_width(int hd) { return hd < 64 ? hd : 64; }
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
 
 // Offsets (in floats) of the workspace's parts; each a multiple of 4.
 struct Workspace {
@@ -93,15 +115,19 @@ mlstm_bwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ dy,
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;
-  const float* yr = y + (size_t)r * HD;
-  const float* dr = dy + (size_t)r * HD;
+  const float4* yr = reinterpret_cast<const float4*>(y + (size_t)r * HD);
+  const float4* dr = reinterpret_cast<const float4*>(dy + (size_t)r * HD);
+  float4* gr = reinterpret_cast<float4*>(g + (size_t)r * HD);
   const float nr = nrm[r];
   const float m = fmaxf(fabsf(nr), 1.f);
   float dot = 0.f;
-  for (int d = lane; d < HD; d += 32) {
-    const float dv = dr[d];
-    dot = fmaf(dv, yr[d], dot);
-    g[(size_t)r * HD + d] = dv / m;
+  for (int d = lane; d < HD / 4; d += 32) {  // four columns at a time
+    const float4 a = dr[d], b = yr[d];
+    dot = fmaf(a.x, b.x, dot);
+    dot = fmaf(a.y, b.y, dot);
+    dot = fmaf(a.z, b.z, dot);
+    dot = fmaf(a.w, b.w, dot);
+    gr[d] = make_float4(a.x / m, a.y / m, a.z / m, a.w / m);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -111,71 +137,71 @@ mlstm_bwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ dy,
   }
 }
 
-// One thread's share of a slab streamed through shared memory: N elements
-// of an R × C tile (element e = threadIdx.x + i·THREADS is row e / C, column
-// e % C), fetched from global memory into registers first and stored into
-// shared memory later, so that the next slab's loads fly while this one is
-// used.
-template <int R, int C>
-struct Slab {
-  static constexpr int N = R * C / THREADS;
-  static_assert(R * C % THREADS == 0, "whole slabs per thread");
-  float x[N];
-  // rows of a (B,S,H,HD) tensor at the chunk's positions (row stride `row`
-  // from `src`); rows at or past `valid` are zeros
-  __device__ __forceinline__ void fetch_rows(const float* __restrict__ src, size_t row,
-                                             int valid) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = threadIdx.x + i * THREADS, r = e / C, c = e % C;
-      x[i] = r < valid ? src[(size_t)r * row + c] : 0.f;
-    }
-  }
-  // transposed: dst[c][r], row stride `stride`
-  __device__ __forceinline__ void store_t(float* dst, int stride) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      dst[(e % C) * stride + e / C] = x[i];
-    }
-  }
-  // as it is: dst[r][c], row stride `stride`
-  __device__ __forceinline__ void store(float* dst, int stride) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      dst[(e / C) * stride + e % C] = x[i];
-    }
-  }
-};
-using ChunkSlab = Slab<CM, SL>;  // SL columns of the chunk's CM positions
-
 // ---- 2. scores: P, dS, and the gate terms that come from D ----
 
+// CTAs of a scores cluster, each over hd / CL key columns (at least 16: two
+// k-steps of mma).
+__host__ __device__ constexpr int score_cluster(int hd) { return hd >= 128 ? 8 : hd / 16; }
+
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+struct ScoreSmem {
+  static constexpr int CL = score_cluster(HD);
+  static constexpr int DQ = HD / CL;   // key columns of this CTA
+  static constexpr int ST = DQ + 4;    // row stride: conflict-free fragment loads
+  static constexpr int RPC = CM / CL;  // rows (and columns) of the pair terms this CTA reduces
+  // q and k slices (CM × ST each), then g and v in their place, then the
+  // partial g·vᵀ (CM × (CM + 1)); the partial q·kᵀ beside them
+  static constexpr int IN = max_of(2 * CM * ST, CM * (CM + 1));
+  static constexpr int SC = IN;
+  static constexpr int DPP = SC + CM * (CM + 1);  // dP ⊙ P of this CTA's rows, RPC × CM
+  static constexpr int DI = DPP + RPC * CM;   // dP ⊙ (q·kᵀ) ⊙ E of its rows
+  static constexpr int FC = DI + RPC * CM;
+  static constexpr int IG = FC + CM;
+  static constexpr int DN = IG + CM;
+  static constexpr int RS = DN + CM;          // row sums of dP ⊙ P of its rows
+  static constexpr int TOTAL = RS + RPC;
+};
+
+// CTA r of the cluster takes key columns r·hd/CL ..: it loads its slices of
+// q and k, sums its part of q·kᵀ over the causal tiles, then does the same
+// for g·vᵀ in the same buffer (56 KB a CTA: four CTAs an SM, every cluster
+// of the train shape in one wave); then it adds the partial scores of rows
+// RPC·r .. from every CTA in rank order, applies the decay mask, writes
+// those rows of P and dS, and after a second exchange the column sums of
+// columns RPC·r ...
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 4)
 mlstm_bwd_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ g,
                         const float* __restrict__ dnrm, const float* __restrict__ log_f,
                         const float* __restrict__ i_gate, float* __restrict__ rec_all, int S,
                         int H, int chunk, int n_chunks) {
-  // the four slabs, then (after the products) the (dP ⊙ P) and d i terms of each pair
-  constexpr int BUF = 4 * SL * TS > 2 * CM * (CM + 1) ? 4 * SL * TS : 2 * CM * (CM + 1);
-  __shared__ __align__(16) float buf[BUF];
-  __shared__ float Fc[CM], Ig[CM], Dn[CM];
-  float* Qt = buf;
-  float* Kt = Qt + SL * TS;
-  float* Gt = Kt + SL * TS;
-  float* Vt = Gt + SL * TS;
-  float* rowsum = buf;                 // CM × (CM + 1)
-  float* disum = buf + CM * (CM + 1);
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int ci = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  using L = ScoreSmem<HD>;
+  constexpr int CL = L::CL, DQ = L::DQ, ST = L::ST, RPC = L::RPC;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;            // q, then g
+  float* Bs = As + CM * ST;    // k, then v
+  float* Sc = smem + L::SC;    // partial q·kᵀ, CM × (CM + 1)
+  float* Gv = smem;            // partial g·vᵀ, after the products
+  float* Dpp = smem + L::DPP;
+  float* Dis = smem + L::DI;
+  float* Fc = smem + L::FC;
+  float* Ig = smem + L::IG;
+  float* Dn = smem + L::DN;
+  float* Rs = smem + L::RS;
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g4 = lane >> 2, c4 = lane & 3;
+  const int rank = (int)cluster.block_rank();
+  const int ci = blockIdx.y, bh = blockIdx.z, b = bh / H, h = bh % H;
   const int c0 = ci * chunk, valid = min(chunk, S - c0);
   const size_t row = (size_t)H * HD;
-  const size_t base = ((size_t)b * S + c0) * row + (size_t)h * HD;
+  const size_t base = ((size_t)b * S + c0) * row + (size_t)h * HD + rank * DQ;
   float* rec = rec_all + ((size_t)bh * n_chunks + ci) * REC;
 
+  load_tile<DQ, THREADS>(As, ST, q + base, row, CM, valid);
+  load_tile<DQ, THREADS>(Bs, ST, k + base, row, CM, valid);
+  cp_commit();
   if (w == 0) {  // inclusive scan of log f as in the forward: lane l holds positions 2l, 2l+1
     const size_t gb = ((size_t)b * S + c0) * H + h;
     const int p0 = 2 * lane, p1 = 2 * lane + 1;
@@ -196,259 +222,364 @@ mlstm_bwd_scores_kernel(const float* __restrict__ q, const float* __restrict__ k
     Fc[p0] = excl + a0;
     Fc[p1] = incl;
     const float ftot = __shfl_sync(0xffffffffu, incl, 31);
-    rec[R_FC + p0] = Fc[p0];
-    rec[R_FC + p1] = Fc[p1];
-    rec[R_W + p0] = Ig[p0] * expf(ftot - Fc[p0]);
-    rec[R_W + p1] = Ig[p1] * expf(ftot - Fc[p1]);
+    if (rank == 0) {
+      rec[R_FC + p0] = Fc[p0];
+      rec[R_FC + p1] = Fc[p1];
+      rec[R_W + p0] = Ig[p0] * expf(ftot - Fc[p0]);
+      rec[R_W + p1] = Ig[p1] * expf(ftot - Fc[p1]);
+      rec[R_DN + p0] = Dn[p0];
+      rec[R_DN + p1] = Dn[p1];
+    }
   }
 
-  // thread (ty, tx): rows s = 4·ty + i, keys t = 4·tx + j
-  const int ty = tid >> 4, tx = tid & 15;
+  // Warp w takes the m tile i = w / 2 (rows 16·i ..) and the key tiles
+  // j = w % 2, w % 2 + 2, .. on and left of the diagonal (j < 2·(i + 1)):
+  // the A fragment it splits serves all of them.
+  const int mi = w >> 1;
   float sc[4][4] = {}, gv[4][4] = {};
-  ChunkSlab sq, sk, sg, sv;
-  sq.fetch_rows(q + base, row, valid);
-  sk.fetch_rows(k + base, row, valid);
-  sg.fetch_rows(g + base, row, valid);
-  sv.fetch_rows(v + base, row, valid);
-  for (int c = 0; c < HD; c += SL) {
-    __syncthreads();  // the previous slab is read
-    sq.store_t(Qt, TS);
-    sk.store_t(Kt, TS);
-    sg.store_t(Gt, TS);
-    sv.store_t(Vt, TS);
-    __syncthreads();
-    if (c + SL < HD) {  // the next slab's loads run under this one's products
-      sq.fetch_rows(q + base + c + SL, row, valid);
-      sk.fetch_rows(k + base + c + SL, row, valid);
-      sg.fetch_rows(g + base + c + SL, row, valid);
-      sv.fetch_rows(v + base + c + SL, row, valid);
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < SL; ++kk) {
-      const float4 qa = *reinterpret_cast<const float4*>(Qt + kk * TS + 4 * ty);
-      const float4 ka = *reinterpret_cast<const float4*>(Kt + kk * TS + 4 * tx);
-      const float4 ga = *reinterpret_cast<const float4*>(Gt + kk * TS + 4 * ty);
-      const float4 va = *reinterpret_cast<const float4*>(Vt + kk * TS + 4 * tx);
-      const float qi[4] = {qa.x, qa.y, qa.z, qa.w}, kj[4] = {ka.x, ka.y, ka.z, ka.w};
-      const float gi[4] = {ga.x, ga.y, ga.z, ga.w}, vj[4] = {va.x, va.y, va.z, va.w};
+  auto products = [&](float (&acc)[4][4]) {
+    const float* pa = As + (16 * mi + g4) * ST + c4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < DQ; kk += 8) {
+      const float af[4] = {pa[kk], pa[8 * ST + kk], pa[kk + 4], pa[8 * ST + kk + 4]};
+      uint32_t ah[4], al[4];
+      split(af, ah, al);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qi[i], kj[j], sc[i][j]);
-          gv[i][j] = fmaf(gi[i], vj[j], gv[i][j]);
-        }
-    }
-  }
-  // P = S ⊙ D, dP = g·vᵀ + d nrm, dS = dP ⊙ D on t ≤ s < valid (exp only
-  // there: above the diagonal it can overflow); zeros elsewhere
-  __syncthreads();  // the last slab is read: buf now holds the pair terms
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 4 * ty + i;
-    float p[4], ds[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = 4 * tx + j;
-      float pp = 0.f, dd = 0.f, dpp = 0.f, di = 0.f;
-      if (t <= s && s < valid) {
-        const float e = expf(Fc[s] - Fc[t]);
-        const float dmat = e * Ig[t];
-        const float dp = gv[i][j] + Dn[s];
-        pp = sc[i][j] * dmat;
-        dd = dp * dmat;
-        dpp = dp * pp;
-        di = dp * sc[i][j] * e;
+      for (int n = 0; n < 4; ++n) {
+        if (n > mi) continue;
+        const float* pb = Bs + (8 * ((w & 1) + 2 * n) + g4) * ST + c4 + kk;
+        const float bf[2] = {pb[0], pb[4]};
+        uint32_t bh2[2], bl2[2];
+        split(bf, bh2, bl2);
+        mma3(acc[n], ah, al, bh2, bl2);
       }
-      p[j] = pp;
-      ds[j] = dd;
-      rowsum[s * (CM + 1) + t] = dpp;
-      disum[s * (CM + 1) + t] = di;
     }
-    *reinterpret_cast<float4*>(rec + s * CM + 4 * tx) = make_float4(p[0], p[1], p[2], p[3]);
-    *reinterpret_cast<float4*>(rec + R_DS + s * CM + 4 * tx) =
-        make_float4(ds[0], ds[1], ds[2], ds[3]);
+  };
+  auto store = [&](float* dst, const float (&acc)[4][4]) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      if (n > mi) continue;
+      const int o = (16 * mi + g4) * (CM + 1) + 8 * ((w & 1) + 2 * n) + 2 * c4;
+      dst[o] = acc[n][0];
+      dst[o + 1] = acc[n][1];
+      dst[o + 8 * (CM + 1)] = acc[n][2];
+      dst[o + 8 * (CM + 1) + 1] = acc[n][3];
+    }
+  };
+  cp_wait<0>();
+  __syncthreads();  // q and k have landed
+  products(sc);
+  store(Sc, sc);
+  __syncthreads();  // every warp is done with q and k: g and v take their place
+  load_tile<DQ, THREADS>(As, ST, g + base, row, CM, valid);
+  load_tile<DQ, THREADS>(Bs, ST, v + base, row, CM, valid);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  products(gv);
+  __syncthreads();  // every warp is done with g and v: their partial sums take their place
+  store(Gv, gv);
+  cluster.sync();  // every CTA's partial scores are complete
+
+  // rows s = RPC·rank + sl: P = S ⊙ D, dP = g·vᵀ + d nrm, dS = dP ⊙ D on
+  // t ≤ s < valid (exp only there: above the diagonal it can overflow);
+  // zeros elsewhere
+  for (int e = tid; e < RPC * CM; e += THREADS) {
+    const int sl = e / CM, s = RPC * rank + sl, t = e % CM;
+    float scv = 0.f, gvv = 0.f;
+    if (t <= s)
+      for (int r = 0; r < CL; ++r) {
+        scv += cluster.map_shared_rank(Sc, r)[s * (CM + 1) + t];
+        gvv += cluster.map_shared_rank(Gv, r)[s * (CM + 1) + t];
+      }
+    float pp = 0.f, dd = 0.f, dpp = 0.f, di = 0.f;
+    if (t <= s && s < valid) {
+      const float ex = expf(Fc[s] - Fc[t]);
+      const float dmat = ex * Ig[t];
+      const float dp = gvv + Dn[s];
+      pp = scv * dmat;
+      dd = dp * dmat;
+      dpp = dp * pp;
+      di = dp * scv * ex;
+    }
+    rec[s * CM + t] = pp;
+    rec[R_DS + s * CM + t] = dd;
+    Dpp[sl * CM + t] = dpp;
+    Dis[sl * CM + t] = di;
   }
   __syncthreads();
-  if (tid < CM) {  // d fcum_s from D: Σ_t (dP⊙P)[s,t] − Σ_r (dP⊙P)[r,s]; d i_t: Σ_s dP⊙S⊙E
-    float rs = 0.f, cs = 0.f, di = 0.f;
-    for (int t = 0; t < CM; ++t) rs += rowsum[tid * (CM + 1) + t];
-    for (int r = 0; r < CM; ++r) {
-      cs += rowsum[r * (CM + 1) + tid];
-      di += disum[r * (CM + 1) + tid];
-    }
-    rec[R_DF + tid] = rs - cs;
-    rec[R_DI + tid] = di;
+  if (tid < RPC) {
+    float rs = 0.f;
+    for (int t = 0; t < CM; ++t) rs += Dpp[tid * CM + t];
+    Rs[tid] = rs;
   }
+  cluster.sync();  // every CTA's pair terms are complete
+  if (tid < RPC) {  // d fcum_s from D: Σ_t (dP⊙P)[s,t] − Σ_r (dP⊙P)[r,s]; d i_t: Σ_s dP⊙S⊙E
+    const int t = RPC * rank + tid;
+    float cs = 0.f, di = 0.f;
+    for (int r = 0; r < CL; ++r) {  // rows in order: rank r holds rows RPC·r ..
+      const float* dp = cluster.map_shared_rank(Dpp, r);
+      const float* dr = cluster.map_shared_rank(Dis, r);
+      for (int sl = 0; sl < RPC; ++sl) {
+        cs += dp[sl * CM + t];
+        di += dr[sl * CM + t];
+      }
+    }
+    rec[R_DF + t] = Rs[tid] - cs;
+    rec[R_DI + t] = di;
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its shared memory
 }
 
 // ---- 3. sweep: dC and dn over the chunks in reverse ----
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)  // one block per SM: dC's 64 floats a thread stay in registers
+struct SweepSmem {
+  static constexpr int TR = HD < 128 ? HD : 128;  // rows (key dims) of a block's dC tile
+  static constexpr int TC = tile_width(HD);       // its columns (value dims)
+  static constexpr int WARPS = TR * TC / 1024;    // each holds a 32 × 32 piece
+  static constexpr int QS = TR + 8;  // row stride of q: A read down its columns, conflict-free
+  static constexpr int GS = TC + 8;  // row stride of g
+  static constexpr int GA = CM * QS + CM * GS;  // the record's fcum, W and d nrm
+  static constexpr int AW = GA + 3 * CM;        // a_s = e^fcum_s (0 past the chunk's end)
+  static constexpr int STAGE = AW + CM;         // one chunk's operands
+  static constexpr int DN = 2 * STAGE;          // dn over the block's rows
+  static constexpr int TOTAL = DN + TR;
+};
+
+// Block (tile, b·h) owns dC[r0 .. r0 + TR, v0 .. v0 + TC] in registers, warp
+// w the 32 × 32 piece at rows 32·(w % (TR/32)), columns 32·(w / (TR/32)).
+// Per chunk, last first, it writes the tile as that chunk's dC', then takes
+// dC ← e^ftot dC + (a ⊙ q)ᵀ·g over the chunk's 64 positions, the next
+// chunk's q and g in flight meanwhile.
+template <int HD>
+__global__ void __launch_bounds__(SweepSmem<HD>::WARPS * 32, 2)  // two blocks per SM
 mlstm_bwd_sweep_kernel(const float* __restrict__ q, const float* __restrict__ g,
-                       const float* __restrict__ dnrm, const float* __restrict__ rec_all,
-                       const float* __restrict__ dC_final, const float* __restrict__ dn_final,
-                       float* __restrict__ dC_ws, float* __restrict__ dn_ws,
-                       float* __restrict__ dC0, float* __restrict__ dn0, int S, int H,
-                       int chunk, int n_chunks) {
-  constexpr int QW = HD < 128 ? HD : 128;  // key columns per slab of a·q
-  constexpr int R = HD / 32;               // rows of dC per thread
-  __shared__ __align__(16) float AQ[CM * (QW + 4)];
-  __shared__ __align__(16) float Gs[CM * (32 + 4)];
-  __shared__ float Dn[HD], A[CM], Dr[CM];
-  const int tid = threadIdx.x;
-  const int vt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int v0 = vt * 32;
+                       const float* __restrict__ rec_all, const float* __restrict__ dC_final,
+                       const float* __restrict__ dn_final, float* __restrict__ dC_ws,
+                       float* __restrict__ dn_ws, float* __restrict__ dC0,
+                       float* __restrict__ dn0, int S, int H, int chunk, int n_chunks) {
+  using L = SweepSmem<HD>;
+  constexpr int TR = L::TR, TC = L::TC, QS = L::QS, GS = L::GS, NT = L::WARPS * 32;
+  extern __shared__ __align__(16) float smem[];
+  float* Dn = smem + L::DN;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g4 = lane >> 2, c4 = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int r0 = (blockIdx.x % (HD / TR)) * TR, v0 = (blockIdx.x / (HD / TR)) * TC;
+  const bool has_dn = v0 == 0;  // the blocks of the first column tile carry dn
   const size_t row = (size_t)H * HD;
-  // thread (ty, tx) owns dC rows ty + 32·r, columns v0 + 4·tx .. + 3
-  const int ty = tid >> 3, tx = tid & 7;
-  float acc[R][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int d = ty + 32 * r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (dC_final) x = *reinterpret_cast<const float4*>(dC_final + ((size_t)bh * HD + d) * HD + v0 + 4 * tx);
-    acc[r][0] = x.x;
-    acc[r][1] = x.y;
-    acc[r][2] = x.z;
-    acc[r][3] = x.w;
-  }
-  if (vt == 0)
-    for (int d = tid; d < HD; d += THREADS) Dn[d] = dn_final ? dn_final[(size_t)bh * HD + d] : 0.f;
-  // q of the next (chunk, slab) item in registers, scaled by a_s when stored
-  Slab<CM, QW> qs;
-  auto fetch_q = [&](int ci, int q0) {
-    const int c0 = ci * chunk;
-    qs.fetch_rows(q + ((size_t)b * S + c0) * row + (size_t)h * HD + q0, row, min(chunk, S - c0));
+  const int wr = 32 * (w % (TR / 32)), wc = 32 * (w / (TR / 32));  // the warp's piece in the tile
+  constexpr int P = NT / TR;  // threads per row of dn (1 or 2), each over CM / P positions
+  static_assert(P * TR == NT && (P == 1 || P == 2), "one or two threads per row of dn");
+
+  auto load = [&](int ci) {
+    float* st = smem + (ci & 1) * L::STAGE;
+    const int c0 = ci * chunk, valid = min(chunk, S - c0);
+    const size_t base = ((size_t)b * S + c0) * row + (size_t)h * HD;
+    load_tile<TR, NT>(st, QS, q + base + r0, row, CM, valid);
+    load_tile<TC, NT>(st + CM * QS, GS, g + base + v0, row, CM, valid);
+    load_tile<3 * CM, NT>(st + L::GA, 0, rec_all + ((size_t)bh * n_chunks + ci) * REC + R_FC, 0,
+                          1, 1);
+    cp_commit();
   };
-  fetch_q(n_chunks - 1, 0);
+  load(n_chunks - 1);
+
+  // acc[mi][nj]: rows r0 + wr + 16·mi + g4 (+8), columns v0 + wc + 8·nj + 2·c4 (+1)
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float2 x = make_float2(0.f, 0.f);
+        if (dC_final)
+          x = *reinterpret_cast<const float2*>(
+              dC_final + ((size_t)bh * HD + r0 + wr + 16 * mi + g4 + 8 * half) * HD + v0 + wc +
+              8 * nj + 2 * c4);
+        acc[mi][nj][2 * half] = x.x;
+        acc[mi][nj][2 * half + 1] = x.y;
+      }
+  if (has_dn)
+    for (int d = tid; d < TR; d += NT) Dn[d] = dn_final ? dn_final[(size_t)bh * HD + r0 + d] : 0.f;
+
+  auto store_tile = [&](float* dst) {  // the tile as it stands into dst (an hd × hd matrix)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(dst + (size_t)(r0 + wr + 16 * mi + g4 + 8 * half) * HD + v0 +
+                                     wc + 8 * nj + 2 * c4) =
+              make_float2(acc[mi][nj][2 * half], acc[mi][nj][2 * half + 1]);
+  };
 
   for (int ci = n_chunks - 1; ci >= 0; --ci) {
     const int c0 = ci * chunk, valid = min(chunk, S - c0);
-    const float* rec = rec_all + ((size_t)bh * n_chunks + ci) * REC;
-    __syncthreads();  // the previous chunk's tiles are read, Dn is updated
-    // dC' and dn' of this chunk (the gradient of the state after it)
-    float* dcw = dC_ws + ((size_t)bh * n_chunks + ci) * HD * HD + v0 + 4 * tx;
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      *reinterpret_cast<float4*>(dcw + (size_t)(ty + 32 * r) * HD) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    if (vt == 0)
-      for (int d = tid; d < HD; d += THREADS) dn_ws[((size_t)bh * n_chunks + ci) * HD + d] = Dn[d];
-    const float fc_last = rec[R_FC + CM - 1];  // ftot: padded positions add log f = 0
-    const float decay = expf(fc_last);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][e] *= decay;
-    if (tid < CM) {
-      const bool ok = tid < valid;
-      A[tid] = ok ? expf(rec[R_FC + tid]) : 0.f;
-      Dr[tid] = ok ? dnrm[((size_t)b * S + c0 + tid) * H + h] : 0.f;
+    const size_t st_idx = (size_t)bh * n_chunks + ci;
+    // dC' and dn' of this chunk (the gradient of the state after it). The
+    // threads that store Dn here are not those that update it below (when
+    // P == 2); the two barriers between (after the copies land, after As is
+    // written) order the store before the update, and the barrier that ends
+    // the chunk orders the update before the next chunk's store.
+    store_tile(dC_ws + st_idx * HD * HD);
+    if (has_dn)
+      for (int d = tid; d < TR; d += NT) dn_ws[st_idx * HD + r0 + d] = Dn[d];
+    if (ci > 0) {  // the next chunk's copies run under this one's products
+      load(ci - 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    for (int e = tid; e < CM * 32; e += THREADS) {
-      const int s = e / 32, c = e % 32;
-      Gs[s * 36 + c] = s < valid ? g[((size_t)b * S + c0 + s) * row + (size_t)h * HD + v0 + c] : 0.f;
-    }
-    if (vt == 0) {
-      __syncthreads();  // Dn's readers above are done
-      for (int d = tid; d < HD; d += THREADS) Dn[d] *= decay;
-    }
+    __syncthreads();  // this chunk's operands have landed
+    float* Qt = smem + (ci & 1) * L::STAGE;
+    const float* Gt = Qt + CM * QS;
+    const float* Fc = Qt + L::GA;
+    const float* Dr = Fc + 2 * CM;
+    float* As = Qt + L::AW;
+    for (int s = tid; s < CM; s += NT) As[s] = s < valid ? expf(Fc[s]) : 0.f;
+    __syncthreads();
+    const float decay = expf(Fc[CM - 1]);  // ftot: padded positions add log f = 0
 #pragma unroll
-    for (int sl = 0; sl < HD / QW; ++sl) {  // unrolled: acc's indices are constants
-      const int q0 = sl * QW;
-      __syncthreads();  // A is written; the previous slab is read
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int i = 0; i < Slab<CM, QW>::N; ++i) {  // a·q (rows past the chunk: 0 · 0)
-        const int e = tid + i * THREADS, s = e / QW;
-        AQ[s * (QW + 4) + e % QW] = A[s] * qs.x[i];
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] *= decay;
+    // (a ⊙ q)ᵀ·g: A[d][s] = a_s q[s][d] (rows past the chunk: a_s = 0 and q = 0), B = g
+#pragma unroll 2
+    for (int kk = 0; kk < CM / 8; ++kk) {
+      const int s0 = 8 * kk + c4, s1 = s0 + 4;
+      const float a0 = As[s0], a1 = As[s1];
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int m = wr + 16 * mi + g4;
+        const float af[4] = {a0 * Qt[s0 * QS + m], a0 * Qt[s0 * QS + m + 8], a1 * Qt[s1 * QS + m],
+                             a1 * Qt[s1 * QS + m + 8]};
+        split(af, ah[mi], al[mi]);
       }
-      __syncthreads();
-      if (sl + 1 < HD / QW)  // the next slab's loads run under this one's products
-        fetch_q(ci, q0 + QW);
-      else if (ci > 0)
-        fetch_q(ci - 1, 0);
-      for (int s = 0; s < valid; ++s) {
-        const float4 gv = *reinterpret_cast<const float4*>(Gs + s * 36 + 4 * tx);
 #pragma unroll
-        for (int rr = 0; rr < QW / 32; ++rr) {  // this thread's rows in the slab
-          const int r = sl * (QW / 32) + rr;
-          const float aq = AQ[s * (QW + 4) + ty + 32 * rr];
-          acc[r][0] = fmaf(aq, gv.x, acc[r][0]);
-          acc[r][1] = fmaf(aq, gv.y, acc[r][1]);
-          acc[r][2] = fmaf(aq, gv.z, acc[r][2]);
-          acc[r][3] = fmaf(aq, gv.w, acc[r][3]);
-        }
+      for (int nj = 0; nj < 4; ++nj) {
+        const int n = wc + 8 * nj + g4;
+        const float bf[2] = {Gt[s0 * GS + n], Gt[s1 * GS + n]};
+        uint32_t bh2[2], bl2[2];
+        split(bf, bh2, bl2);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][nj], ah[mi], al[mi], bh2, bl2);
       }
-      if (vt == 0)
-        for (int d = tid; d < QW; d += THREADS) {
-          float sum = Dn[q0 + d];
-          for (int s = 0; s < valid; ++s) sum = fmaf(AQ[s * (QW + 4) + d], Dr[s], sum);
-          Dn[q0 + d] = sum;
-        }
     }
+    if (has_dn) {  // dn ← e^ftot dn' + (a ⊙ d nrm)ᵀ·q over the block's rows, in order
+      const int d = tid / P, part = tid % P;
+      float sum = part == 0 ? Dn[d] * decay : 0.f;
+#pragma unroll 8
+      for (int s = part * (CM / P); s < (part + 1) * (CM / P); ++s)
+        sum = fmaf(As[s] * Qt[s * QS + d], Dr[s], sum);
+      if (P == 2) sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (part == 0) Dn[d] = sum;
+    }
+    __syncthreads();  // this stage is read before the copies of two chunks back land in it
   }
   if (dC0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      *reinterpret_cast<float4*>(dC0 + ((size_t)bh * HD + ty + 32 * r) * HD + v0 + 4 * tx) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    if (vt == 0) {
-      __syncthreads();
-      for (int d = tid; d < HD; d += THREADS) dn0[(size_t)bh * HD + d] = Dn[d];
-    }
+    store_tile(dC0 + (size_t)bh * HD * HD);
+    if (has_dn)
+      for (int d = tid; d < TR; d += NT) dn0[(size_t)bh * HD + r0 + d] = Dn[d];
   }
 }
 
 // ---- 4. tiles: dq, dk, dv of 64 columns and partial gate sums ----
 
-// N consecutive floats from shared memory (16- or 8-byte aligned) in one load.
-template <int N>
-__device__ __forceinline__ void load_n(const float* p, float (&x)[N]) {
-  static_assert(N == 2 || N == 4, "two or four columns per thread");
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    x[0] = t.x, x[1] = t.y;
+// The split A fragments of two consecutive k-steps of one m16n8k8 tile:
+// element (r, c) of k-step j at p[r·row + c + j·step], rows g, g + 8 and
+// columns c, c + 4 (tf32.cuh's fragment layout).
+struct Frag2 {
+  uint32_t hi[2][4], lo[2][4];
+  __device__ __forceinline__ void load_a(const float* p, int row8, int step) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* q = p + j * step;
+      const float x[4] = {q[0], q[row8], q[4], q[row8 + 4]};
+      split(x, hi[j], lo[j]);
+    }
   }
+};
+// The same for B: elements k = c, c + 4 at p[0], p[k4] of k-step j at p + j·step.
+struct Frag2B {
+  uint32_t hi[2][2], lo[2][2];
+  __device__ __forceinline__ void load(const float* p, int k4, int step) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float x[2] = {p[j * step], p[j * step + k4]};
+      split(x, hi[j], lo[j]);
+    }
+  }
+};
+// d += a·b over two k-steps at fp32 accuracy: the six products summed on the
+// tensor core from zero, then added to d by fp32 adds, rounded to nearest.
+// The tensor core does not round its sums to nearest (it truncates), and
+// over the hd-deep sums of this kernel, taken into one accumulator, that
+// bias builds up: on the H100, mma3 into d reached err/tol 0.67 on dv at the
+// train shape with final-state gradients, this 0.10, for two adds per three
+// products.
+__device__ __forceinline__ void mma3_rn2(float (&d)[4], const Frag2& a, const Frag2B& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) mma3(t, a.hi[j], a.lo[j], b.hi[j], b.lo[j]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
 }
 
 template <int HD>
 struct TileSmem {
   static constexpr int TW = tile_width(HD);
-  static constexpr int WS = TW + 4;  // row stride of the column tiles
-  // phase 1: g, v transposed (SL × TS), rows of C_j and dC' transposed (SL × WS);
-  // phase 2 reuses the first two slots: k transposed and dC' columns
-  static constexpr int P1 = 2 * SL * TS + 2 * SL * WS;
-  // phase 3: q, k, g column tiles (CM × WS), P and dS (CM × TS)
-  static constexpr int P3 = 3 * CM * WS + 2 * CM * TS;
-  static constexpr int TOTAL = (P1 > P3 ? P1 : P3) + 4 * CM + 2 * TW + THREADS;
+  static constexpr int AS = 32 + 4;   // row stride of 32-wide slabs (fragments read along rows)
+  static constexpr int BS = TW + 8;   // row stride of TW-wide tiles read down their columns
+  static constexpr int PS = CM + 8;   // row stride of P and dS
+  static constexpr int NST = 3;       // stages of the ring
+  // phase 1 stage: g, v (CM × 32), rows col0 .. of C_j and dC' (TW × 32);
+  // phase 2 stage: k (CM × 32), rows of dC' (32 × TW)
+  static constexpr int STAGE = max_of(2 * CM * AS + 2 * TW * AS, CM * AS + 32 * BS);
+  // after the ring, in its place: q, k, g columns (CM × BS each), P and dS (CM × PS)
+  static constexpr int MAIN = max_of(NST * STAGE, 3 * CM * BS + 2 * CM * PS);
+  static constexpr int A = MAIN;     // a_s = e^fcum_s (0 past the chunk's end)
+  static constexpr int W = A + CM;   // W_t
+  static constexpr int DR = W + CM;  // d nrm_s
+  static constexpr int NJ = DR + CM;      // n_j over this tile's columns
+  static constexpr int DNP = NJ + TW;     // dn' over this tile's columns
+  static constexpr int RED = DNP + TW;    // THREADS partial sums of Σ C ⊙ dC'
+  static constexpr int ROWS = RED + THREADS;  // per-row gate sums of each column half, 4 × CM
+  static constexpr int TOTAL = ROWS + 4 * CM;
 };
 
+// Warps 0-3 take g·C_jᵀ and then dq, warps 4-7 v·dC'ᵀ and then dk: warp w
+// the 32 × TW/2 piece at rows 32·(w % 2), columns TW/2·(w / 2 % 2). All eight
+// take k·dC' and then dv: the 32 × TW/4 piece at rows 32·(w % 2), columns
+// TW/4·(w / 2). A warp's accumulators of a product go on as those of its
+// output, and each fragment it splits serves 2 × 4 (or 2 × 2) tiles.
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)  // two blocks per SM: 128 registers a thread
 mlstm_bwd_tiles_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ g,
-                       const float* __restrict__ dnrm, const float* __restrict__ C_states,
-                       const float* __restrict__ n_states, const float* __restrict__ dC_ws,
-                       const float* __restrict__ dn_ws, const float* __restrict__ rec_all,
-                       float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                       const float* __restrict__ C_states, const float* __restrict__ n_states,
+                       const float* __restrict__ dC_ws, const float* __restrict__ dn_ws,
+                       const float* __restrict__ rec_all, float* __restrict__ dq,
+                       float* __restrict__ dk, float* __restrict__ dv,
                        float* __restrict__ part_all, int S, int H, int chunk, int n_chunks) {
   using L = TileSmem<HD>;
-  constexpr int TW = L::TW, WS = L::WS, CPT = TW / 16, NT = HD / TW;
+  constexpr int TW = L::TW, AS = L::AS, BS = L::BS, PS = L::PS, NST = L::NST, NT = HD / TW;
+  constexpr int N1 = TW / 16, N2 = TW / 32;   // n tiles of a warp's pieces
+  constexpr int NI1 = HD / 32, NI = 2 * NI1;  // slabs of phase 1, of both phases
   extern __shared__ __align__(16) float smem[];
-  float* gates = smem + (L::P1 > L::P3 ? L::P1 : L::P3);
-  float* A = gates;            // a_s = e^fcum_s (0 past the chunk's end)
-  float* Wt = A + CM;          // W_t
-  float* Dr = Wt + CM;         // d nrm_s
-  float* nj = Dr + CM + CM;    // n_j over this tile's columns
-  float* dnp = nj + TW;        // dn' over this tile's columns
-  float* red = dnp + TW;       // THREADS partial sums of Σ C ⊙ dC'
+  float* A = smem + L::A;
+  float* Wt = smem + L::W;
+  float* Dr = smem + L::DR;
+  float* nj = smem + L::NJ;
+  float* dnp = smem + L::DNP;
+  float* red = smem + L::RED;
+  float* rows = smem + L::ROWS;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g4 = lane >> 2, c4 = lane & 3;
   const int ct = blockIdx.x, ci = blockIdx.y, bh = blockIdx.z, b = bh / H, h = bh % H;
   const int col0 = ct * TW;
   const int c0 = ci * chunk, valid = min(chunk, S - c0);
@@ -458,188 +589,228 @@ mlstm_bwd_tiles_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* Cj = C_states + st * HD * HD;
   const float* dCp = dC_ws + st * HD * HD;
   const float* rec = rec_all + st * REC;
-  // thread (ty, tx): rows 4·ty + i of the chunk, columns col0 + CPT·tx + j
-  const int ty = tid >> 4, tx = tid & 15;
+  const int role = w >> 2;                   // 0: g·C_jᵀ and dq; 1: v·dC'ᵀ and dk
+  const int r1 = 32 * (w & 1);               // first row of the warp's pieces
+  const int c1 = (TW / 2) * ((w >> 1) & 1);  // first column of its piece of g·C_jᵀ or v·dC'ᵀ
+  const int c2 = (TW / 4) * (w >> 1);        // first column of its piece of k·dC'
+
+  auto load_item = [&](int it) {
+    float* sp = smem + (it % NST) * L::STAGE;
+    if (it < NI1) {  // phase 1: value columns c .. c + 31
+      const int c = it * 32;
+      load_tile<32, THREADS>(sp, AS, g + base + c, row, CM, valid);
+      load_tile<32, THREADS>(sp + CM * AS, AS, v + base + c, row, CM, valid);
+      load_tile<32, THREADS>(sp + 2 * CM * AS, AS, Cj + (size_t)col0 * HD + c, HD, TW, TW);
+      load_tile<32, THREADS>(sp + 2 * CM * AS + TW * AS, AS, dCp + (size_t)col0 * HD + c, HD, TW,
+                             TW);
+    } else {  // phase 2: key rows c .. c + 31
+      const int c = (it - NI1) * 32;
+      load_tile<32, THREADS>(sp, AS, k + base + c, row, CM, valid);
+      load_tile<TW, THREADS>(sp + CM * AS, BS, dCp + (size_t)c * HD + col0, HD, 32, 32);
+    }
+    cp_commit();
+  };
+  for (int it = 0; it < NST - 1; ++it) load_item(it);
 
   if (tid < CM) {
     const bool ok = tid < valid;
     A[tid] = ok ? expf(rec[R_FC + tid]) : 0.f;
     Wt[tid] = rec[R_W + tid];
-    Dr[tid] = ok ? dnrm[((size_t)b * S + c0 + tid) * H + h] : 0.f;
+    Dr[tid] = rec[R_DN + tid];
   }
   for (int c = tid; c < TW; c += THREADS) {
     nj[c] = n_states[st * HD + col0 + c];
     dnp[c] = dn_ws[st * HD + col0 + c];
   }
 
-  // phase 1: CG = g·C_j[cols, :]ᵀ and DV = v·dC'[cols, :]ᵀ over slabs of value columns
-  float cg[4][CPT] = {}, dvv[4][CPT] = {}, kd[4][CPT] = {};
+  // prod[i][n]: g·C_j[cols, :]ᵀ (role 0) or v·dC'[cols, :]ᵀ (role 1) at rows
+  // r1 + 16·i + g4 (+8), columns c1 + 8·n + 2·c4 (+1); kd[i][n]: k·dC'[:, cols]
+  // at rows r1 + 16·i + g4 (+8), columns c2 + 8·n + 2·c4 (+1)
+  float prod[2][N1][4] = {}, kd[2][N2][4] = {};
   float tot = 0.f;  // this thread's share of Σ C_j ⊙ dC' over the tile's rows
-  {
-    float* Gt = smem;
-    float* Vt = Gt + SL * TS;
-    float* Ct = Vt + SL * TS;
-    float* Dt = Ct + SL * WS;
-    ChunkSlab sg, sv;
-    Slab<TW, SL> scj, sdc;  // rows col0 .. of C_j and dC', SL columns
-    sg.fetch_rows(g + base, row, valid);
-    sv.fetch_rows(v + base, row, valid);
-    scj.fetch_rows(Cj + (size_t)col0 * HD, HD, TW);
-    sdc.fetch_rows(dCp + (size_t)col0 * HD, HD, TW);
-    for (int c = 0; c < HD; c += SL) {
-      __syncthreads();
-      sg.store_t(Gt, TS);
-      sv.store_t(Vt, TS);
-      scj.store_t(Ct, WS);
-      sdc.store_t(Dt, WS);
+  for (int it = 0; it < NI; ++it) {
+    cp_wait<NST - 2>();
+    __syncthreads();  // item it has landed; every warp is done with item it - 1
+    if (it + NST - 1 < NI) load_item(it + NST - 1);
+    else cp_commit();  // an empty group keeps the count of the wait above
+    const float* sp = smem + (it % NST) * L::STAGE;
+    if (it < NI1) {
+      const float* As = sp + role * CM * AS;                 // g or v
+      const float* Bs = sp + 2 * CM * AS + role * TW * AS;   // rows of C_j or of dC'
 #pragma unroll
-      for (int i = 0; i < Slab<TW, SL>::N; ++i) tot = fmaf(scj.x[i], sdc.x[i], tot);
-      __syncthreads();
-      if (c + SL < HD) {  // the next slab's loads run under this one's products
-        sg.fetch_rows(g + base + c + SL, row, valid);
-        sv.fetch_rows(v + base + c + SL, row, valid);
-        scj.fetch_rows(Cj + (size_t)col0 * HD + c + SL, HD, TW);
-        sdc.fetch_rows(dCp + (size_t)col0 * HD + c + SL, HD, TW);
+      for (int kp = 0; kp < 2; ++kp) {  // k-steps 2·kp, 2·kp + 1
+        Frag2 a[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          a[i].load_a(As + (r1 + 16 * i + g4) * AS + 16 * kp + c4, 8 * AS, 8);
+#pragma unroll
+        for (int n = 0; n < N1; ++n) {
+          Frag2B bf;
+          bf.load(Bs + (c1 + 8 * n + g4) * AS + 16 * kp + c4, 4, 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma3_rn2(prod[i][n], a[i], bf);
+        }
       }
-#pragma unroll 4
-      for (int kk = 0; kk < SL; ++kk) {
-        const float4 ga = *reinterpret_cast<const float4*>(Gt + kk * TS + 4 * ty);
-        const float4 va = *reinterpret_cast<const float4*>(Vt + kk * TS + 4 * ty);
-        const float gi[4] = {ga.x, ga.y, ga.z, ga.w}, vi[4] = {va.x, va.y, va.z, va.w};
-        float cj[CPT], dj[CPT];
-        load_n(Ct + kk * WS + CPT * tx, cj);
-        load_n(Dt + kk * WS + CPT * tx, dj);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) {
-            cg[i][j] = fmaf(gi[i], cj[j], cg[i][j]);
-            dvv[i][j] = fmaf(vi[i], dj[j], dvv[i][j]);
-          }
+      const float* Ct = sp + 2 * CM * AS;
+      const float* Dt = Ct + TW * AS;
+      for (int e = tid; e < TW * 8; e += THREADS) {  // four columns at a time
+        const int o = (e >> 3) * AS + 4 * (e & 7);
+        const float4 x = *reinterpret_cast<const float4*>(Ct + o);
+        const float4 y = *reinterpret_cast<const float4*>(Dt + o);
+        tot = fmaf(x.x, y.x, tot);
+        tot = fmaf(x.y, y.y, tot);
+        tot = fmaf(x.z, y.z, tot);
+        tot = fmaf(x.w, y.w, tot);
       }
-    }
-    // phase 2: KD = k·dC'[:, cols] over slabs of key rows
-    float* Kt = smem;
-    float* Dc = Kt + SL * TS;
-    ChunkSlab sk;
-    Slab<SL, TW> sdcol;  // rows c .. of dC', columns col0 ..
-    sk.fetch_rows(k + base, row, valid);
-    sdcol.fetch_rows(dCp + col0, HD, SL);
-    for (int c = 0; c < HD; c += SL) {
-      __syncthreads();
-      sk.store_t(Kt, TS);
-      sdcol.store(Dc, WS);
-      __syncthreads();
-      if (c + SL < HD) {
-        sk.fetch_rows(k + base + c + SL, row, valid);
-        sdcol.fetch_rows(dCp + (size_t)(c + SL) * HD + col0, HD, SL);
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < SL; ++kk) {
-        const float4 ka = *reinterpret_cast<const float4*>(Kt + kk * TS + 4 * ty);
-        const float ki[4] = {ka.x, ka.y, ka.z, ka.w};
-        float dj[CPT];
-        load_n(Dc + kk * WS + CPT * tx, dj);
+    } else {
+      const float* Kt = sp;
+      const float* Dc = Kt + CM * AS;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int kp = 0; kp < 2; ++kp) {
+        Frag2 a[2];
 #pragma unroll
-          for (int j = 0; j < CPT; ++j) kd[i][j] = fmaf(ki[i], dj[j], kd[i][j]);
+        for (int i = 0; i < 2; ++i)
+          a[i].load_a(Kt + (r1 + 16 * i + g4) * AS + 16 * kp + c4, 8 * AS, 8);
+#pragma unroll
+        for (int n = 0; n < N2; ++n) {
+          Frag2B bf;
+          bf.load(Dc + (16 * kp + c4) * BS + c2 + 8 * n + g4, 4 * BS, 8 * BS);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma3_rn2(kd[i][n], a[i], bf);
+        }
       }
     }
   }
   red[tid] = tot;
-  __syncthreads();  // phases 1 and 2 are read
+  cp_wait<0>();
+  __syncthreads();  // the ring is read: the chunk's columns and P, dS take its place
 
-  // phase 3: the intra-chunk products and the outputs
   float* Qc = smem;
-  float* Kc = Qc + CM * WS;
-  float* Gc = Kc + CM * WS;
-  float* Ps = Gc + CM * WS;
-  float* Ds = Ps + CM * TS;
-  for (int e = tid; e < CM * TW; e += THREADS) {
-    const int r = e / TW, c = e % TW;
-    const bool ok = r < valid;
-    const size_t o = base + (size_t)r * row + col0 + c;
-    Qc[r * WS + c] = ok ? q[o] : 0.f;
-    Kc[r * WS + c] = ok ? k[o] : 0.f;
-    Gc[r * WS + c] = ok ? g[o] : 0.f;
-  }
-  for (int e = tid; e < CM * CM; e += THREADS) {
-    const int r = e / CM, c = e % CM;
-    Ps[r * TS + c] = rec[e];
-    Ds[r * TS + c] = rec[R_DS + e];
-  }
+  float* Kc = Qc + CM * BS;
+  float* Gc = Kc + CM * BS;
+  float* Ps = Gc + CM * BS;
+  float* Ds = Ps + CM * PS;
+  load_tile<TW, THREADS>(Qc, BS, q + base + col0, row, CM, valid);
+  load_tile<TW, THREADS>(Kc, BS, k + base + col0, row, CM, valid);
+  load_tile<TW, THREADS>(Gc, BS, g + base + col0, row, CM, valid);
+  load_tile<CM, THREADS>(Ps, PS, rec, CM, CM, CM);
+  load_tile<CM, THREADS>(Ds, PS, rec + R_DS, CM, CM, CM);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
-  float oq[4][CPT], ok_[4][CPT], ov[4][CPT];
+
+  // the state terms: dq = a ⊙ (g·C_jᵀ + d nrm ⊗ n_j) with the row sums of
+  // q·(g·C_jᵀ + d nrm ⊗ n_j) (role 0); dk = W ⊙ (v·dC'ᵀ + dn') with those of
+  // k·(v·dC'ᵀ + dn') (role 1); dv = W ⊙ k·dC'
+  float rsum[2][2] = {};  // [i][half]: row r1 + 16·i + g4 + 8·half, over the warp's columns
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 4 * ty + i;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = CPT * tx + j;
-      oq[i][j] = A[s] * (cg[i][j] + Dr[s] * nj[c]);
-      ok_[i][j] = Wt[s] * (dvv[i][j] + dnp[c]);
-      ov[i][j] = Wt[s] * kd[i][j];
+    for (int n = 0; n < N1; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = r1 + 16 * i + g4 + 8 * (e >> 1), c = c1 + 8 * n + 2 * c4 + (e & 1);
+        if (role == 0) {
+          const float x = prod[i][n][e] + Dr[s] * nj[c];
+          rsum[i][e >> 1] = fmaf(Qc[s * BS + c], x, rsum[i][e >> 1]);
+          prod[i][n][e] = A[s] * x;
+        } else {
+          const float x = prod[i][n][e] + dnp[c];
+          rsum[i][e >> 1] = fmaf(Kc[s * BS + c], x, rsum[i][e >> 1]);
+          prod[i][n][e] = Wt[s] * x;
+        }
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < N2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kd[i][n][e] *= Wt[r1 + 16 * i + g4 + 8 * (e >> 1)];
+
+  // the chunk's pairs (sums of at most 64 terms): dq += dS·k over keys t ≤ s
+  // (role 0), dk += dSᵀ·q over t ≥ s (role 1), dv += Pᵀ·g over t ≥ s
+#pragma unroll
+  for (int kk = 0; kk < CM / 8; ++kk) {
+    const int t = 8 * kk + c4;
+    bool need[2], upper[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = r1 / 16 + i;  // the m tile: rows 16·mt .. 16·mt + 15
+      upper[i] = kk >= 2 * mt;
+      need[i] = role == 0 ? kk <= 2 * mt + 1 : upper[i];
     }
-  }
-  // per-row partial sums of the gate terms over this tile's columns
-  float pa[4], pw[4];
+    if (need[0] || need[1]) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 4 * ty + i;
-    pa[i] = 0.f;
-    pw[i] = 0.f;
+      for (int i = 0; i < 2; ++i) {
+        const int s = r1 + 16 * i + g4;
+        const int o = role == 0 ? s * PS + t : t * PS + s;  // dS[s][t], or dS[t][s]
+        const int o8 = role == 0 ? 8 * PS : 8, o4 = role == 0 ? 4 : 4 * PS;
+        const float af[4] = {Ds[o], Ds[o + o8], Ds[o + o4], Ds[o + o8 + o4]};
+        split(af, ah[i], al[i]);
+      }
+      const float* Bc = role == 0 ? Kc : Qc;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = CPT * tx + j;
-      pa[i] = fmaf(Qc[s * WS + c], cg[i][j] + Dr[s] * nj[c], pa[i]);
-      pw[i] = fmaf(Kc[s * WS + c], dvv[i][j] + dnp[c], pw[i]);
+      for (int n = 0; n < N1; ++n) {
+        const float* pb = Bc + t * BS + c1 + 8 * n + g4;
+        const float bf[2] = {pb[0], pb[4 * BS]};
+        uint32_t bh2[2], bl2[2];
+        split(bf, bh2, bl2);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (need[i]) mma3(prod[i][n], ah[i], al[i], bh2, bl2);
+      }
     }
-  }
-  for (int t = 0; t < CM; ++t) {
-    float kc[CPT], qc[CPT], gc[CPT];
-    load_n(Kc + t * WS + CPT * tx, kc);
-    load_n(Qc + t * WS + CPT * tx, qc);
-    load_n(Gc + t * WS + CPT * tx, gc);
-    const float4 dst = *reinterpret_cast<const float4*>(Ds + t * TS + 4 * ty);  // dS[t][rows]
-    const float4 pst = *reinterpret_cast<const float4*>(Ps + t * TS + 4 * ty);  // P[t][rows]
-    const float dsr[4] = {dst.x, dst.y, dst.z, dst.w}, psr[4] = {pst.x, pst.y, pst.z, pst.w};
+    if (upper[0] || upper[1]) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float dsq = Ds[(4 * ty + i) * TS + t];  // dS[row][t]
+      for (int i = 0; i < 2; ++i) {
+        const int o = t * PS + r1 + 16 * i + g4;  // P[t][s]
+        const float af[4] = {Ps[o], Ps[o + 8], Ps[o + 4 * PS], Ps[o + 4 * PS + 8]};
+        split(af, ah[i], al[i]);
+      }
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        oq[i][j] = fmaf(dsq, kc[j], oq[i][j]);       // dq_s += dS[s,t] k_t
-        ok_[i][j] = fmaf(dsr[i], qc[j], ok_[i][j]);  // dk_s += dS[t,s] q_t
-        ov[i][j] = fmaf(psr[i], gc[j], ov[i][j]);    // dv_s += P[t,s] g_t
+      for (int n = 0; n < N2; ++n) {
+        const float* pb = Gc + t * BS + c2 + 8 * n + g4;
+        const float bf[2] = {pb[0], pb[4 * BS]};
+        uint32_t bh2[2], bl2[2];
+        split(bf, bh2, bl2);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (upper[i]) mma3(kd[i][n], ah[i], al[i], bh2, bl2);
       }
     }
   }
+
+  float* out = role == 0 ? dq : dk;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 4 * ty + i;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {  // the 16 threads of a row: lanes of one half-warp
-      pa[i] += __shfl_xor_sync(0xffffffffu, pa[i], off);
-      pw[i] += __shfl_xor_sync(0xffffffffu, pw[i], off);
-    }
-    if (s < valid) {
-      const size_t o = base + (size_t)s * row + col0 + CPT * tx;
+    for (int half = 0; half < 2; ++half) {
+      const int s = r1 + 16 * i + g4 + 8 * half;
+      if (s < valid) {
+        const size_t o = base + (size_t)s * row + col0 + 2 * c4;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        dq[o + j] = oq[i][j];
-        dk[o + j] = ok_[i][j];
-        dv[o + j] = ov[i][j];
+        for (int n = 0; n < N1; ++n)
+          *reinterpret_cast<float2*>(out + o + c1 + 8 * n) =
+              make_float2(prod[i][n][2 * half], prod[i][n][2 * half + 1]);
+#pragma unroll
+        for (int n = 0; n < N2; ++n)
+          *reinterpret_cast<float2*>(dv + o + c2 + 8 * n) =
+              make_float2(kd[i][n][2 * half], kd[i][n][2 * half + 1]);
       }
+      // the four lanes of a row in order; the two column halves meet below
+      float a = rsum[i][half];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (c4 == 0) rows[(2 * role + ((w >> 1) & 1)) * CM + s] = a;
     }
-  }
+  __syncthreads();
   float* part = part_all + (st * NT + ct) * PART;
-  if (tx == 0)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      part[4 * ty + i] = pa[i];
-      part[CM + 4 * ty + i] = pw[i];
-    }
+  if (tid < CM) {
+    part[tid] = rows[tid] + rows[CM + tid];
+    part[CM + tid] = rows[2 * CM + tid] + rows[3 * CM + tid];
+  }
   if (tid == 0) {  // Σ C ⊙ dC' in thread order, and n·dn' over the tile
     float t = 0.f;
     for (int r = 0; r < THREADS; ++r) t += red[r];
@@ -692,6 +863,23 @@ mlstm_bwd_gates_kernel(const float* __restrict__ rec_all, const float* __restric
   if (ok) dlog_f[((size_t)b * S + c0 + t) * H + h] = dfc[t] + dftot;
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int floats) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              floats * (int)sizeof(float));
+}
+
+template <int HD>
+cudaError_t set_attributes() {
+  static const cudaError_t err = [] {  // once per instantiation
+    cudaError_t e = allow_smem(mlstm_bwd_scores_kernel<HD>, ScoreSmem<HD>::TOTAL);
+    if (e == cudaSuccess) e = allow_smem(mlstm_bwd_sweep_kernel<HD>, SweepSmem<HD>::TOTAL);
+    if (e == cudaSuccess) e = allow_smem(mlstm_bwd_tiles_kernel<HD>, TileSmem<HD>::TOTAL);
+    return e;
+  }();
+  return err;
+}
+
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* log_f,
                    const float* i_gate, const float* y, const float* dy, const float* C_states,
@@ -699,26 +887,38 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                    const float* dn_final, float* dq, float* dk, float* dv, float* dlog_f,
                    float* di, float* dC0, float* dn0, float* ws, int B, int S, int H,
                    int chunk, cudaStream_t stream) {
-  using L = TileSmem<HD>;
+  using SW = SweepSmem<HD>;
+  static_assert(HD % 32 == 0 && HD % SW::TR == 0 && HD % SW::TC == 0, "whole tiles");
   const int n_chunks = (S + chunk - 1) / chunk;
   const Workspace o(B, S, H, HD, chunk);
   float *g = ws + o.g, *dnrm = ws + o.dnrm, *dCw = ws + o.dC, *dnw = ws + o.dn,
         *rec = ws + o.rec, *part = ws + o.part;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mlstm_bwd_tiles_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::TOTAL * (int)sizeof(float));
-  if (attr != cudaSuccess) return attr;
+  cudaError_t err = set_attributes<HD>();
+  if (err != cudaSuccess) return err;
   const int rows = B * S * H;
   mlstm_bwd_rows_kernel<HD><<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, stream>>>(
       y, dy, nrm, g, dnrm, rows);
-  mlstm_bwd_scores_kernel<HD><<<dim3(n_chunks, B * H), THREADS, 0, stream>>>(
-      q, k, v, g, dnrm, log_f, i_gate, rec, S, H, chunk, n_chunks);
-  mlstm_bwd_sweep_kernel<HD><<<dim3(HD / 32, B * H), THREADS, 0, stream>>>(
-      q, g, dnrm, rec, dC_final, dn_final, dCw, dnw, dC0, dn0, S, H, chunk, n_chunks);
-  mlstm_bwd_tiles_kernel<HD><<<dim3(HD / L::TW, n_chunks, B * H), THREADS,
-                               L::TOTAL * sizeof(float), stream>>>(
-      q, k, v, g, dnrm, C_states, n_states, dCw, dnw, rec, dq, dk, dv, part, S, H, chunk,
-      n_chunks);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ScoreSmem<HD>::CL, n_chunks, B * H);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = ScoreSmem<HD>::TOTAL * sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ScoreSmem<HD>::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, mlstm_bwd_scores_kernel<HD>, q, k, v, (const float*)g,
+                           (const float*)dnrm, log_f, i_gate, rec, S, H, chunk, n_chunks);
+  if (err != cudaSuccess) return err;
+  mlstm_bwd_sweep_kernel<HD><<<dim3((HD / SW::TR) * (HD / SW::TC), B * H), SW::WARPS * 32,
+                               SW::TOTAL * sizeof(float), stream>>>(
+      q, g, rec, dC_final, dn_final, dCw, dnw, dC0, dn0, S, H, chunk, n_chunks);
+  mlstm_bwd_tiles_kernel<HD><<<dim3(HD / tile_width(HD), n_chunks, B * H), THREADS,
+                               TileSmem<HD>::TOTAL * sizeof(float), stream>>>(
+      q, k, v, g, C_states, n_states, dCw, dnw, rec, dq, dk, dv, part, S, H, chunk, n_chunks);
   mlstm_bwd_gates_kernel<HD><<<dim3(n_chunks, B * H), CM, 0, stream>>>(
       rec, part, dlog_f, di, S, H, chunk, n_chunks);
   return cudaGetLastError();

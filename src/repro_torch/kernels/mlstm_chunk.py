@@ -10,8 +10,8 @@ scores of each chunk into a workspace, then the state pass over value
 tiles of C; every product is 3xTF32 on the tensor cores. Asked to
 ``save``, the state pass also writes each chunk's entering state and each
 row's normaliser, which the backward (``csrc/mlstm_chunk_bwd.cu``,
-``launch_bwd``: five kernels on fp32 FMAs) reads. Launch through
-``ops.mlstm_chunk``.
+``launch_bwd``: five kernels, its products 3xTF32 on the tensor cores as
+the forward's) reads. Launch through ``ops.mlstm_chunk``.
 """
 from __future__ import annotations
 

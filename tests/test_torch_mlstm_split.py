@@ -11,7 +11,13 @@ does and lo the remainder, which the tensor core reads with its low 13
 bits dropped, and a·b = lo_a·hi_b + hi_a·lo_b + hi_a·hi_b with fp32 sums.
 ``two_pass`` renders that in plain PyTorch (it is not on the port's path)
 and is held against the plain version and the JAX reference at atol 5e-5 /
-rtol 5e-4 (tests/test_kernels.py).
+rtol 5e-4 (tests/test_kernels.py). The backward (``csrc/mlstm_chunk_bwd.cu``)
+takes its products the same way: ``einsum_tf32`` renders that in the plain
+backward, held per gradient to the card's limit, |err| <= 1e-4·(|ref| +
+rms(ref)) against float64. Its sums are fp32 sums rounded to nearest: the
+tensor core's own accumulation, which truncates, is not modelled here (the
+card test ``test_mlstm_bwd_kernel_adds_its_deep_sums_in_fp32_on_card`` in
+tests/test_torch_cuda.py holds the kernel's remedy for it).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,13 +26,14 @@ import torch
 
 from repro.kernels.ref import mlstm_chunk_ref as jax_mlstm_ref
 from repro_torch.kernels.mlstm_chunk import MAX_CHUNK, P_STRIDE, record_floats
-from repro_torch.kernels.ref import mlstm_chunk_ref
+from repro_torch.kernels.ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CM = MAX_CHUNK   # rows of every chunk tile
 VT = 32          # value columns of C per state block
 TOL = {"atol": 5e-5, "rtol": 5e-4}
+MLSTM_BWD_TOL = 1e-4  # the backward's elementwise limit on the card (tests/test_torch_cuda.py)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -209,3 +216,53 @@ def test_one_tf32_product_is_not_enough_at_hd_512():
         torch.testing.assert_close(y1, ry, **TOL)
         torch.testing.assert_close(C1, rC, **TOL)
     assert max(errs["3xTF32"]) < 5e-5 < max(errs["1xTF32"])
+
+
+def einsum_tf32(products: int):
+    """``torch.einsum`` of two fp32 operands as a tensor core takes its
+    products: three TF32 products (lo·hi + hi·lo + hi·hi) or one. The sums
+    are fp32 sums rounded to nearest, not the tensor core's truncated ones."""
+    plain = torch.einsum
+
+    def einsum(eq, a, b):
+        if products == 1:
+            return plain(eq, tf32(a), tf32(b))
+        (ah, al), (bh, bl) = split(a), split(b)
+        return plain(eq, al, bh) + plain(eq, ah, bl) + plain(eq, ah, bh)
+
+    return einsum
+
+
+@pytest.mark.parametrize("S,chunk,with_state", [
+    (128, 64, True),     # xlstm-350m's head dim and chunk, a state and final-state gradients
+    (77, 40, False),     # a chunk that is no multiple of 16, ragged
+])
+def test_backward_in_3xtf32_holds_the_limit_at_hd_512(monkeypatch, S, chunk, with_state):
+    """Every product of the backward as three TF32 products holds each
+    gradient to the card's limit against float64; one TF32 product does not."""
+    q, k, v, log_f, i_gate, state = inputs(1, S, 1, 512, with_state, seed=7)
+    t = [torch.from_numpy(a) for a in (q, k, v, log_f, i_gate)]
+    ts = None if state is None else tuple(torch.from_numpy(a) for a in state)
+    y, _ = mlstm_chunk_ref(*t, chunk=chunk, state=ts)
+    rng = np.random.default_rng(8)
+    dy = torch.from_numpy(rng.standard_normal(y.shape, dtype=np.float32))
+    dC, dn = ((torch.from_numpy(rng.standard_normal((1, 1, 512, 512), dtype=np.float32)),
+               torch.from_numpy(rng.standard_normal((1, 1, 512), dtype=np.float32)))
+              if with_state else (None, None))
+    as64 = lambda x: None if x is None else x.double()  # noqa: E731
+    exact = mlstm_chunk_bwd_ref(*(x.double() for x in (*t, y, dy)), chunk=chunk,
+                                state=None if ts is None else tuple(map(as64, ts)),
+                                dC=as64(dC), dn=as64(dn))
+
+    def over_tol(a, want):
+        limit = MLSTM_BWD_TOL * (want.abs() + want.square().mean().sqrt())
+        return ((a.double() - want).abs() / limit).max().item()
+
+    worst = {}
+    for products in (3, 1):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "einsum", einsum_tf32(products))
+            got = mlstm_chunk_bwd_ref(*t, y, dy, chunk=chunk, state=ts, dC=dC, dn=dn)
+        worst[products] = max(over_tol(a, e) for a, e in zip(got, exact, strict=True))
+        print(f"hd 512, S {S}, chunk {chunk}, {products}xTF32: worst err/tol {worst[products]:.3g}")
+    assert worst[3] <= 1.0 < worst[1]
