@@ -65,11 +65,15 @@ def handle_request(cfg: ModelConfig, params: Params, rid: int, *, batch: int,
             "latency_s": dt}
 
 
+NO_FAULTS = FaultConfig(task_failure_prob=0.0, max_retries=2)
+
+
 def serve(cfg: ModelConfig, params: Params, *, requests: int, batch: int,
           prompt_len: int, gen_len: int, seed: int,
-          device: str | torch.device = "cuda"):
+          device: str | torch.device = "cuda", faults: FaultConfig = NO_FAULTS):
     """Run ``requests`` request batches as one WUKONG DAG (fan-out of request
-    tasks into a summary task); returns the engine's ``JobReport``, whose
+    tasks into a summary task) under the engine's fault injection
+    ``faults``; returns the engine's ``JobReport``, whose
     ``results["summary"]`` holds the mean decode rate, the p99 latency and
     each request's generated tokens."""
     dev = resolve_device(device)
@@ -83,9 +87,7 @@ def serve(cfg: ModelConfig, params: Params, *, requests: int, batch: int,
         "p99_latency_s": float(np.percentile([r["latency_s"] for r in rs], 99)),
         "tokens": [r["tokens"] for r in rs],   # per request, in request order
     }, *reqs, name="summary")
-    return WukongEngine(EngineConfig(
-        faults=FaultConfig(task_failure_prob=0.0, max_retries=2),
-        job_timeout_s=3600.0)).compute(g.build())
+    return WukongEngine(EngineConfig(faults=faults, job_timeout_s=3600.0)).compute(g.build())
 
 
 def main(argv: list[str] | None = None):

@@ -1,9 +1,9 @@
-"""Transformer building blocks in PyTorch: RMSNorm, RoPE, GQA attention, MLP.
+"""Transformer building blocks in PyTorch: RMSNorm, RoPE, GQA attention, MLP, MoE.
 
-Port of ``repro.models.layers`` for ``attn+dense`` blocks. Parameters are
-plain dictionaries of tensors with the reference's names and layouts:
-weights stored ``(in, out)`` and applied as ``x @ W``. ``init_*`` take an
-explicit ``torch.Generator`` and device.
+Port of ``repro.models.layers`` for ``attn+dense`` and ``attn+moe``
+blocks. Parameters are plain dictionaries of tensors with the reference's
+names and layouts: weights stored ``(in, out)`` and applied as ``x @ W``.
+``init_*`` take an explicit ``torch.Generator`` and device.
 
 Attention runs through the kernel wrappers whatever ``cfg.use_pallas``
 says: ``attention`` calls ``ops.flash_attention`` and ``attention_decode``
@@ -13,7 +13,7 @@ hold both against.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -219,3 +219,101 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:  # gelu, tanh approximation as jax.nn.gelu's default
         h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-based dispatch)
+# --------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The reference's MoE leaves: an fp32 router (d, E) whatever the model
+    dtype, and per expert ``w_gate``/``w_up`` (E, d, f) and ``w_down``
+    (E, f, d); ``w_gate`` exists for every activation, as in the reference."""
+    assert cfg.moe is not None
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    dt = dtype_of(cfg)
+    return {
+        "router": _init(gen, (d, E), d ** -0.5, torch.float32),
+        "w_gate": _init(gen, (E, d, f), d ** -0.5, dt),
+        "w_up": _init(gen, (E, d, f), d ** -0.5, dt),
+        "w_down": _init(gen, (E, f, d), f ** -0.5, dt),
+    }
+
+
+class MoeRoute(NamedTuple):
+    """Where each (token, slot) assignment goes. Tensors are (G, g, k):
+    G groups of g consecutive tokens of one sequence, k chosen experts per
+    token, best first."""
+    expert: torch.Tensor     # int64 expert index
+    slot: torch.Tensor       # int64 place in its expert's queue within the group
+    keep: torch.Tensor       # bool: slot < cap
+    weights: torch.Tensor    # fp32 softmax over the k logits, 0 where dropped
+    cap: int                 # queue places per expert and group
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> MoeRoute:
+    """Top-k routing with capacity, as ``repro.models.layers.moe_mlp``: tokens
+    in groups of ``g = min(cfg.moe_group, S)``, fp32 logits ``x @ router``,
+    the k largest (ties to the lower expert index, as ``jax.lax.top_k``),
+    softmax over those k. An assignment's queue place counts the earlier
+    assignments to its expert in the group's token-major (token, slot)
+    order; places from ``cap`` on are dropped (weight 0, the kept weights
+    not renormalised). Reads nothing back to the host."""
+    assert cfg.moe is not None
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    B, S, d = x.shape
+    g = min(cfg.moe_group, S)
+    if S % g:
+        raise ValueError(f"moe: sequence length {S} is not a multiple of the group {g}")
+    G = B * (S // g)
+    cap = max(1, int(k * g * cfg.moe_capacity_factor / E))
+    logits = x.reshape(G, g, d).float() @ router                    # (G, g, E)
+    top, expert = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top, expert = top[..., :k], expert[..., :k]
+    weights = torch.softmax(top, dim=-1)
+    flat = expert.reshape(G, g * k, 1)
+    onehot = torch.zeros((G, g * k, E), dtype=torch.int32, device=x.device)
+    onehot.scatter_(-1, flat, 1)
+    earlier = onehot.cumsum(dim=1) - onehot                         # exclusive count
+    slot = earlier.gather(-1, flat).reshape(G, g, k).long()
+    keep = slot < cap
+    return MoeRoute(expert, slot, keep, weights * keep, cap)
+
+
+def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE MLP with capacity-based dispatch (``moe_route``).
+
+    The dispatch is a gather: each kept assignment writes its token's index
+    into its own entry of an int map of E·G·cap rows (expert, then group,
+    then queue place; no two kept assignments share an entry, so the map
+    is deterministic), empty rows point at one zero row, and indexing ``x``
+    by the map gives the (E, G·cap, d) expert inputs. The experts run as
+    one batched matmul over the expert axis. Each token's k outputs are
+    gathered back and added in slot order in fp32, weighted by the combine
+    weights rounded to ``x.dtype``, and the sum rounded to ``x.dtype``: the
+    reference's roundings (bf16 expert products, SiLU on their bf16
+    output). No atomics: two calls give the same bits."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    B, S, d = x.shape
+    r = moe_route(p["router"], x, cfg)
+    G, g, _ = r.expert.shape
+    rows = G * r.cap                                                # per expert
+    group = torch.arange(G, device=x.device).reshape(G, 1, 1)
+    dest = (r.expert * rows + group * r.cap + r.slot).reshape(-1)   # (token, slot) order
+    keep = r.keep.reshape(-1)
+    # dropped assignments all write the spare entry past the end, never read
+    token = torch.arange(G * g, device=x.device).repeat_interleave(k)
+    src = torch.full((E * rows + 1,), G * g, dtype=torch.long, device=x.device)
+    src.scatter_(0, torch.where(keep, dest, E * rows), token)
+    xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(E, rows, d)
+    if cfg.activation == "swiglu":
+        h = F.silu(xe @ p["w_gate"]) * (xe @ p["w_up"])
+    else:  # squared_relu, the reference's only other MoE activation
+        h = torch.square(F.relu(xe @ p["w_up"]))
+    ye = (h @ p["w_down"]).reshape(E * rows, d)
+    y = ye[torch.where(keep, dest, 0)].reshape(G, g, k, d)
+    w = r.weights.to(x.dtype).float()
+    out = w[..., 0, None] * y[..., 0, :].float()
+    for j in range(1, k):
+        out = out + w[..., j, None] * y[..., j, :].float()
+    return out.to(x.dtype).reshape(B, S, d)

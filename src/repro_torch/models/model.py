@@ -1,22 +1,25 @@
 """Decoder-only LM in PyTorch: init / forward / cache / decode.
 
 Port of ``repro.models.model`` for blocks whose mixer is ``attn``,
-``mlstm`` or ``slstm`` and whose MLP is ``dense`` or absent: the
-``attn+dense`` decoders (smollm, llama3, qwen2, nemotron, chameleon) and
-xLSTM's alternating ``mlstm`` / ``slstm`` blocks. Parameters keep the
-reference's pytree as plain dictionaries: per pattern position, each leaf
-stacked over ``n_repeats`` along a leading axis. ``jax.lax.scan`` over the
-stack becomes a Python loop over the repeats.
+``mlstm`` or ``slstm`` and whose MLP is ``dense``, ``moe`` or absent: the
+``attn+dense`` decoders (smollm, llama3, qwen2, nemotron, chameleon),
+mixtral's ``attn+moe`` blocks (top-k experts with capacity, a sliding
+window whose decode cache rotates) and xLSTM's alternating ``mlstm`` /
+``slstm`` blocks. Parameters keep the reference's pytree as plain
+dictionaries: per pattern position, each leaf stacked over ``n_repeats``
+along a leading axis. ``jax.lax.scan`` over the stack becomes a Python
+loop over the repeats.
 
 ``loss_fn`` trains every ported block: attention and mLSTM through their
-kernels' autograd Functions, sLSTM's time loop through autograd. With
-``cfg.remat`` set, ``forward`` wraps each superblock (one repeat of the
-whole block pattern) in non-reentrant ``torch.utils.checkpoint``, as the
-reference wraps it in ``jax.checkpoint``: only the superblocks' inputs are
-kept, and the backward runs each superblock's forward again.
+kernels' autograd Functions, sLSTM's time loop and the MoE MLP through
+autograd. With ``cfg.remat`` set, ``forward`` wraps each superblock (one
+repeat of the whole block pattern) in non-reentrant
+``torch.utils.checkpoint``, as the reference wraps it in
+``jax.checkpoint``: only the superblocks' inputs are kept, and the
+backward runs each superblock's forward again.
 
-Mamba, MoE MLPs and the encoder-decoder raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings them.
+Mamba and the encoder-decoder raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings them.
 """
 from __future__ import annotations
 
@@ -34,24 +37,26 @@ from repro_torch.models.layers import (
     dtype_of,
     init_attention,
     init_mlp,
+    init_moe,
     init_rmsnorm,
     mlp,
+    moe_mlp,
     resolve_device,
     rmsnorm,
 )
 
 _NOT_PORTED = {
     "mamba": "ROADMAP.md queue 1 item 7 (recurrent mixers: mamba)",
-    "moe": "ROADMAP.md queue 1 item 6 (MoE)",
     "enc_dec": "ROADMAP.md queue 1 item 8 (encoder-decoder)",
 }
 _MIXERS = ("attn", "mlstm", "slstm")
-_MLPS = ("dense", None)
+_MLPS = ("dense", "moe", None)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block's mixer is ported
-    (``attn``, ``mlstm``, ``slstm``) and its MLP is ``dense`` or absent."""
+    (``attn``, ``mlstm``, ``slstm``) and its MLP is ``dense``, ``moe`` or
+    absent."""
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet; "
@@ -68,9 +73,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block can be trained: its
-    mixer is ``attn``, ``mlstm`` or ``slstm`` and its MLP ``dense`` or absent.
-    Every block that ``check_supported`` takes has a backward, so the two
-    checks are one."""
+    mixer is ``attn``, ``mlstm`` or ``slstm`` and its MLP ``dense``, ``moe``
+    or absent. Every block that ``check_supported`` takes has a backward, so
+    the two checks are one."""
     check_supported(cfg)
 
 
@@ -84,9 +89,10 @@ _INIT_MIXER = {"attn": init_attention, "mlstm": ssm.init_mlstm, "slstm": ssm.ini
 def _init_block(gen: torch.Generator, entry: str, cfg: ModelConfig) -> Params:
     dev = gen.device
     p = {"norm1": init_rmsnorm(cfg, dev), "mixer": _INIT_MIXER[cfg.mixer_of(entry)](gen, cfg)}
-    if cfg.mlp_of(entry) == "dense":
+    mlp_kind = cfg.mlp_of(entry)
+    if mlp_kind is not None:
         p["norm2"] = init_rmsnorm(cfg, dev)
-        p["mlp"] = init_mlp(gen, cfg)
+        p["mlp"] = init_moe(gen, cfg) if mlp_kind == "moe" else init_mlp(gen, cfg)
     return p
 
 
@@ -144,10 +150,16 @@ def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> tor
         y, _ = ssm.mlstm(bp["mixer"], h, cfg)
     else:
         y, _ = ssm.slstm(bp["mixer"], h, cfg)
-    x = x + y
-    if cfg.mlp_of(entry) == "dense":
-        x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps), cfg)
-    return x
+    return _mlp_residual(bp, x + y, entry, cfg)
+
+
+def _mlp_residual(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> torch.Tensor:
+    """``x`` plus the block's MLP (dense or MoE) of its normed self, if any."""
+    mlp_kind = cfg.mlp_of(entry)
+    if mlp_kind is None:
+        return x
+    h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    return x + (moe_mlp(bp["mlp"], h, cfg) if mlp_kind == "moe" else mlp(bp["mlp"], h, cfg))
 
 
 def _superblock(x: torch.Tensor, bps: list[Params], cfg: ModelConfig) -> torch.Tensor:
@@ -243,10 +255,7 @@ def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tenso
         y, (cc, hh) = ssm.slstm(bp["mixer"], h, cfg, state=(c["c"][r], c["h"][r]))
         c["c"][r].copy_(cc)
         c["h"][r].copy_(hh)
-    x = x + y
-    if cfg.mlp_of(entry) == "dense":
-        x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps), cfg)
-    return x
+    return _mlp_residual(bp, x + y, entry, cfg)
 
 
 def decode_step(

@@ -10,9 +10,24 @@ limit of 5e-2, so the excess is the model's and not the port's. ``chip_smoke.py`
 full-width models on the card to the limits in ``LIMIT``. Parameters come
 from JAX ``init_model`` through ``params_from_jax``; ``pytest -s`` prints
 the readings.
+
+mixtral's top-2 routing turns a small difference into a large one: where
+a token's 2nd and 3rd router logits nearly tie, the two paths can choose
+different experts (a flip). Which paths flip depends on where they round
+attention's probabilities. The JAX package's plain path runs ``sdpa`` in
+both (probabilities rounded to bf16 before p·v) and flips no routing; its
+kernel path (``use_pallas``: the Pallas flash kernel keeps them in fp32,
+decode still runs ``sdpa``) flips some, and so does the port, whose
+forward rounds them and whose decode, like the reference's Pallas decode
+kernel, does not. With its decode computed as ``sdpa`` the port flips
+none. The card limit holds the positions whose routing agrees to
+``LIMIT`` and the share of flips to ``MOE_FLIP_SHARE``.
 """
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +40,33 @@ from repro.configs import reduced as jax_reduced
 from repro.models import model as JM
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, S = 2, 64
-LIMIT = {"smollm_360m": 5e-2, "xlstm_350m": 0.15}   # chip_smoke.py, bf16
+LIMIT = {"smollm_360m": 5e-2, "xlstm_350m": 0.15, "mixtral_8x7b": 5e-2}  # chip_smoke.py, bf16
+MOE_FLIP_SHARE = 0.05   # chip_smoke.py's MIXTRAL_BF16_FLIP_SHARE
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root, for its route recorder."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _chip_smoke()
+
+
+class Reading(NamedTuple):
+    err: float            # relative max error of decode against forward
+    err_agreeing: float   # the same over the positions whose routing agrees in every layer
+    flip_share: float     # share of (token, layer) MoE routings that differ (0 without MoE)
 
 
 def shape(get, shrink, arch, depth):
@@ -48,46 +84,119 @@ def rel_err(a, b):
 
 
 @functools.cache
-def readings(arch, depth):
-    """(JAX, port) relative max error of bf16 step-by-step decode logits
-    against one bf16 forward over ``S`` positions, same weights and tokens."""
+def setup(arch, depth):
+    """JAX weights and tokens, the same for every reading of ``arch``."""
     jcfg = shape(jax_get_config, jax_reduced, arch, depth)
-    tcfg = shape(get_config, reduced, arch, depth)
     jparams, _ = JM.init_model(jax.random.PRNGKey(1), jcfg)
     tokens = np.random.default_rng(8).integers(0, jcfg.vocab, (B, S), dtype=np.int32)
+    return jcfg, jparams, tokens
 
-    full = np.asarray(jax.jit(JM.forward, static_argnums=1)(jparams, jcfg,
-                                                             jnp.asarray(tokens)), np.float32)
-    dec = jax.jit(JM.decode_step, static_argnums=1)
-    cache, steps = JM.init_cache(jcfg, B, S), []
-    for t in range(S):
-        lg, cache = dec(jparams, jcfg, cache, jnp.asarray(tokens[:, t]), t)
-        steps.append(np.asarray(lg, np.float32))
-    jax_err = rel_err(np.stack(steps, axis=1), full)
 
+def reading(arch, depth, who, dec, full, experts):
+    flips = (chip_smoke.routing_flips(experts, S) if experts
+             else torch.zeros((1, B, S), dtype=torch.bool))
+    flipped = flips.any(dim=0).numpy()
+    r = Reading(rel_err(dec, full), rel_err(np.where(flipped[..., None], full, dec), full),
+                float(flips.float().mean()))
+    print(f"\n{arch} bf16 decode vs forward, {depth} depth, {who}: {r.err:.4g}, over "
+          f"agreeing positions {r.err_agreeing:.4g}, routings flipped {r.flip_share:.2%}")
+    return r
+
+
+@functools.cache
+def jax_reading(arch, depth, use_pallas=False):
+    """The JAX package's reading, on its plain path or its kernel path."""
+    jcfg, jparams, tokens = setup(arch, depth)
+    jcfg = dataclasses.replace(jcfg, use_pallas=use_pallas)
+    experts, moe = [], JM.moe_mlp
+
+    def recorded(p, x, cfg):  # each MoE layer's chosen experts, in call order
+        g = min(cfg.moe_group, x.shape[1])
+        logits = x.reshape(-1, g, x.shape[-1]).astype(jnp.float32) @ p["router"]
+        _, chosen = jax.lax.top_k(logits, cfg.moe.top_k)
+        jax.debug.callback(lambda c: experts.append(np.array(c).reshape(B, -1, c.shape[-1])),
+                           chosen, ordered=True)
+        return moe(p, x, cfg)
+
+    JM.moe_mlp = recorded
+    try:  # new functions, so that jit traces them with the recorder in place
+        full = jax.jit(lambda p, t: JM.forward(p, jcfg, t))(jparams, jnp.asarray(tokens))
+        dec = jax.jit(lambda p, c, tok, t: JM.decode_step(p, jcfg, c, tok, t))
+        cache, steps = JM.init_cache(jcfg, B, S), []
+        for t in range(S):
+            lg, cache = dec(jparams, cache, jnp.asarray(tokens[:, t]), t)
+            steps.append(np.asarray(lg, np.float32))
+        jax.effects_barrier()
+    finally:
+        JM.moe_mlp = moe
+    who = "JAX kernel path" if use_pallas else "JAX"
+    return reading(arch, depth, who, np.stack(steps, axis=1), np.asarray(full, np.float32),
+                   experts)
+
+
+def decode_as_sdpa(q, k_cache, v_cache, kv_len):
+    """Decode attention with the probabilities rounded as ``sdpa`` rounds
+    them; every sequence at the same length, as the model's decode has."""
+    return L.sdpa(q[:, None], k_cache, v_cache, causal=False, kv_len=int(kv_len[0]))[:, 0]
+
+
+@functools.cache
+def port_reading(arch, depth, sdpa_decode=False):
+    """The port's reading; with ``sdpa_decode``, its decode attention
+    replaced by ``decode_as_sdpa``."""
+    jcfg, jparams, tokens = setup(arch, depth)
+    tcfg = shape(get_config, reduced, arch, depth)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     toks = torch.from_numpy(tokens).long()
-    full = M.forward(tparams, tcfg, toks).float().numpy()
-    cache, steps = M.init_cache(tcfg, B, S, device="cpu"), []
-    for t in range(S):
-        lg, cache = M.decode_step(tparams, tcfg, cache, toks[:, t], t)
-        steps.append(lg.float().numpy())
-    port_err = rel_err(np.stack(steps, axis=1), full)
-    print(f"\n{arch} bf16 decode vs forward, {jcfg.n_layers} layers, "
-          f"d_model {jcfg.d_model}: "
-          f"JAX {jax_err:.4g}, port {port_err:.4g}")
-    return jax_err, port_err
+    decode = ops.decode_attention
+    if sdpa_decode:
+        ops.decode_attention = decode_as_sdpa
+    try:
+        with chip_smoke.routes_recorded(L) as routes:
+            full = M.forward(tparams, tcfg, toks).float().numpy()
+            cache, steps = M.init_cache(tcfg, B, S, device="cpu"), []
+            for t in range(S):
+                lg, cache = M.decode_step(tparams, tcfg, cache, toks[:, t], t)
+                steps.append(lg.float().numpy())
+    finally:
+        ops.decode_attention = decode
+    experts = [r.expert.reshape(B, -1, r.expert.shape[-1]) for r in routes]
+    who = "port, decode as sdpa" if sdpa_decode else "port"
+    return reading(arch, depth, who, np.stack(steps, axis=1), full, experts)
 
 
 @pytest.mark.parametrize("depth", ["reduced", "full"])
-@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m", "mixtral_8x7b"])
 def test_bf16_decode_vs_forward_within_the_card_limit(arch, depth):
-    jax_err, port_err = readings(arch, depth)
-    assert jax_err < LIMIT[arch] and port_err < LIMIT[arch], (jax_err, port_err)
+    jax_r, port_r = jax_reading(arch, depth), port_reading(arch, depth)
+    assert jax_r.err < LIMIT[arch] and port_r.err_agreeing < LIMIT[arch], (jax_r, port_r)
+    assert port_r.flip_share <= MOE_FLIP_SHARE, port_r
 
 
 def test_jax_xlstm_amplifies_bf16_rounding():
     """The reference itself: xLSTM's bf16 decode-vs-forward error is many
     times smollm's and above smollm's limit."""
-    xlstm, smollm = readings("xlstm_350m", "full")[0], readings("smollm_360m", "full")[0]
+    xlstm = jax_reading("xlstm_350m", "full").err
+    smollm = jax_reading("smollm_360m", "full").err
     assert xlstm > 5 * smollm and xlstm > LIMIT["smollm_360m"], (xlstm, smollm)
+
+
+@pytest.mark.parametrize("depth", ["reduced", "full"])
+def test_jax_kernel_path_flips_mixtral_routings_within_the_card_limit(depth):
+    """The JAX package's plain path flips no routing; its kernel path, which
+    rounds attention's probabilities apart in forward and decode as the port
+    does, flips some, within the card's limits."""
+    plain = jax_reading("mixtral_8x7b", depth)
+    kernels = jax_reading("mixtral_8x7b", depth, use_pallas=True)
+    assert plain.flip_share == 0.0, plain
+    assert 0.0 < kernels.flip_share <= MOE_FLIP_SHARE, kernels
+    assert kernels.err_agreeing < LIMIT["mixtral_8x7b"], kernels
+
+
+@pytest.mark.parametrize("depth", ["reduced", "full"])
+def test_port_mixtral_flips_come_from_decode_probabilities(depth):
+    """With only its decode attention's probabilities rounded as ``sdpa``
+    rounds them (as the forward does), the port flips no routing."""
+    assert port_reading("mixtral_8x7b", depth).flip_share > 0.0
+    as_sdpa = port_reading("mixtral_8x7b", depth, sdpa_decode=True)
+    assert as_sdpa.flip_share == 0.0 and as_sdpa.err < LIMIT["mixtral_8x7b"], as_sdpa

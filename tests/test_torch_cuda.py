@@ -25,7 +25,9 @@ tile) and with the gates where d log f's terms cancel most (log f near 0, i
 near 1); two runs give the same bits, and saving the states for it leaves
 the forward's output as it was, to the bit. A reduced f32
 model's train step on the card (smollm, and xLSTM with and without
-``remat``): loss 1e-4, params 2e-3 against the same step on the CPU. The paper's
+``remat``): loss 1e-4, params 2e-3 against the same step on the CPU. The
+MoE MLP on the card against the same call on the CPU (f32, with dropped
+assignments): the same routing, rel 1e-5. The paper's
 workloads (``repro_torch.apps``, library payloads) on the card: each within
 ``launch.apps``'s limits of its float64 reference there, with the same
 ``charged_ms`` and ``kv_stats`` as on the CPU.
@@ -501,6 +503,28 @@ def test_train_step_on_card_equals_cpu(cuda, arch, remat):
             == bwd + 2 * kernel_layers)
     for a, b in zip(leaves(states["cpu"][0]), leaves(states["cuda"][0]), strict=True):
         torch.testing.assert_close(b.cpu(), a, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_moe_mlp_on_card_equals_cpu(cuda):
+    """The MoE MLP on the card (f32, mixtral's 8 experts top 2, capacity
+    factor 1.0 so that queues overflow) against the same call on the CPU:
+    the same experts and the same dropped assignments, output rel < 1e-5,
+    and two calls on the card give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
+                              moe=get_config("mixtral_8x7b").moe, moe_capacity_factor=1.0)
+    p = L.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    want, route = L.moe_mlp(p, x, cfg), L.moe_route(p["router"], x, cfg)
+    pg, xg = map_tree(lambda t: t.to(cuda), p), x.to(cuda)
+    got, got_route = L.moe_mlp(pg, xg, cfg), L.moe_route(pg["router"], xg, cfg)
+    assert bool((~route.keep).any())
+    assert torch.equal(got_route.expert.cpu(), route.expert)
+    assert torch.equal(got_route.keep.cpu(), route.keep)
+    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    assert rel < 1e-5, rel
+    assert torch.equal(got, L.moe_mlp(pg, xg, cfg))
 
 
 # The paper's workloads (repro_torch.apps) on the card: library payloads

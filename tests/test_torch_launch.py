@@ -1,6 +1,8 @@
 """The port's entry points on the CPU: ``repro_torch.launch.quickstart``
-against ``examples/quickstart.py``, and ``repro_torch.launch.train_lm`` for
-smollm and xLSTM.
+against ``examples/quickstart.py``, ``repro_torch.launch.train_lm`` for
+smollm and xLSTM, and ``repro_torch.launch.serve_lm`` (reduced mixtral-8x7b)
+against ``examples/serve_lm.py`` and a greedy loop over the JAX package's
+``decode_step``.
 
 The quickstart prints the same lines as the JAX package's: every line,
 since none carries a wall-clock value (the engine's default virtual clock
@@ -10,12 +12,23 @@ character).
 import contextlib
 import importlib.util
 import io
+import re
+import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from repro_torch.launch import quickstart, train_lm
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.models import model as JM
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.core import FaultConfig
+from repro_torch.launch import quickstart, serve, serve_lm, train_lm
+from repro_torch.models import model as M
 from repro_torch.runtime import checkpoint as ckpt
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -30,10 +43,15 @@ def printed(fn) -> list[str]:
     return out.getvalue().splitlines()
 
 
+def example(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_quickstart_prints_the_reference_lines():
-    spec = importlib.util.spec_from_file_location("jax_quickstart", EXAMPLES / "quickstart.py")
-    reference = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(reference)
+    reference = example("quickstart")
     want = printed(reference.main)
     got = printed(quickstart.main)
     assert len(got) == len(want) == 10
@@ -55,3 +73,70 @@ def test_train_lm_runs_and_resumes_on_cpu(tmp_path, arch):
     assert all(np.isfinite(loss) for _, loss in out["losses"])
     assert ckpt.latest_step(out["checkpoint"]) == 1
     assert out["fault_stats"]["task_attempts"] > 0
+
+
+SERVED = re.compile(r"served in \d+\.\ds  mean decode throughput \d+\.\d tok/s  "
+                    r"p99 latency \d+\.\d\ds")
+
+
+def test_serve_lm_prints_the_example_lines(monkeypatch):
+    """The example's defaults and lines. The example itself prints its first
+    two and then raises ``KeyError``: it reads ``request-0`` from the job's
+    results, which hold only the job's root (the summary); the port takes
+    request 0's tokens from the summary."""
+    monkeypatch.setattr(sys, "argv", ["serve_lm.py"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(KeyError, match="request-0"):
+        example("serve_lm").main()
+    want = out.getvalue().splitlines()
+    got = printed(lambda: serve_lm.main(["--device", "cpu"]))
+    assert len(want) == 2 and len(got) == 3
+    assert got[0] == want[0] == "arch=mixtral-8x7b requests=4 batch=2 gen=16"
+    assert SERVED.fullmatch(got[1]) and SERVED.fullmatch(want[1]), (got[1], want[1])
+    head, tokens = got[2].split(": ")
+    assert head == "sample continuation (req 0, seq 0)"
+    assert len([int(t) for t in tokens.strip("[]").split(", ")]) == 12
+
+
+def test_serve_lm_repeats_its_tokens_when_tasks_fail():
+    """Two runs under the example's fault injection give the same tokens, and
+    so does a run whose request tasks fail and are retried: a retried
+    request sees the same prompt."""
+    cfg = reduced(get_config("mixtral_8x7b"))
+    params = M.init_model(cfg, seed=0, device="cpu")
+    kw = dict(requests=4, batch=2, prompt_len=5, gen_len=6, seed=0, device="cpu")
+    runs = [serve_lm.run(cfg, params, **kw)[0] for _ in range(2)]
+    assert all(r.fault_stats["task_attempts"] >= 5 for r in runs)
+    faulty = serve.serve(cfg, params, **kw, faults=FaultConfig(task_failure_prob=0.3,
+                                                                max_retries=6, seed=1))
+    assert faulty.fault_stats["injected_failures"] > 0, faulty.fault_stats
+    for rep in (runs[1], faulty):
+        for got, want in zip(rep.results["summary"]["tokens"],
+                             runs[0].results["summary"]["tokens"], strict=True):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_serve_lm_greedy_tokens_match_jax_decode_loop():
+    """At the example's shape, on params made by the JAX package: each
+    request's greedy tokens equal a greedy loop over JAX's ``decode_step``
+    on the same prompt (``launch.serve.request_prompts``)."""
+    jcfg, tcfg = jax_reduced(jax_get_config("mixtral_8x7b")), reduced(get_config("mixtral_8x7b"))
+    jparams, _ = JM.init_model(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    requests, batch, prompt_len, gen_len, seed = 4, 2, 16, 16, 5
+    rep, _ = serve_lm.run(tcfg, tparams, requests=requests, batch=batch,
+                          prompt_len=prompt_len, gen_len=gen_len, seed=seed, device="cpu")
+    step = jax.jit(JM.decode_step, static_argnums=1)
+    for rid in range(requests):
+        prompt = serve.request_prompts(seed, rid, batch, prompt_len, jcfg.vocab)
+        cache = JM.init_cache(jcfg, batch, prompt_len + gen_len)
+        tok, generated = jnp.asarray(prompt[:, 0]), []
+        for pos in range(prompt_len + gen_len - 1):
+            logits, cache = step(jparams, jcfg, cache, tok, jnp.int32(pos))
+            if pos + 1 < prompt_len:
+                tok = jnp.asarray(prompt[:, pos + 1])
+            else:
+                tok = jnp.argmax(logits, axis=-1)
+                generated.append(np.asarray(tok))
+        np.testing.assert_array_equal(rep.results["summary"]["tokens"][rid],
+                                      np.stack(generated, axis=1))

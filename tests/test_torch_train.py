@@ -66,7 +66,7 @@ from repro_torch.tree import leaves, map_tree, paths
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192", "xlstm_350m"]
+ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192", "xlstm_350m", "mixtral_8x7b"]
 B, S = 4, 16
 SEQ = {"xlstm_350m": 64}     # S by arch, where not S
 OPT = dict(lr=1e-3, warmup=3)
@@ -302,7 +302,6 @@ def test_xlstm_step_twice_is_identical_and_leaves_the_state_unchanged():
 
 @pytest.mark.parametrize("arch,item", [
     ("jamba_1_5_large_398b", "item 7"),   # mamba
-    ("mixtral_8x7b", "item 6"),           # MoE
     ("whisper_large_v3", "item 8"),       # encoder-decoder
 ])
 def test_training_refuses_blocks_without_a_backward(arch, item):
