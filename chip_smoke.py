@@ -25,7 +25,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    mixtral-8x7b's attention at the shapes phase 15 drives: flash at B=2
    S=512 (bf16, window 4096) and B=2 S=96 (f32, window 48), decode at B=2
    over a cache of 32 (bf16, kv_len 31: serving's last step) and of 48
-   (f32, kv_len 48: the wrapped ring),
+   (f32, kv_len 48: the wrapped ring), and jamba-1.5-large's attention at
+   the shapes phase 16 drives (64 heads over 8, hd 128): flash at B=2
+   S=512 causal (bf16) and B=2 S=64 causal (f32), decode at B=2 over a
+   cache of 32 (bf16, kv_len 31) and of 64 (f32, kv_len 64),
    timed with CUDA events (median of 30, L2 flushed before each run)
    beside the plain version,
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
@@ -45,8 +48,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    serving on a reduced f32 model on the card and on the CPU must give
    the same greedy tokens;
 7. decode step profile: host ms per full-width serving step (batch 4),
-   and from a ``torch.profiler`` trace its device ms, kernel launches and
-   top kernels;
+   and from a ``torch.profiler`` trace (after a traced warm-up) its device
+   ms, kernel launches and top kernels;
 8. the same for xlstm-350m (alternating mLSTM / sLSTM blocks): the
    ``mlstm_chunk`` kernels (scores, then state; 3xTF32 tensor-core
    products) against their plain version (atol 5e-5, rtol 5e-4, f32) at
@@ -130,6 +133,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     launches; ``mixtral_serve_reference``, a reduced f32 mixtral with a
     window of 8 (the ring wraps) serving the same greedy tokens on the card
     and the CPU; ``mixtral_decode_step_profile`` at batch 2.
+16. jamba: jamba-1.5-large at full width (d_model 8192, d_inner 16384,
+    state N 16, conv 4, 64 heads over 8, hd 128, d_ff 24576, vocab 65536,
+    untied head), its depth cut from 72 layers to one superblock of 8 (7
+    mamba, 1 attention, MoE top 2 on 4) and its experts from 16 to 8 in
+    bf16 (51.8 GB of weights) and to 4 in f32 (65.0 GB), weights made on
+    the card from a seed on a card that holds nothing else:
+    ``jamba_forward`` at B=2, S=512 (two chunks of the mamba scan), one
+    flash launch, the dropped share at capacity factor 1.25, and one mamba
+    layer's kernel launches and device time at that shape and at one
+    decode step (``torch.profiler``); ``jamba_decode_vs_forward`` over 64
+    positions at a drop-free capacity factor (E/k), bf16 (see
+    ``JAMBA_BF16_TOL``) and f32 (rel < 1e-3); ``jamba_serve``,
+    ``launch.serve_lm``'s requests through the engine (4 x batch 2, prompt
+    16, gen 16, the example's injected failures); ``jamba_serve_reference``
+    and ``jamba_train_reference``, reduced f32 jamba on the card and the
+    CPU (greedy tokens equal; 3 train steps, loss 1e-4, params 2e-3);
+    ``jamba_decode_step_profile`` at batch 2 beside two memory bounds: the
+    weights but the embedding, read once a step (the padded dispatch reads
+    every expert), and the same with only the experts the step's tokens
+    chose (counted through ``layers.moe_route``).
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
@@ -167,9 +190,9 @@ device time of the backward of
 ``scaled_dot_product_attention(..., enable_gqa=True)``.
 
 Kernel launch counts are set to 0 before each forward, decode-vs-forward,
-serve and train phase (smollm's, xLSTM's, nemotron's and mixtral's) and
-read after it, and before each full-size app run of phase 13, which must
-launch none. The line before the last is ``{"kernels": [...]}``; the last
+serve and train phase (smollm's, xLSTM's, nemotron's, mixtral's and
+jamba's) and read after it, and before each full-size app run of phase 13,
+which must launch none. The line before the last is ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
@@ -258,6 +281,17 @@ XLSTM_BF16_TOL = 0.15
 # wrong router, dispatch or cache position flips most routings, and fails
 # the f32 check at 1e-3.
 MIXTRAL_BF16_FLIP_SHARE = 0.05
+# jamba-1.5-large decode against forward in bf16, held as mixtral's: the
+# positions whose routing agrees in every layer, and the share of routings
+# that flip. The JAX package's plain path, which flips no mixtral routing,
+# flips jamba's at the card's depth (one superblock of 8 layers with N = 16
+# and 8 experts, d_model 256, on the CPU): over five seeds up to 2.3 % of
+# (token, layer) routings, and its agreeing positions differ by up to 0.089
+# (tests/test_torch_bf16.py). So jamba's limits are about twice those
+# largest readings. A wrong scan, conv state or cache position gives errors
+# of order 1 and fails the f32 check at 1e-3.
+JAMBA_BF16_TOL = 0.18
+JAMBA_BF16_FLIP_SHARE = 0.05
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 REPS = 30
 
@@ -797,6 +831,19 @@ def main() -> int:
                                      **mixtral))
     decode_cases.append(check_decode(ops, ref, timer, dev, torch.float32, 2, MIXTRAL_RING_WINDOW,
                                      [MIXTRAL_RING_WINDOW] * 2, **mixtral))
+    # jamba's attention layer at the shapes phase 16 gives it: its forward (bf16, B=2 S=512,
+    # causal, no window), serving's last step (B=2 over a cache of 32, kv_len 31), and the
+    # f32 decode-vs-forward check (flash on csrc/flash_attention.cu over 64 positions, decode
+    # at G = 8 over a cache of 64)
+    jamba = {"H": JAMBA_H, "K": JAMBA_K, "hd": 128}
+    flash_cases.append(check_flash(ops, ref, timer, dev, torch.bfloat16, 2, 512, True, None,
+                                   **jamba))
+    flash_cases.append(check_flash(ops, ref, timer, dev, torch.float32, 2, 64, True, None,
+                                   **jamba))
+    decode_cases.append(check_decode(ops, ref, timer, dev, torch.bfloat16, 2, 32, [31, 31],
+                                     **jamba))
+    decode_cases.append(check_decode(ops, ref, timer, dev, torch.float32, 2, 64, [64, 64],
+                                     **jamba))
     mlstm_cases, mlstm_bwd_cases = mlstm_checks(ops, ref, timer, dev)
     # the flash backward at smollm's training shapes and qwen2-72b's width
     bwd_cases = [check_flash_bwd(ops, ref, timer, dev, dtype, B, S, True, window)
@@ -902,6 +949,10 @@ def main() -> int:
     mixtral_flash, mixtral_decode = run_mixtral(get_config, reduced, ops, serve_mod, M, dev, smi)
     free_memory()
 
+    # 16. jamba-1.5-large at full width, one superblock, experts cut: mamba, the hybrid cache
+    jamba_flash, jamba_decode = run_jamba(get_config, reduced, ops, serve_mod, M, dev, smi)
+    free_memory()
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
@@ -909,12 +960,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:97",
          "launches": fwd_counts["flash_attention"], **_headline(flash_cases[0]),
          "nemotron_launches": nemotron_launches, "mixtral_launches": mixtral_flash,
-         "cases": flash_cases},
+         "jamba_launches": jamba_flash, "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:77",
          "launches": serve_counts["decode_attention"], **_headline(decode_cases[0]),
-         "mixtral_launches": mixtral_decode, "cases": decode_cases},
+         "mixtral_launches": mixtral_decode, "jamba_launches": jamba_decode,
+         "cases": decode_cases},
         {"name": "mlstm_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/linear_attention.py:83",
@@ -1028,6 +1080,15 @@ MIXTRAL_H, MIXTRAL_22B_H, MIXTRAL_K, MIXTRAL_WINDOW = 32, 48, 8, 4096
 MIXTRAL_LAYERS, MIXTRAL_F32_LAYERS = 4, 2        # of 32
 # the rotating-cache check: the window cut so that 96 positions wrap its ring
 MIXTRAL_RING_WINDOW, MIXTRAL_RING_POSITIONS = 48, 96
+# jamba-1.5-large: 64 heads over 8, hd 8192 / 64 = 128. Phase 16 runs one
+# superblock of its pattern (7 mamba layers, 1 attention, MoE on 4) at full
+# width; a superblock with all 16 experts is 90.5 GB in bf16, so the
+# experts are cut: 8 in bf16 (51.8 GB), 4 in f32 (65.0 GB).
+JAMBA_H, JAMBA_K = 64, 8
+JAMBA_LAYERS = 8                                     # of 72
+JAMBA_EXPERTS = {"bf16": 8, "f32": 4}                # of 16
+# a card that phase 16 may fill holds no more than this before each init_model
+EMPTY_CARD_GB = 0.5
 
 
 def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
@@ -1190,6 +1251,203 @@ def run_mixtral(get_config, reduced, ops, serve_mod, M, dev, smi) -> tuple[int, 
           f"factor {cfg.moe_capacity_factor}, serving {summary['mean_tps']:.1f} tokens/s ({smi})",
           flush=True)
     return fwd_counts["flash_attention"], serve_counts["decode_attention"]
+
+
+def run_jamba(get_config, reduced, ops, serve_mod, M, dev, smi) -> tuple[int, int]:
+    """Phase 16: jamba-1.5-large at full width (d_model 8192, d_inner 16384,
+    N 16, 64 heads over 8, hd 128, d_ff 24576, vocab 65536, untied head),
+    its depth cut to one superblock (8 of 72 layers) and its experts from 16
+    to 8 in bf16 and to 4 in f32. Forward at B=2 S=512 (two scan chunks)
+    with the mamba layer's launches and device time, decode against forward
+    over 64 positions at a drop-free capacity, serving through
+    ``launch.serve_lm``, the reduced f32 model's serving and training on the
+    card against the CPU, and the decode step profile. Returns the forward's
+    flash launches and the serving run's decode launches."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.tree import leaves
+
+    full = get_config("jamba_1_5_large_398b")
+    assert (full.d_model, full.d_inner, full.ssm_state_dim, full.n_heads, full.n_kv_heads,
+            full.hd, full.d_ff, full.vocab, full.moe.n_experts, full.moe.top_k,
+            full.sliding_window, full.tie_embeddings) == (8192, 16384, 16, JAMBA_H, JAMBA_K, 128,
+                                                          24576, 65536, 16, 2, None, False)
+    k = full.moe.top_k
+
+    def config(dt, **kw):
+        moe = dataclasses.replace(full.moe, n_experts=JAMBA_EXPERTS[dt])
+        return dataclasses.replace(full, n_layers=JAMBA_LAYERS, moe=moe, **kw)
+
+    def cut(dt, **kw):
+        return {"n_layers": f"{JAMBA_LAYERS} of {full.n_layers}",
+                "n_experts": f"{JAMBA_EXPERTS[dt]} of {full.moe.n_experts}", **kw}
+
+    def made(cfg):  # weights drawn on the card from a seed, on a card holding nothing else
+        allocated = torch.cuda.memory_allocated(dev) / 1e9
+        assert allocated < EMPTY_CARD_GB, allocated
+        return M.init_model(cfg, seed=0, device=dev)
+
+    def gb(params):
+        return sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+
+    cfg = config("bf16")
+    mixers = [cfg.mixer_of(e) for e in cfg.block_pattern]
+    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
+    n_moe = sum(cfg.mlp_of(e) == "moe" for e in cfg.block_pattern)
+    none = {"decode_attention": 0, "mlstm_chunk": 0, "flash_attention_bwd": 0,
+            "mlstm_chunk_bwd": 0}
+    rng = np.random.default_rng(0)
+    params = made(cfg)
+    weights_gb = gb(params)
+    step_gb = weights_gb - gb([params["embed"]])  # a decode step reads B rows of the embedding
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 512)), device=dev)
+    M.forward(params, cfg, tokens[:, :64])           # first call: set-up costs
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd_s, fwd_counts = timed_forward(M, ops, cfg, params, tokens)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    assert fwd_counts == {"flash_attention": n_attn, **none}, fwd_counts
+    with routes_recorded(L) as routes:
+        M.forward(params, cfg, tokens)
+    assert len(routes) == n_moe
+    dropped = sum(int((~r.keep).sum()) for r in routes) / sum(r.keep.numel() for r in routes)
+    moe = {"capacity_factor": cfg.moe_capacity_factor, "group": routes[0].expert.shape[1],
+           "cap": routes[0].cap, "assignments": sum(r.keep.numel() for r in routes),
+           "dropped_share": dropped}
+    # one mamba layer at the forward's shape and at one decode step
+    mixer = {name: leaf[0] for name, leaf in params["blocks"][0]["mixer"].items()}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn((2, 512, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    state = (torch.zeros((2, cfg.ssm_conv_width - 1, cfg.d_inner), dtype=torch.bfloat16,
+                         device=dev),
+             torch.zeros((2, cfg.d_inner, cfg.ssm_state_dim), device=dev))
+    mamba_layer = {"forward": kernel_summary(profiled(lambda: ssm.mamba(mixer, h, cfg))[0]),
+                   "decode_step": kernel_summary(profiled(
+                       lambda: ssm.mamba(mixer, h[:, :1], cfg, state=state))[0])}
+    del h, state, mixer, routes  # views and records of the weights: they must go with them
+    emit({"phase": "jamba_forward", "layers": JAMBA_LAYERS, "mamba_layers": n_mamba,
+          "shape": [2, 512], "dtype": "bf16", "seconds": fwd_s, "tokens_per_s": 2 * 512 / fwd_s,
+          "launches": fwd_counts, "cuts": cut("bf16"), "mamba_layer": mamba_layer,
+          "moe": moe, "weights_gb": weights_gb,
+          "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9, "peak_allocated_gb": peak_gb,
+          "card": smi})
+
+    # decode against forward at a drop-free capacity (cap = group), bf16
+    drop_free = {"moe_capacity_factor": JAMBA_EXPERTS["bf16"] / k}
+    dec_tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)), device=dev)
+    rec = moe_decode_vs_forward(M, L, ops, dataclasses.replace(cfg, **drop_free), dec_tokens,
+                                params)
+    emit({"phase": "jamba_decode_vs_forward", "layers": JAMBA_LAYERS, "dtype": "bf16",
+          "positions": 64, **rec, "tol": JAMBA_BF16_TOL, "flip_share_tol": JAMBA_BF16_FLIP_SHARE,
+          "cuts": cut("bf16", **drop_free)})
+    assert rec["rel_err_agreeing"] < JAMBA_BF16_TOL, rec
+    assert rec["flip_share"] <= JAMBA_BF16_FLIP_SHARE, rec
+    assert rec["launches"] == {"flash_attention": n_attn, **none,
+                               "decode_attention": 64 * n_attn}, rec["launches"]
+
+    # serving through the engine, launch.serve_lm's requests at full width
+    reset(ops)
+    t0 = time.perf_counter()
+    rep, lines = serve_lm.run(cfg, params, requests=4, batch=2, prompt_len=16, gen_len=16,
+                              seed=0, device=dev)
+    serve_s = time.perf_counter() - t0
+    serve_counts = counts(ops)
+    summary = rep.results["summary"]
+    assert len(summary["tokens"]) == 4
+    for toks in summary["tokens"]:
+        assert toks.shape == (2, 16) and toks.min() >= 0 and toks.max() < cfg.vocab
+    assert serve_counts["decode_attention"] >= 4 * n_attn * (16 + 16 - 1), serve_counts
+    for line in lines:
+        print(f"{line} ({smi})", flush=True)
+    emit({"phase": "jamba_serve", "layers": JAMBA_LAYERS, "requests": 4, "batch": 2,
+          "prompt_len": 16, "gen_len": 16, "seconds": serve_s, "lines": lines,
+          "mean_tokens_per_s": summary["mean_tps"], "p99_latency_s": summary["p99_latency_s"],
+          "charged_ms": rep.charged_ms, "fault_stats": rep.fault_stats,
+          "launches": serve_counts, "cuts": cut("bf16"), "card": smi})
+    del params, rep
+    free_memory()  # the engine's job graph holds the weights in a reference cycle
+
+    # f32, 4 experts: decode against forward
+    f32 = config("f32", dtype="float32", moe_capacity_factor=JAMBA_EXPERTS["f32"] / k)
+    params = made(f32)
+    rec = moe_decode_vs_forward(M, L, ops, f32, dec_tokens, params)
+    emit({"phase": "jamba_decode_vs_forward", "layers": JAMBA_LAYERS, "dtype": "f32",
+          "positions": 64, **rec, "tol": 1e-3, "weights_gb": gb(params),
+          "cuts": cut("f32", moe_capacity_factor=f32.moe_capacity_factor)})
+    assert rec["rel_err"] < 1e-3, rec
+    assert rec["launches"] == {"flash_attention": n_attn, **none,
+                               "decode_attention": 64 * n_attn}, rec["launches"]
+    del params
+    free_memory()
+
+    small = reduced(full)
+    emit({"phase": "jamba_serve_reference", "config": "reduced jamba f32",
+          "tokens_equal_cpu": serve_reference(serve_mod, M, small, dev)})
+    emit({"phase": "jamba_train_reference", "config": "reduced jamba f32",
+          **train_reference(M, ops, small, dev)})
+    allocated = torch.cuda.memory_allocated(dev) / 1e9
+    assert allocated < EMPTY_CARD_GB, allocated
+    with routes_recorded(L) as routes:
+        prof = profile_decode(cfg, M, dev, batch=2)
+    bound_ms = step_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    # the padded dispatch reads every expert; a step needs only those its tokens chose
+    E = JAMBA_EXPERTS["bf16"]
+    chosen = statistics.mean(int(r.expert[r.keep].unique().numel()) for r in routes)
+    expert_gb = 3 * cfg.d_model * cfg.d_ff * 2 / 1e9                # w_gate, w_up, w_down, bf16
+    needed_gb = step_gb - n_moe * (E - chosen) * expert_gb
+    needed_ms = needed_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    del routes
+    emit({"phase": "jamba_decode_step_profile", "layers": JAMBA_LAYERS, "card": smi,
+          "cuts": cut("bf16"), **prof, "weights_read_gb": step_gb, "bound_ms": bound_ms,
+          "device_ms_over_bound": prof["device_ms_per_step"] / bound_ms,
+          "experts_chosen_per_moe_layer": chosen, "needed_weights_gb": needed_gb,
+          "needed_bound_ms": needed_ms,
+          "device_ms_over_needed_bound": prof["device_ms_per_step"] / needed_ms})
+    print(f"jamba (8 layers, 8 experts, bf16): forward {fwd_s:.3f} s, a mamba layer "
+          f"{mamba_layer['forward']['launches']} launches at S=512 and "
+          f"{mamba_layer['decode_step']['launches']} a decode step, dropped {dropped:.2%} at "
+          f"capacity factor {cfg.moe_capacity_factor}, serving {summary['mean_tps']:.1f} "
+          f"tokens/s, a decode step {prof['device_ms_per_step']:.2f} ms on the card against a "
+          f"bound of {bound_ms:.2f} (padded dispatch) and {needed_ms:.2f} (the experts chosen) "
+          f"({smi})", flush=True)
+    return fwd_counts["flash_attention"], serve_counts["decode_attention"]
+
+
+def profiled(fn) -> tuple[list, float]:
+    """The CUDA kernels of one call of ``fn`` (``torch.profiler``'s
+    ``key_averages`` rows, the step's own range left out) and the call's
+    host ms, from a trace whose active step runs ``fn`` after a warm-up step
+    that runs it too. (A trace without the warm-up step, opened late in the
+    script, missed the first ~10 kernels of the call.)"""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kernels, host_ms = [], []
+
+    def read(prof):
+        kernels.extend(e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.key.startswith("ProfilerStep"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=read) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            prof.step()
+    assert kernels, "the profiler gave no trace"
+    return kernels, host_ms[-1]
+
+
+def kernel_summary(kernels, calls: int = 1) -> dict:
+    """Launches, device ms and the six largest kernels per call, from the
+    kernels that ``profiled`` gives for ``calls`` calls."""
+    biggest = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"launches": sum(e.count for e in kernels) / calls,
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+            "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / calls,
+                             "launches": e.count / calls} for e in biggest]}
 
 
 @contextlib.contextmanager
@@ -1669,39 +1927,32 @@ def serve_reference(serve_mod, M, small, dev) -> bool:
 def profile_decode(cfg, M, dev, batch=4, warm=8, steps=16) -> dict:
     """Where a full-width serving step's time goes: host ms per step
     without the profiler, then a ``torch.profiler`` trace of the same
-    steps for device time, kernel launches and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
+    number of steps (``profiled``) for device time, kernel launches and the
+    top kernels, per step."""
     params = M.init_model(cfg, seed=0, device=dev)
-    cache = M.init_cache(cfg, batch, warm + 2 * steps, device=dev)
-    tok = torch.zeros((batch,), dtype=torch.long, device=dev)
+    cache = M.init_cache(cfg, batch, warm + 3 * steps, device=dev)
+    tok = torch.arange(batch, device=dev)          # each row a sequence of its own
+    pos = 0
 
-    def run(first, n):
-        nonlocal tok
-        for pos in range(first, first + n):
+    def run(n):
+        nonlocal tok, pos
+        for _ in range(n):
             logits, _ = M.decode_step(params, cfg, cache, tok, pos)
             tok = logits.argmax(dim=-1)
+            pos += 1
         torch.cuda.synchronize()
 
-    run(0, warm)
+    run(warm)
     t0 = time.perf_counter()
-    run(warm, steps)
+    run(steps)
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(warm + steps, steps)
-        traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"batch": batch, "cache_len": warm + 2 * steps, "step_ms": step_ms,
-            "traced_step_ms": traced_ms, "device_ms_per_step": device_ms,
-            "device_busy_share": device_ms / step_ms,
-            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-            "top_kernels": [{"name": e.key[:80], "ms_per_step":
-                             e.self_device_time_total / 1e3 / steps,
-                             "launches_per_step": e.count / steps} for e in top]}
+    kernels, traced_ms = profiled(lambda: run(steps))
+    per_step = kernel_summary(kernels, steps)
+    return {"batch": batch, "cache_len": warm + 3 * steps, "step_ms": step_ms,
+            "traced_step_ms": traced_ms / steps, "device_ms_per_step": per_step["device_ms"],
+            "device_busy_share": per_step["device_ms"] / step_ms,
+            "kernel_launches_per_step": per_step["launches"],
+            "top_kernels_per_step": per_step["top_kernels"]}
 
 
 def _headline(case: dict) -> dict:

@@ -8,6 +8,7 @@ decode path, then greedy decode, with the example's injected task failures
 (the engine retries them). Prints the example's three lines.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch jamba_1_5_large_398b --device cpu
 """
 from __future__ import annotations
 

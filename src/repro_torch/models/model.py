@@ -1,25 +1,26 @@
 """Decoder-only LM in PyTorch: init / forward / cache / decode.
 
 Port of ``repro.models.model`` for blocks whose mixer is ``attn``,
-``mlstm`` or ``slstm`` and whose MLP is ``dense``, ``moe`` or absent: the
-``attn+dense`` decoders (smollm, llama3, qwen2, nemotron, chameleon),
-mixtral's ``attn+moe`` blocks (top-k experts with capacity, a sliding
-window whose decode cache rotates) and xLSTM's alternating ``mlstm`` /
-``slstm`` blocks. Parameters keep the reference's pytree as plain
-dictionaries: per pattern position, each leaf stacked over ``n_repeats``
-along a leading axis. ``jax.lax.scan`` over the stack becomes a Python
-loop over the repeats.
+``mamba``, ``mlstm`` or ``slstm`` and whose MLP is ``dense``, ``moe`` or
+absent: the ``attn+dense`` decoders (smollm, llama3, qwen2, nemotron,
+chameleon), mixtral's ``attn+moe`` blocks (top-k experts with capacity, a
+sliding window whose decode cache rotates), jamba's interleave of
+``mamba+dense`` / ``mamba+moe`` blocks with one ``attn+dense`` block per
+eight, and xLSTM's alternating ``mlstm`` / ``slstm`` blocks. Parameters
+keep the reference's pytree as plain dictionaries: per pattern position,
+each leaf stacked over ``n_repeats`` along a leading axis.
+``jax.lax.scan`` over the stack becomes a Python loop over the repeats.
 
 ``loss_fn`` trains every ported block: attention and mLSTM through their
-kernels' autograd Functions, sLSTM's time loop and the MoE MLP through
-autograd. With ``cfg.remat`` set, ``forward`` wraps each superblock (one
-repeat of the whole block pattern) in non-reentrant
+kernels' autograd Functions, mamba, sLSTM's time loop and the MoE MLP
+through autograd. With ``cfg.remat`` set, ``forward`` wraps each
+superblock (one repeat of the whole block pattern) in non-reentrant
 ``torch.utils.checkpoint``, as the reference wraps it in
 ``jax.checkpoint``: only the superblocks' inputs are kept, and the
 backward runs each superblock's forward again.
 
-Mamba and the encoder-decoder raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them.
+The encoder-decoder raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
 
@@ -46,17 +47,16 @@ from repro_torch.models.layers import (
 )
 
 _NOT_PORTED = {
-    "mamba": "ROADMAP.md queue 1 item 7 (recurrent mixers: mamba)",
     "enc_dec": "ROADMAP.md queue 1 item 8 (encoder-decoder)",
 }
-_MIXERS = ("attn", "mlstm", "slstm")
+_MIXERS = ("attn", "mamba", "mlstm", "slstm")
 _MLPS = ("dense", "moe", None)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block's mixer is ported
-    (``attn``, ``mlstm``, ``slstm``) and its MLP is ``dense``, ``moe`` or
-    absent."""
+    (``attn``, ``mamba``, ``mlstm``, ``slstm``) and its MLP is ``dense``,
+    ``moe`` or absent."""
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet; "
@@ -73,9 +73,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block can be trained: its
-    mixer is ``attn``, ``mlstm`` or ``slstm`` and its MLP ``dense``, ``moe``
-    or absent. Every block that ``check_supported`` takes has a backward, so
-    the two checks are one."""
+    mixer is ``attn``, ``mamba``, ``mlstm`` or ``slstm`` and its MLP
+    ``dense``, ``moe`` or absent. Every block that ``check_supported`` takes
+    has a backward, so the two checks are one."""
     check_supported(cfg)
 
 
@@ -83,7 +83,8 @@ def check_trainable(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
-_INIT_MIXER = {"attn": init_attention, "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+_INIT_MIXER = {"attn": init_attention, "mamba": ssm.init_mamba, "mlstm": ssm.init_mlstm,
+               "slstm": ssm.init_slstm}
 
 
 def _init_block(gen: torch.Generator, entry: str, cfg: ModelConfig) -> Params:
@@ -146,6 +147,8 @@ def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> tor
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
         y = attention(bp["mixer"], h, cfg, causal=True)
+    elif mixer == "mamba":
+        y, _ = ssm.mamba(bp["mixer"], h, cfg)
     elif mixer == "mlstm":
         y, _ = ssm.mlstm(bp["mixer"], h, cfg)
     else:
@@ -213,9 +216,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                device: str | torch.device = "cuda") -> list[dict[str, torch.Tensor]]:
     """Zeroed decode state: one entry per pattern position, each leaf stacked
     over n_repeats. Attention: ``{"k", "v"}`` (R, batch, S, K, hd) in the
-    model dtype, S = min(seq_len, sliding_window); mLSTM: ``{"C", "n"}``
-    (R, batch, H, hd, hd) and (R, batch, H, hd) fp32; sLSTM: ``{"c", "h"}``
-    (R, batch, d) fp32."""
+    model dtype, S = min(seq_len, sliding_window); mamba: ``{"conv", "ssm"}``
+    (R, batch, w-1, d_inner) in the model dtype and (R, batch, d_inner, N)
+    fp32; mLSTM: ``{"C", "n"}`` (R, batch, H, hd, hd) and (R, batch, H, hd)
+    fp32; sLSTM: ``{"c", "h"}`` (R, batch, d) fp32."""
     check_supported(cfg)
     dev = resolve_device(device)
     R = cfg.n_repeats
@@ -230,6 +234,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
             shape = (R, batch, _attn_cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
             cache.append({"k": zeros(*shape, dtype=dtype_of(cfg)),
                           "v": zeros(*shape, dtype=dtype_of(cfg))})
+        elif mixer == "mamba":
+            cache.append({"conv": zeros(R, batch, cfg.ssm_conv_width - 1, cfg.d_inner,
+                                        dtype=dtype_of(cfg)),
+                          "ssm": zeros(R, batch, cfg.d_inner, cfg.ssm_state_dim)})
         elif mixer == "mlstm":
             _, H, hd = ssm.mlstm_dims(cfg)
             cache.append({"C": zeros(R, batch, H, hd, hd), "n": zeros(R, batch, H, hd)})
@@ -247,6 +255,10 @@ def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tenso
         rotating = cfg.sliding_window is not None and c["k"].shape[2] <= cfg.sliding_window
         y, _, _ = attention_decode(bp["mixer"], h, c["k"][r], c["v"][r], pos, cfg,
                                    rotating=rotating)
+    elif mixer == "mamba":
+        y, (conv, st) = ssm.mamba(bp["mixer"], h, cfg, state=(c["conv"][r], c["ssm"][r]))
+        c["conv"][r].copy_(conv)
+        c["ssm"][r].copy_(st)
     elif mixer == "mlstm":
         y, (C, n) = ssm.mlstm_decode_step(bp["mixer"], h, cfg, (c["C"][r], c["n"][r]))
         c["C"][r].copy_(C)

@@ -1,12 +1,25 @@
-"""Recurrent mixers in PyTorch: mLSTM and sLSTM (xLSTM).
+"""Recurrent mixers in PyTorch: Mamba (Jamba's SSM), mLSTM and sLSTM (xLSTM).
 
-Port of ``repro.models.ssm`` for the xLSTM blocks. Parameters keep the
-reference's names, layouts, scales and dtypes (gate weights ``wi``,
-``wf`` and ``r_gates`` in fp32); ``init_*`` take an explicit
-``torch.Generator``. Every function carries explicit recurrent state, so
-the same code serves the forward (state zeros, full sequence) and decode
-(state threaded through steps).
+Port of ``repro.models.ssm``. Parameters keep the reference's names,
+layouts, scales and dtypes (mamba's ``dt_bias``, ``A_log`` and ``D`` and
+the xLSTM gate weights ``wi``, ``wf`` and ``r_gates`` in fp32);
+``init_*`` take an explicit ``torch.Generator``. Every function carries
+explicit recurrent state, so the same code serves the forward (state
+zeros, full sequence) and decode (state threaded through steps).
 
+- ``mamba`` is the reference's selective SSM in plain PyTorch, which
+  trains through autograd. The JAX package computes it in jnp (no Pallas
+  kernel), and so does the port: the causal conv as the reference's sum of
+  ``w`` products in the model dtype, the recurrence h_t = a_t·h_{t-1} + b_t
+  in fp32 by ``_mamba_scan_chunked``, a Python loop over chunks of 256 with
+  a log-depth (Hillis–Steele) doubling scan inside each, 8 steps at 256 and
+  none at a decode step's chunk of 1: no loop over time, no host sync.
+  Kernel launches per mamba layer on an H100 (``chip_smoke.py`` phase
+  ``jamba_forward``, jamba-1.5-large's width, bf16): 104 in the forward at
+  B=2 S=512, 67 of them the scan's (per chunk 8 doubling steps of a
+  product, an ``addcmul`` and two ``cat`` copies, and the ``addcmul`` that
+  applies the carried state; one ``cat`` of the two chunks); 34 in one
+  decode step.
 - ``mlstm`` computes the reference's projections and gates and runs the
   chunkwise recurrence through ``ops.mlstm_chunk``: the hand-written CUDA
   kernels (forward and backward) on the card, their plain versions on the
@@ -14,7 +27,6 @@ the same code serves the forward (state zeros, full sequence) and decode
 - ``slstm`` is a Python loop over time in plain PyTorch, which trains
   through autograd: its recurrence is sequential and the JAX package has no
   kernel for it.
-- Mamba (Jamba's mixer) is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,17 +37,112 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, _init, dtype_of
 
+MAMBA_CHUNK = 256
 MLSTM_CHUNK = 256  # the reference's chunk, kept for its S % chunk assertion
 
-_MAMBA = "ROADMAP.md queue 1 item 7 (recurrent mixers: mamba)"
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM), Jamba's mixer
+# ---------------------------------------------------------------------------
+
+def mamba_dt_rank(cfg: ModelConfig) -> int:
+    return max(1, cfg.d_model // 16)
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    raise NotImplementedError(f"{cfg.name}: mamba is not ported yet; {_MAMBA} brings it")
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim
+    dt_rank = mamba_dt_rank(cfg)
+    w = cfg.ssm_conv_width
+    dt = dtype_of(cfg)
+    dev = gen.device
+    return {
+        "in_proj": _init(gen, (d, 2 * di), d ** -0.5, dt),
+        "conv_w": _init(gen, (w, di), w ** -0.5, dt),
+        "conv_b": torch.zeros((di,), dtype=dt, device=dev),
+        "x_proj": _init(gen, (di, dt_rank + 2 * n), di ** -0.5, dt),
+        "dt_proj": _init(gen, (dt_rank, di), dt_rank ** -0.5, dt),
+        "dt_bias": torch.full((di,), -4.6, dtype=torch.float32, device=dev),  # softplus≈0.01
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev)).repeat(di, 1),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": _init(gen, (di, d), di ** -0.5, dt),
+    }
 
 
-def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
-    raise NotImplementedError(f"{cfg.name}: mamba is not ported yet; {_MAMBA} brings it")
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along axis 1 under (a_l, b_l)∘(a_r, b_r) = (a_l·a_r,
+    b_l·a_r + b_r): after step s each position holds the composition of the
+    2^s positions ending at it (Hillis–Steele), ⌈log₂ n⌉ steps of four
+    launches each."""
+    n, s = a.shape[1], 1
+    while s < n:
+        a, b = (torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1),
+                torch.cat([b[:, :s], torch.addcmul(b[:, s:], b[:, :-s], a[:, s:])], dim=1))
+        s *= 2
+    return a, b
+
+
+def _mamba_scan_chunked(deltaA: torch.Tensor, deltaBu: torch.Tensor,
+                        h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = deltaA_t * h_{t-1} + deltaBu_t, scanned over axis 1 (seq).
+
+    deltaA, deltaBu: (B, S, di, N); h0: (B, di, N). Returns (hs, h_last).
+    A Python loop over chunks of ``min(MAMBA_CHUNK, S)`` carries h; inside a
+    chunk ``_doubling_scan`` composes the steps. Raises ``ValueError`` unless
+    the chunk divides S (the reference asserts it)."""
+    S = deltaA.shape[1]
+    chunk = min(MAMBA_CHUNK, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the scan's chunk {chunk}")
+    h, hs = h0, []
+    for c0 in range(0, S, chunk):
+        a, b = _doubling_scan(deltaA[:, c0:c0 + chunk], deltaBu[:, c0:c0 + chunk])
+        hc = torch.addcmul(b, a, h[:, None])                 # (B, chunk, di, N)
+        hs.append(hc)
+        h = hc[:, -1]
+    return (hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)), h
+
+
+def mamba(
+    p: Params,
+    x: torch.Tensor,                   # (B, S, d)
+    cfg: ModelConfig,
+    state: tuple[torch.Tensor, torch.Tensor] | None = None,
+    # state = (conv_state (B, w-1, di) model dtype, ssm_state (B, di, N) fp32)
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    B, S, _ = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state_dim
+    w = cfg.ssm_conv_width
+    dt_rank = mamba_dt_rank(cfg)
+
+    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)         # (B, S, di) each
+    if state is None:
+        conv_state = torch.zeros((B, w - 1, di), dtype=xin.dtype, device=x.device)
+        ssm_state = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
+    else:
+        conv_state, ssm_state = state
+
+    # causal depthwise conv, width w: the reference's sum of w products in
+    # the model dtype, in its order
+    xpad = torch.cat([conv_state, xin], dim=1)           # (B, S+w-1, di)
+    conv = xpad[:, :S] * p["conv_w"][0]
+    for i in range(1, w):
+        conv = conv + xpad[:, i:i + S] * p["conv_w"][i]
+    conv = conv + p["conv_b"]
+    new_conv_state = xpad[:, S:]                         # the last w-1 rows
+    u = F.silu(conv)                                     # (B, S, di)
+
+    dt_in, Bm, Cm = (u @ p["x_proj"]).split([dt_rank, n, n], dim=-1)
+    delta = F.softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])                           # (di, N)
+    uf = u.float()
+    deltaA = torch.exp(delta[..., None] * A)             # (B, S, di, N)
+    deltaBu = (delta * uf)[..., None] * Bm.float()[:, :, None, :]
+    hs, h_last = _mamba_scan_chunked(deltaA, deltaBu, ssm_state)
+    del deltaA, deltaBu                                  # 2 x 4·B·S·di·N bytes
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cm.float())    # (B, S, di)
+    y = y + uf * p["D"]
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], (new_conv_state, h_last)
 
 
 # ---------------------------------------------------------------------------

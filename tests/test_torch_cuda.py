@@ -27,7 +27,10 @@ the forward's output as it was, to the bit. A reduced f32
 model's train step on the card (smollm, and xLSTM with and without
 ``remat``): loss 1e-4, params 2e-3 against the same step on the CPU. The
 MoE MLP on the card against the same call on the CPU (f32, with dropped
-assignments): the same routing, rel 1e-5. The paper's
+assignments): the same routing, rel 1e-5. The mamba mixer (plain
+PyTorch) at d_model 1024 on the card against the same call on the CPU (f32,
+S=512, a non-zero state): output and both states rel 1e-5; stepped one
+token at a time there against its forward, rel 1e-3. The paper's
 workloads (``repro_torch.apps``, library payloads) on the card: each within
 ``launch.apps``'s limits of its float64 reference there, with the same
 ``charged_ms`` and ``kv_stats`` as on the CPU.
@@ -53,6 +56,7 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels import mlstm_chunk as mlstm_kernel
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import ssm
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime.train import build_train_step, synthetic_batch
 from repro_torch.tree import leaves, map_tree
@@ -525,6 +529,55 @@ def test_moe_mlp_on_card_equals_cpu(cuda):
     rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
     assert rel < 1e-5, rel
     assert torch.equal(got, L.moe_mlp(pg, xg, cfg))
+
+
+def _mamba_case(S, seed=0):
+    """Reduced jamba at d_model 1024 (d_inner 2048, the published N = 16) in
+    f32: mixer params, an input (2, S, 1024) and a non-zero state."""
+    cfg = dataclasses.replace(reduced(get_config("jamba_1_5_large_398b")), d_model=1024,
+                              ssm_state_dim=16)
+    gen = torch.Generator().manual_seed(seed)
+    p = ssm.init_mamba(gen, cfg)
+    x = torch.randn((2, S, cfg.d_model), generator=gen)
+    state = (torch.randn((2, cfg.ssm_conv_width - 1, cfg.d_inner), generator=gen),
+             torch.randn((2, cfg.d_inner, cfg.ssm_state_dim), generator=gen) * 0.5)
+    return cfg, p, x, state
+
+
+def _rel(got, want):
+    return ((got.cpu().double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_mamba_on_card_equals_cpu(cuda):
+    """The mamba mixer (plain PyTorch: conv, projections, the chunked
+    doubling scan) at S=512, two chunks, from a non-zero state: output and
+    both returned states on the card within rel 1e-5 of the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x, state = _mamba_case(512)
+    want_y, (want_conv, want_ssm) = ssm.mamba(p, x, cfg, state=state)
+    got_y, (got_conv, got_ssm) = ssm.mamba(map_tree(lambda t: t.to(cuda), p), x.to(cuda), cfg,
+                                           state=tuple(t.to(cuda) for t in state))
+    for got, want in ((got_y, want_y), (got_conv, want_conv), (got_ssm, want_ssm)):
+        assert got.device.type == cuda.type and got.shape == want.shape
+        assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mamba_decode_on_card_matches_its_forward(cuda):
+    """64 single-token calls on the card (the decode step's chunk of 1)
+    against one forward over the same 64 tokens there: rel < 1e-3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x, state = _mamba_case(64, seed=1)
+    p, x = map_tree(lambda t: t.to(cuda), p), x.to(cuda)
+    state = tuple(t.to(cuda) for t in state)
+    full, (conv_f, ssm_f) = ssm.mamba(p, x, cfg, state=state)
+    ys = []
+    for t in range(64):
+        y, state = ssm.mamba(p, x[:, t:t + 1], cfg, state=state)
+        ys.append(y)
+    assert _rel(torch.cat(ys, dim=1), full.cpu()) < 1e-3
+    assert _rel(state[0], conv_f.cpu()) < 1e-3 and _rel(state[1], ssm_f.cpu()) < 1e-3
 
 
 # The paper's workloads (repro_torch.apps) on the card: library payloads

@@ -1,8 +1,8 @@
 """The port's entry points on the CPU: ``repro_torch.launch.quickstart``
 against ``examples/quickstart.py``, ``repro_torch.launch.train_lm`` for
-smollm and xLSTM, and ``repro_torch.launch.serve_lm`` (reduced mixtral-8x7b)
-against ``examples/serve_lm.py`` and a greedy loop over the JAX package's
-``decode_step``.
+smollm and xLSTM, and ``repro_torch.launch.serve_lm`` (reduced mixtral-8x7b
+and jamba-1.5-large) against ``examples/serve_lm.py`` and a greedy loop
+over the JAX package's ``decode_step``.
 
 The quickstart prints the same lines as the JAX package's: every line,
 since none carries a wall-clock value (the engine's default virtual clock
@@ -79,19 +79,24 @@ SERVED = re.compile(r"served in \d+\.\ds  mean decode throughput \d+\.\d tok/s  
                     r"p99 latency \d+\.\d\ds")
 
 
-def test_serve_lm_prints_the_example_lines(monkeypatch):
-    """The example's defaults and lines. The example itself prints its first
-    two and then raises ``KeyError``: it reads ``request-0`` from the job's
-    results, which hold only the job's root (the summary); the port takes
-    request 0's tokens from the summary."""
-    monkeypatch.setattr(sys, "argv", ["serve_lm.py"])
+@pytest.mark.parametrize("flags,name", [
+    pytest.param([], "mixtral-8x7b", id="default"),
+    # reduced jamba: mamba, one attention layer per eight, MoE on alternate layers
+    pytest.param(["--arch", "jamba_1_5_large_398b"], "jamba-1.5-large-398b", id="jamba"),
+])
+def test_serve_lm_prints_the_example_lines(monkeypatch, flags, name):
+    """The example's lines for the same flags. The example itself prints its
+    first two and then raises ``KeyError``: it reads ``request-0`` from the
+    job's results, which hold only the job's root (the summary); the port
+    takes request 0's tokens from the summary."""
+    monkeypatch.setattr(sys, "argv", ["serve_lm.py", *flags])
     out = io.StringIO()
     with contextlib.redirect_stdout(out), pytest.raises(KeyError, match="request-0"):
         example("serve_lm").main()
     want = out.getvalue().splitlines()
-    got = printed(lambda: serve_lm.main(["--device", "cpu"]))
+    got = printed(lambda: serve_lm.main([*flags, "--device", "cpu"]))
     assert len(want) == 2 and len(got) == 3
-    assert got[0] == want[0] == "arch=mixtral-8x7b requests=4 batch=2 gen=16"
+    assert got[0] == want[0] == f"arch={name} requests=4 batch=2 gen=16"
     assert SERVED.fullmatch(got[1]) and SERVED.fullmatch(want[1]), (got[1], want[1])
     head, tokens = got[2].split(": ")
     assert head == "sample continuation (req 0, seq 0)"

@@ -27,14 +27,17 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["smollm_360m", "llama3_405b", "qwen2_72b", "nemotron_4_340b", "chameleon_34b",
          "smollm_360m_g3", "smollm_360m_window8", "xlstm_350m", "nemotron_4_340b_hd192",
-         "mixtral_8x7b", "mixtral_8x22b", "mixtral_8x7b_window8"]
+         "mixtral_8x7b", "mixtral_8x22b", "mixtral_8x7b_window8", "jamba_1_5_large_398b_8layers"]
 B, S = 2, 16
 
 
 def configs(arch):
     """(JAX config, port config) of one reduced case."""
-    base = arch.split("_g3")[0].split("_window8")[0].split("_hd192")[0]
+    base = arch.split("_g3")[0].split("_window8")[0].split("_hd192")[0].split("_8layers")[0]
     jcfg, tcfg = jax_reduced(jax_get_config(base)), reduced(get_config(base))
+    if arch.endswith("_8layers"):   # one period of jamba's pattern (JAX marks 16 layers slow)
+        jcfg = dataclasses.replace(jcfg, n_layers=8)
+        tcfg = dataclasses.replace(tcfg, n_layers=8)
     if arch.endswith("_hd192"):     # nemotron-4-340b's real head dim, 18432 / 96
         jcfg = dataclasses.replace(jcfg, head_dim=192)
         tcfg = dataclasses.replace(tcfg, head_dim=192)
@@ -153,9 +156,7 @@ def _flatten(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("jamba_1_5_large_398b", "item 7"), ("whisper_large_v3", "item 8"),
-])
+@pytest.mark.parametrize("arch,item", [("whisper_large_v3", "item 8")])
 def test_unported_blocks_raise_with_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         M.init_model(reduced(get_config(arch)), device="cpu")
