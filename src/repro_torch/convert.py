@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, resolve_device
-from repro_torch.models.model import check_supported
+from repro_torch.models.model import MAX_ABS_POS, check_supported
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -47,7 +47,11 @@ def params_from_jax(tree: Params, cfg: ModelConfig, *,
                     device: str | torch.device = "cuda") -> Params:
     """The reference's params (leaves as numpy) -> the port's params on
     ``device``. Checks the embedding, and that every leaf of every block
-    stack has ``n_repeats`` along its leading axis, against ``cfg``."""
+    stack has ``n_repeats`` along its leading axis, against ``cfg``; for the
+    encoder-decoder also that every leaf of ``enc_blocks`` has
+    ``n_enc_layers`` along its leading axis, that ``dec_pos`` is
+    (MAX_ABS_POS, d_model), and that the decoder blocks carry ``cross`` and
+    ``cross_norm`` exactly when ``cfg.enc_dec``."""
     check_supported(cfg)
     p = _convert(tree, resolve_device(device))
     if tuple(p["embed"].shape) != (cfg.vocab, cfg.d_model):
@@ -55,11 +59,25 @@ def params_from_jax(tree: Params, cfg: ModelConfig, *,
     if len(p["blocks"]) != cfg.pattern_period:
         raise ValueError(f"{len(p['blocks'])} block stacks, pattern period "
                          f"{cfg.pattern_period}")
+    stacks = [(f"block stack {i}", block, "n_repeats", cfg.n_repeats)
+              for i, block in enumerate(p["blocks"])]
+    if cfg.enc_dec:
+        missing = {"enc_blocks", "enc_norm", "dec_pos"} - set(p)
+        if missing:
+            raise ValueError(f"encoder-decoder params lack {sorted(missing)}")
+        stacks.append(("enc_blocks", p["enc_blocks"], "n_enc_layers", cfg.n_enc_layers))
+        if tuple(p["dec_pos"].shape) != (MAX_ABS_POS, cfg.d_model):
+            raise ValueError(f"dec_pos {tuple(p['dec_pos'].shape)} != "
+                             f"{(MAX_ABS_POS, cfg.d_model)}")
     for i, block in enumerate(p["blocks"]):
+        cross = sorted({"cross", "cross_norm"} & set(block))
+        if cross != (["cross", "cross_norm"] if cfg.enc_dec else []):
+            raise ValueError(f"block stack {i} has {cross} with enc_dec={cfg.enc_dec}")
+    for where, block, axis, n in stacks:
         for name, leaf in _leaves(block):
-            if leaf.dim() == 0 or leaf.shape[0] != cfg.n_repeats:
-                raise ValueError(f"block stack {i} leaf {name} {tuple(leaf.shape)} is not "
-                                 f"stacked over n_repeats {cfg.n_repeats}")
+            if leaf.dim() == 0 or leaf.shape[0] != n:
+                raise ValueError(f"{where} leaf {name} {tuple(leaf.shape)} is not "
+                                 f"stacked over {axis} {n}")
     if cfg.tie_embeddings == ("lm_head" in p):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but lm_head "
                          f"{'present' if 'lm_head' in p else 'absent'}")

@@ -6,13 +6,16 @@
 // sends here: f32 at every head dim (16, 32, 64, 128, 192) and bf16 at hd 16
 // and 32; bf16 at hd 64, 128 and 192 runs on the tensor cores
 // (flash_attention_wgmma.cu). It computes
-// softmax(q·kᵀ·hd^-½ + mask)·v for q (B,S,H,hd), k/v (B,S,K,hd), where
+// softmax(q·kᵀ·hd^-½ + mask)·v for q (B,Sq,H,hd), k/v (B,Skv,K,hd), where
 // query head h reads kv head h / (H/K); masks col <= row (causal) and
-// col > row - window (window), and, unlike the TPU kernel, col < S: a
-// ragged S needs no padding. Masked logits are -1e30, the denominator is
+// col > row - window (window), and, unlike the TPU kernel, col < Skv: a
+// ragged Skv needs no padding, and rows past a ragged Sq are neither read
+// nor written. Sq != Skv (cross-attention, which the TPU kernel cannot take:
+// it reads its length from q) comes without a mask; the wrapper refuses a
+// causal or window mask there. Masked logits are -1e30, the denominator is
 // clamped at 1e-30, the output has q's type. When the caller passes an
 // lse buffer (training), each row's log-sum-exp ln Σ exp(q·k·sm_scale) goes
-// to it in fp32, (B, H, S), for the backward.
+// to it in fp32, (B, H, Sq), for the backward.
 //
 // What bounds it on the H100: at long S the work is q·kᵀ and p·v,
 // 4·S²·hd FLOPs per head (halved by the causal mask) against
@@ -60,7 +63,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int S, int H, int K, int causal, int window, float sm_scale) {
+                 int Sq, int Skv, int H, int K, int causal, int window, float sm_scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * (HD + 1);
@@ -77,12 +80,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / K);
   const size_t q_row = (size_t)H * HD;   // stride between sequence positions
   const size_t kv_row = (size_t)K * HD;
-  const T* qb = q + (size_t)b * S * q_row + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * kv_row + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * S * kv_row + (size_t)kh * HD;
-  T* ob = o + (size_t)b * S * q_row + (size_t)h * HD;
+  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * HD;
+  const T* kb = k + (size_t)b * Skv * kv_row + (size_t)kh * HD;
+  const T* vb = v + (size_t)b * Skv * kv_row + (size_t)kh * HD;
+  T* ob = o + (size_t)b * Sq * q_row + (size_t)h * HD;
 
-  load_rows<T, HD, BQ, THREADS>(Qs, HD + 1, qb, q_row, q0, S);
+  load_rows<T, HD, BQ, THREADS>(Qs, HD + 1, qb, q_row, q0, Sq);
 
   float m[TR], l[TR], acc[TR][HD / 8];
 #pragma unroll
@@ -93,13 +96,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < HD / 8; ++j) acc[i][j] = 0.f;
   }
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // previous tile fully consumed (and Qs written)
-    load_rows<T, HD, BK, THREADS>(Ks, HD + 1, kb, kv_row, k0, S);
-    load_rows<T, HD, BK, THREADS>(Vs, HD, vb, kv_row, k0, S);  // zeros past S: p·v stays finite
+    load_rows<T, HD, BK, THREADS>(Ks, HD + 1, kb, kv_row, k0, Skv);
+    load_rows<T, HD, BK, THREADS>(Vs, HD, vb, kv_row, k0, Skv);  // zeros past Skv: p·v finite
     __syncthreads();
 
     float s[TR][TC];
@@ -128,7 +131,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
         const int col = k0 + cg + 8 * j;
-        valid[j] = col < S && (!causal || col <= row) &&
+        valid[j] = col < Skv && (!causal || col <= row) &&
                    (window <= 0 || col > row - window);
         s[i][j] = valid[j] ? s[i][j] * sm_scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -173,10 +176,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int row = q0 + rg * TR + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     if (lse != nullptr && cg == 0)
-      lse[((size_t)b * H + h) * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
+      lse[((size_t)b * H + h) * Sq + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       ob[row * q_row + cg + 8 * j] = from_f32<T>(acc[i][j] * inv);
@@ -185,16 +188,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int S, int H, int K, int causal, int window, float sm_scale,
-                   cudaStream_t stream) {
+                   int B, int Sq, int Skv, int H, int K, int causal, int window,
+                   float sm_scale, cudaStream_t stream) {
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, K, causal, window,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, K, causal, window,
       sm_scale);
   return cudaGetLastError();
 }
@@ -202,37 +205,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // bf16 at hd 64, 128 and 192 is flash_attention_wgmma.cu's
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
-                        int B, int S, int H, int K, int hd, int causal,
+                        int B, int Sq, int Skv, int H, int K, int hd, int causal,
                         int window, float sm_scale, cudaStream_t st) {
+#define REPRO_LAUNCH(HD) \
+  launch<T, HD>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window, sm_scale, st)
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
+    case 16: return REPRO_LAUNCH(16);
+    case 32: return REPRO_LAUNCH(32);
   }
   if constexpr (std::is_same_v<T, float>) {
-    if (hd == 64) return launch<T, 64>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
-    if (hd == 128) return launch<T, 128>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
-    if (hd == 192) return launch<T, 192>(q, k, v, o, lse, B, S, H, K, causal, window, sm_scale, st);
+    if (hd == 64) return REPRO_LAUNCH(64);
+    if (hd == 128) return REPRO_LAUNCH(128);
+    if (hd == 192) return REPRO_LAUNCH(192);
   }
+#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd), all contiguous, one dtype.
-// lse: null, or fp32 (B,H,S) that receives each row's log-sum-exp.
-// window <= 0 means no window. Returns cudaGetLastError() after the launch.
+// q (B,Sq,H,hd), k/v (B,Skv,K,hd), o (B,Sq,H,hd), all contiguous, one dtype.
+// lse: null, or fp32 (B,H,Sq) that receives each row's log-sum-exp.
+// window <= 0 means no window; a causal or window mask needs Sq == Skv.
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int dtype, int B, int S, int H,
-                                   int K, int hd, int causal, int window,
+                                   void* o, void* lse, int dtype, int B, int Sq, int Skv,
+                                   int H, int K, int hd, int causal, int window,
                                    float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  if ((causal || window > 0) && Sq != Skv) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(q, k, v, o, l, B, S, H, K, hd, causal, window, sm_scale, st);
+    return dispatch_hd<float>(q, k, v, o, l, B, Sq, Skv, H, K, hd, causal, window, sm_scale,
+                              st);
   if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, l, B, S, H, K, hd, causal, window, sm_scale,
-                                      st);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, o, l, B, Sq, Skv, H, K, hd, causal, window,
+                                      sm_scale, st);
   return cudaErrorInvalidValue;
 }
 

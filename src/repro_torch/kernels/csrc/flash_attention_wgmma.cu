@@ -9,14 +9,17 @@
 // chameleon, mixtral) or 192 (nemotron-4-340b: 18432 / 96). Every other
 // dtype and head dim runs the FMA kernel
 // in flash_attention.cu (f32 has no tensor-core path within its 2e-5
-// tolerance). It computes softmax(q·kᵀ·hd^-½ + mask)·v for q (B,S,H,hd),
-// k/v (B,S,K,hd), query head h reading kv head h / (H/K), with the masks
-// col <= row (causal), col > row - window (window) and col < S (a ragged S
-// needs no padding). Masked logits are -1e30, the denominator is clamped
-// at 1e-30, probabilities are rounded to bf16 before p·v as in the plain
-// version.
+// tolerance). It computes softmax(q·kᵀ·hd^-½ + mask)·v for q (B,Sq,H,hd),
+// k/v (B,Skv,K,hd), query head h reading kv head h / (H/K), with the masks
+// col <= row (causal), col > row - window (window) and col < Skv (a ragged
+// Skv needs no padding; rows past a ragged Sq are not written). Sq != Skv
+// is cross-attention (whisper's decoder over its 1500 encoder frames, which
+// the TPU kernel cannot take: it reads its length from q) and comes without
+// a mask; the wrapper refuses a causal or window mask there. Masked logits
+// are -1e30, the denominator is clamped at 1e-30, probabilities are rounded
+// to bf16 before p·v as in the plain version.
 //
-// The log-sum-exp (lse, fp32, (B, H, S)) is written when the caller passes
+// The log-sum-exp (lse, fp32, (B, H, Sq)) is written when the caller passes
 // a buffer for it (training), in natural-log units of the scaled logits:
 // lse = ln Σ_col exp(q·k·sm_scale), so p = exp(q·k·sm_scale - lse). The
 // kernel keeps its running max m in raw q·k units and sums base-2
@@ -38,8 +41,8 @@
 //   swizzled to match the wgmma descriptors, each load completing on an
 //   mbarrier; K and V have their own barriers, so q·kᵀ starts while V is
 //   still in flight;
-// - q/k/v are 4-D tensor maps (hd, heads, S, B): a tile that runs past S
-//   reads zeros, never the next sequence's rows;
+// - q/k/v are 4-D tensor maps (hd, heads, Sq or Skv, B): a tile that runs
+//   past its length reads zeros, never the next sequence's rows;
 // - two consumer warpgroups own 64 query rows each and share every K/V
 //   tile; the producer's warpgroup hands them its registers (setmaxnreg),
 //   so that hd 192's 96 accumulators a thread do not spill. Under a plain causal mask, when the whole grid is resident at
@@ -50,7 +53,7 @@
 //   p·v of tile j-1 together, and the softmax of tile j runs on the CUDA
 //   cores while p·v of tile j-1 runs on the tensor cores. The softmax
 //   keeps the running max in raw units, so each p is one FFMA and one
-//   ex2; only tiles crossing the diagonal, the window's edge or S test
+//   ex2; only tiles crossing the diagonal, the window's edge or Skv test
 //   elements; a row's max and sum live in the 4 threads that hold it in
 //   the accumulator fragment (two shuffles);
 // - kv tiles past the causal diagonal or before the window are not loaded,
@@ -99,14 +102,14 @@ template <int BK, bool MASKED>
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float& m_lo, float& m_hi,
                                                float& l_lo, float& l_hi, float& a_lo,
                                                float& a_hi, int k0, int r_lo, int r_hi,
-                                               int quad, int S, int causal, int window,
+                                               int quad, int Skv, int causal, int window,
                                                float scale) {
   if constexpr (MASKED) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int col = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
       const int row = (i & 2) ? r_hi : r_lo;
-      const bool ok = col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
+      const bool ok = col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
       sc[i] = ok ? sc[i] : kNegInf;
     }
   }
@@ -144,17 +147,18 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float& m_lo,
 }
 
 // A tile needs masking where it crosses the diagonal, the window's edge or
-// S; the others take the softmax without a per-element test.
+// Skv; the others take the softmax without a per-element test.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float& m_lo, float& m_hi,
                                              float& l_lo, float& l_hi, float& a_lo, float& a_hi,
                                              int k0, int row0, int r_lo, int r_hi, int quad,
-                                             int S, int causal, int window, float scale) {
-  if (k0 + BK > S || (causal && k0 + BK - 1 > row0) || (window > 0 && k0 < row0 + 64 - window))
-    online_softmax<BK, true>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, k0, r_lo, r_hi, quad, S,
+                                             int Skv, int causal, int window, float scale) {
+  if (k0 + BK > Skv || (causal && k0 + BK - 1 > row0) ||
+      (window > 0 && k0 < row0 + 64 - window))
+    online_softmax<BK, true>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, k0, r_lo, r_hi, quad, Skv,
                              causal, window, scale);
   else
-    online_softmax<BK, false>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, k0, r_lo, r_hi, quad, S,
+    online_softmax<BK, false>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, k0, r_lo, r_hi, quad, Skv,
                               causal, window, scale);
 }
 
@@ -164,8 +168,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   float* __restrict__ lse, int S, int H, int K, int causal, int window,
-                   int paired, float scale_log2) {
+                   float* __restrict__ lse, int Sq, int Skv, int H, int K, int causal,
+                   int window, int paired, float scale_log2) {
   using Sm = Smem<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -182,14 +186,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   // the middle of an odd nq: the second warpgroup then has no rows).
   // Otherwise the block takes two neighbouring tiles, the heaviest blocks
   // first, so that the lighter ones fill the SMs that finish early.
-  const int nq = (S + 63) / 64;
+  const int nq = (Sq + 63) / 64;
   const int y = paired ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
   const int tile0 = paired ? y : 2 * y;
   const int tile1 = paired ? nq - 1 - y : 2 * y + 1;
   const bool live1 = tile1 < nq && tile1 != tile0;
   auto kv_from = [&](int t) { return window > 0 ? max(0, 64 * t - window + 1) : 0; };
-  auto kv_to = [&](int t) { return causal ? min(S, 64 * t + 64) : S; };
-  const int kv_begin = min(kv_from(tile0), live1 ? kv_from(tile1) : S) / BK * BK;
+  auto kv_to = [&](int t) { return causal ? min(Skv, 64 * t + 64) : Skv; };
+  const int kv_begin = min(kv_from(tile0), live1 ? kv_from(tile1) : Skv) / BK * BK;
   const int kv_end = max(kv_to(tile0), live1 ? kv_to(tile1) : 0);
   const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
 
@@ -281,7 +285,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile<BK>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kv_begin + it_lo * BK, row0, r_lo,
-                     r_hi, lane % 4, S, causal, window, scale_log2);
+                     r_hi, lane % 4, Skv, causal, window, scale_log2);
     // acc is still zero: nothing to rescale
     to_a_operand(sc, pa);
     // steady state: q·kᵀ of tile it and p·v of tile it-1 are issued
@@ -295,7 +299,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       wgmma_wait<1>();  // q·kᵀ of tile it is done
       fence_regs(sc);
       softmax_tile<BK>(sc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kv_begin + it * BK, row0, r_lo,
-                       r_hi, lane % 4, S, causal, window, scale_log2);
+                       r_hi, lane % 4, Skv, causal, window, scale_log2);
       wgmma_wait<0>();  // p·v of tile it-1 is done: its stage can be refilled
       fence_regs(acc);
       release(it - 1);
@@ -324,16 +328,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
   if (lse != nullptr && lane % 4 == 0) {  // one thread of the row's quad
-    float* lb = lse + ((size_t)b * H + h) * S;
-    if (r_lo < S) lb[r_lo] = fmaf(m_lo, scale_log2, log2f(fmaxf(l_lo, 1e-30f))) * kLn2;
-    if (r_hi < S) lb[r_hi] = fmaf(m_hi, scale_log2, log2f(fmaxf(l_hi, 1e-30f))) * kLn2;
+    float* lb = lse + ((size_t)b * H + h) * Sq;
+    if (r_lo < Sq) lb[r_lo] = fmaf(m_lo, scale_log2, log2f(fmaxf(l_lo, 1e-30f))) * kLn2;
+    if (r_hi < Sq) lb[r_hi] = fmaf(m_hi, scale_log2, log2f(fmaxf(l_hi, 1e-30f))) * kLn2;
   }
   const size_t row_stride = (size_t)H * HD;
-  __nv_bfloat16* ob = o + (size_t)b * S * row_stride + (size_t)h * HD;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * row_stride + (size_t)h * HD;
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int row = (i & 2) ? r_hi : r_lo;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = (i & 2) ? inv_hi : inv_lo;
     const int col = 8 * (i / 4) + 2 * (lane % 4);
     *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
@@ -345,11 +349,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int S, int H, int K, int causal, int window, float sm_scale,
+                   int Sq, int Skv, int H, int K, int causal, int window, float sm_scale,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, S, H, HD, 64) || !make_map(&tk, k, B, S, K, HD, BK) ||
-      !make_map(&tv, v, B, S, K, HD, BK))
+  if (!make_map(&tq, q, B, Sq, H, HD, 64) || !make_map(&tk, k, B, Skv, K, HD, BK) ||
+      !make_map(&tv, v, B, Skv, K, HD, BK))
     return cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem<HD>) + 1024;  // + room to align the base to 1024
   // once each, as they cost host time: the shared-memory limit, and how
@@ -364,29 +368,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_wgmma_kernel<HD>, THREADS, smem);
     return (long)sms * per_sm;
   }();
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);  // pairs of 64-row q tiles
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);  // pairs of 64-row q tiles
   const int paired = causal && window <= 0 && (long)grid.x * grid.y <= resident;
   flash_wgmma_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, K, causal, window, paired,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, K, causal, window, paired,
       sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B,S,H,hd), k/v (B,S,K,hd), o (B,S,H,hd): bf16, contiguous, 16-byte
-// aligned; hd 64, 128 or 192. lse: null, or fp32 (B,H,S) that receives each
-// row's log-sum-exp. window <= 0 means no window. Returns
-// cudaGetLastError() after the launch.
+// q (B,Sq,H,hd), k/v (B,Skv,K,hd), o (B,Sq,H,hd): bf16, contiguous, 16-byte
+// aligned; hd 64, 128 or 192. lse: null, or fp32 (B,H,Sq) that receives each
+// row's log-sum-exp. window <= 0 means no window; a causal or window mask
+// needs Sq == Skv. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
-                                         void* lse, int B, int S, int H, int K, int hd,
-                                         int causal, int window, float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+                                         void* lse, int B, int Sq, int Skv, int H, int K,
+                                         int hd, int causal, int window, float sm_scale,
+                                         void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  if ((causal || window > 0) && Sq != Skv) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (hd == 64) return launch<64>(q, k, v, o, l, B, S, H, K, causal, window, sm_scale, st);
-  if (hd == 128) return launch<128>(q, k, v, o, l, B, S, H, K, causal, window, sm_scale, st);
-  if (hd == 192) return launch<192>(q, k, v, o, l, B, S, H, K, causal, window, sm_scale, st);
+#define REPRO_LAUNCH(HD) launch<HD>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, sm_scale, st)
+  if (hd == 64) return REPRO_LAUNCH(64);
+  if (hd == 128) return REPRO_LAUNCH(128);
+  if (hd == 192) return REPRO_LAUNCH(192);
+#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 

@@ -2,9 +2,11 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``. Causal
 and sliding-window masks, GQA (query head h reads kv head h // (H/K)), a
-ragged S masked in the kernel (no padding), fp32 softmax and accumulator,
-output in q's dtype, head dims 16, 32, 64, 128 and 192. The dtype and head
-dim alone choose the kernels (``uses_tensor_cores``):
+ragged length masked in the kernel (no padding), fp32 softmax and
+accumulator, output in q's dtype, head dims 16, 32, 64, 128 and 192. The
+forward also takes queries and keys of different lengths, Sq != Skv
+(cross-attention), without a mask; the backward takes Sq == Skv only. The
+dtype and head dim alone choose the kernels (``uses_tensor_cores``):
 
 - bf16 at hd 64, 128 or 192 runs on the tensor cores: the forward in
   ``csrc/flash_attention_wgmma.cu``, the backward in
@@ -29,13 +31,16 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 192)
 WGMMA_HEAD_DIMS = (64, 128, 192)  # bf16 head dims of the tensor-core kernels
 
+# where the backward at Sq != Skv (cross-attention's) is planned
+BWD_CROSS_ROADMAP = "ROADMAP.md queue 1 item 8 (training the encoder-decoder)"
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _fn():
     fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -43,7 +48,7 @@ def _fn():
 @functools.cache
 def _wgmma_fn():
     fn = _build.library("flash_attention_wgmma").flash_attention_wgmma_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -70,13 +75,15 @@ def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None,
-           **more: torch.Tensor) -> None:
-    """Raise unless q (B,S,H,hd), k/v (B,S,K,hd) and ``more`` (each shaped
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int | None, **more: torch.Tensor) -> None:
+    """Raise unless q (B,Sq,H,hd), k/v (B,Skv,K,hd) and ``more`` (each shaped
     like q) are what the kernels take: one CUDA device, one dtype,
-    contiguous and 16-byte aligned, a head dim and window they support."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
+    contiguous and 16-byte aligned, a head dim and window they support, and
+    no causal or window mask where Sq != Skv (the reference masks only
+    self-attention)."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     dev = q.get_device()
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not t.is_cuda or t.get_device() != dev:
@@ -89,14 +96,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"flash_attention: dtype {q.dtype} not in {list(DTYPES)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    if k.shape != (B, S, K, hd) or v.shape != k.shape or K == 0 or H % K:
+    if k.shape != (B, Skv, K, hd) or v.shape != k.shape or Skv == 0 or K == 0 or H % K:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: need k = v = (B,S,K,hd), K | H")
+                         f"v {tuple(v.shape)}: need k = v = (B,Skv,K,hd), K | H")
     for name, t in more.items():
         if t.shape != q.shape:
             raise ValueError(f"flash_attention: {name} {tuple(t.shape)} != q {tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if Sq != Skv and (causal or window is not None):
+        raise ValueError(f"flash_attention: Sq {Sq} != Skv {Skv} takes no mask "
+                         f"(causal={causal}, window={window})")
 
 
 def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
@@ -110,14 +120,15 @@ def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int | None,
            lse: torch.Tensor | None = None) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,K,hd) on one CUDA device -> (B,S,H,hd). With
-    ``lse`` (fp32 (B,H,S)) the kernel also writes each row's log-sum-exp
-    ln Σ exp(q·k·hd^-½) over its visible keys into it, for ``launch_bwd``."""
-    _check(q, k, v, window)
+    """q (B,Sq,H,hd), k/v (B,Skv,K,hd) on one CUDA device -> (B,Sq,H,hd);
+    Sq != Skv without a mask. With ``lse`` (fp32 (B,H,Sq)) the kernel also
+    writes each row's log-sum-exp ln Σ exp(q·k·hd^-½) over its visible keys
+    into it, for ``launch_bwd``."""
+    _check(q, k, v, causal, window)
     if lse is not None:
         _check_lse(q, lse)
-    B, S, H, hd = q.shape
-    K = k.shape[2]
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     win = -1 if window is None else int(window)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -125,9 +136,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if uses_tensor_cores(q.dtype, hd):
-            err = _wgmma_fn()(*ptrs, B, S, H, K, hd, int(causal), win, hd ** -0.5, stream)
+            err = _wgmma_fn()(*ptrs, B, Sq, Skv, H, K, hd, int(causal), win, hd ** -0.5,
+                              stream)
         else:
-            err = _fn()(*ptrs, DTYPES[q.dtype], B, S, H, K, hd, int(causal), win,
+            err = _fn()(*ptrs, DTYPES[q.dtype], B, Sq, Skv, H, K, hd, int(causal), win,
                         hd ** -0.5, stream)
     _build.check(err, "flash_attention_fwd")
     return o
@@ -143,8 +155,13 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     bf16 at hd 64, 128 or 192 (``uses_tensor_cores``): three kernels on
     one stream, D = Σ do·o per row into fp32 scratch, then dq, then dk and
     dv. Otherwise two FMA kernels: dq (which writes D), then dk
-    and dv. Neither uses atomics: the same inputs give the same bits."""
-    _check(q, k, v, window, o=o, do=do)
+    and dv. Neither uses atomics: the same inputs give the same bits.
+    Queries and keys of different lengths raise ``NotImplementedError``."""
+    if q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            f"flash_attention backward: Sq {q.shape[1]} != Skv {k.shape[1]} is not ported; "
+            f"{BWD_CROSS_ROADMAP} brings it")
+    _check(q, k, v, causal, window, o=o, do=do)
     _check_lse(q, lse)
     B, S, H, hd = q.shape
     K = k.shape[2]

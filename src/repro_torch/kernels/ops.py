@@ -12,7 +12,9 @@ its path went through the kernel.
 CPU). When it records a graph, the forward kernel also writes each row's
 log-sum-exp, which the backward kernels read. Under ``torch.no_grad()``,
 or for inputs that need no grad, it records no graph, allocates no
-log-sum-exp and launches the forward alone.
+log-sum-exp and launches the forward alone. Queries and keys of different
+lengths (cross-attention) run the forward kernel; on the card they raise
+under grad, since no backward kernel takes them yet.
 
 ``mlstm_chunk`` is likewise a ``torch.autograd.Function``: on the card its
 forward, when it records a graph, also saves each chunk's entering state
@@ -90,10 +92,15 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in q.dtype; differentiable."""
+    """q (B,Sq,H,hd), k/v (B,Skv,K,hd) -> (B,Sq,H,hd) in q.dtype;
+    differentiable, but on the card only where Sq == Skv. Sq != Skv takes no
+    causal or window mask."""
     # grad mode is off inside Function.forward: whether a graph is recorded
     # is decided here
-    return _FlashAttention.apply(q, k, v, causal, window, _needs_grad(q, k, v))
+    recording = _needs_grad(q, k, v)
+    if recording and q.shape[1] != k.shape[1] and not _on_cpu(q, k, v):
+        raise _no_backward("flash_attention at Sq != Skv", _fa.BWD_CROSS_ROADMAP)
+    return _FlashAttention.apply(q, k, v, causal, window, recording)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -36,9 +36,9 @@ def _visible(Sq: int, Skv: int, causal: bool, window: int | None,
 
 
 def flash_attention_ref(
-    q: torch.Tensor,            # (B, S, H, hd)
-    k: torch.Tensor,            # (B, S, K, hd)
-    v: torch.Tensor,            # (B, S, K, hd)
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Skv, K, hd)
+    v: torch.Tensor,            # (B, Skv, K, hd)
     *,
     causal: bool = True,
     window: int | None = None,
@@ -56,20 +56,20 @@ def flash_attention_ref(
 
 
 def flash_attention_lse_ref(
-    q: torch.Tensor,            # (B, S, H, hd)
-    k: torch.Tensor,            # (B, S, K, hd)
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Skv, K, hd)
     *,
     causal: bool = True,
     window: int | None = None,
 ) -> torch.Tensor:
-    """(B, H, S) fp32: each query row's log-sum-exp ln Σ exp(q·k·hd^-½) over
+    """(B, H, Sq) fp32: each query row's log-sum-exp ln Σ exp(q·k·hd^-½) over
     its visible keys, what the forward kernels write for the backward."""
-    B, S, H, hd = q.shape
+    B, Sq, H, hd = q.shape
     K = k.shape[2]
-    qg = q.float().reshape(B, S, K, H // K, hd)
+    qg = q.float().reshape(B, Sq, K, H // K, hd)
     s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * (hd ** -0.5)
-    s = torch.where(_visible(S, k.shape[1], causal, window, q.device), s, NEG_INF)
-    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    s = torch.where(_visible(Sq, k.shape[1], causal, window, q.device), s, NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def flash_attention_bwd_ref(

@@ -2,8 +2,11 @@
 
 Batched greedy decode with the KV cache; each request batch is one task of
 the WUKONG engine (``repro_torch.core``), which supplies retry and
-concurrency. The counterpart of ``repro.launch.serve``, with the same
-flags plus ``--device`` (default ``cuda``) and ``--seed``. Tasks return
+concurrency. For the encoder-decoder (whisper) a request also carries
+audio frame embeddings (the frontend is a stub: ``request_frames``), which
+the task encodes once into the cross cache before it decodes. The
+counterpart of ``repro.launch.serve``, with the same flags plus
+``--device`` (default ``cuda``) and ``--seed``. Tasks return
 host values only (numpy tokens, floats): the engine's data plane sizes
 what it stores and must never hold a CUDA tensor.
 """
@@ -32,6 +35,16 @@ def request_prompts(seed: int, rid: int, batch: int, prompt_len: int,
     return rng.integers(0, vocab, size=(batch, prompt_len), dtype=np.int64)
 
 
+def request_frames(seed: int, rid: int, batch: int, enc_frames: int,
+                   d_model: int) -> np.ndarray:
+    """The (batch, enc_frames, d_model) float32 frame embeddings of request
+    ``rid`` for the encoder-decoder: standard normal from a numpy RNG seeded
+    from (seed, rid, 1), so a retried task sees the same audio and the
+    stream is not ``request_prompts``'."""
+    rng = np.random.default_rng([seed, rid, 1])
+    return rng.standard_normal((batch, enc_frames, d_model), dtype=np.float32)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -40,13 +53,25 @@ def _sync(device: torch.device) -> None:
 def handle_request(cfg: ModelConfig, params: Params, rid: int, *, batch: int,
                    prompt_len: int, gen_len: int, seed: int,
                    device: torch.device) -> dict[str, Any]:
-    """One batched request: prompt ingestion on the decode path, then greedy
-    decode. Returns the generated tokens (batch, gen) and the decode rate."""
+    """One batched request: for the encoder-decoder the frames encoded into
+    the cross cache (``prefill_s``), then prompt ingestion on the decode
+    path and greedy decode. Returns the generated tokens (batch, gen), the
+    decode rate and the latency of the decode loop, and ``prefill_s`` (0.0
+    without an encoder)."""
     serve_step = build_serve_step(cfg)
     prompt = torch.as_tensor(request_prompts(seed, rid, batch, prompt_len, cfg.vocab),
                              device=device)
     max_len = prompt_len + gen_len
     cache = M.init_cache(cfg, batch, max_len, device=device)
+    prefill_s = 0.0
+    if cfg.enc_dec:
+        frames = torch.as_tensor(
+            request_frames(seed, rid, batch, cfg.enc_frames, cfg.d_model), device=device)
+        _sync(device)
+        t0 = time.perf_counter()  # lint: allow(REPRO001)
+        M.prefill_cross(params, cfg, cache, frames)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0  # lint: allow(REPRO001)
     tok = prompt[:, 0]
     generated = []
     _sync(device)
@@ -62,7 +87,7 @@ def handle_request(cfg: ModelConfig, params: Params, rid: int, *, batch: int,
     _sync(device)
     dt = time.perf_counter() - t0  # lint: allow(REPRO001)
     return {"rid": rid, "tokens": tokens, "decode_tps": batch * tokens.shape[1] / dt,
-            "latency_s": dt}
+            "latency_s": dt, "prefill_s": prefill_s}
 
 
 NO_FAULTS = FaultConfig(task_failure_prob=0.0, max_retries=2)
@@ -74,8 +99,8 @@ def serve(cfg: ModelConfig, params: Params, *, requests: int, batch: int,
     """Run ``requests`` request batches as one WUKONG DAG (fan-out of request
     tasks into a summary task) under the engine's fault injection
     ``faults``; returns the engine's ``JobReport``, whose
-    ``results["summary"]`` holds the mean decode rate, the p99 latency and
-    each request's generated tokens."""
+    ``results["summary"]`` holds the mean decode rate, the p99 latency, the
+    mean prefill seconds and each request's generated tokens."""
     dev = resolve_device(device)
     g = GraphBuilder()
     reqs = [g.add(handle_request, cfg, params, r, batch=batch, prompt_len=prompt_len,
@@ -85,6 +110,7 @@ def serve(cfg: ModelConfig, params: Params, *, requests: int, batch: int,
         "n": len(rs),
         "mean_tps": float(np.mean([r["decode_tps"] for r in rs])),
         "p99_latency_s": float(np.percentile([r["latency_s"] for r in rs], 99)),
+        "mean_prefill_s": float(np.mean([r["prefill_s"] for r in rs])),
         "tokens": [r["tokens"] for r in rs],   # per request, in request order
     }, *reqs, name="summary")
     return WukongEngine(EngineConfig(faults=faults, job_timeout_s=3600.0)).compute(g.build())
@@ -113,6 +139,8 @@ def main(argv: list[str] | None = None):
     print(f"arch={cfg.name} device={args.device} requests={args.requests} "
           f"batch={args.batch} mean decode throughput {summary['mean_tps']:.1f} tok/s "
           f"p99 latency {summary['p99_latency_s']:.3f}s")
+    if cfg.enc_dec:
+        print(f"mean encoder prefill {summary['mean_prefill_s']:.3f}s")
     return rep
 
 

@@ -9,6 +9,11 @@ decode path, then greedy decode, with the example's injected task failures
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch jamba_1_5_large_398b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch whisper_large_v3 --device cpu
+
+Whisper's requests also carry seeded audio frame embeddings
+(``launch.serve.request_frames``), encoded once per request into the
+decoder's cross-attention cache.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Transformer building blocks in PyTorch: RMSNorm, RoPE, GQA attention, MLP, MoE.
 
 Port of ``repro.models.layers`` for ``attn+dense`` and ``attn+moe``
-blocks. Parameters are plain dictionaries of tensors with the reference's
-names and layouts: weights stored ``(in, out)`` and applied as ``x @ W``.
+blocks, and the encoder-decoder's cross-attention. Parameters are plain
+dictionaries of tensors with the reference's names and layouts: weights
+stored ``(in, out)`` and applied as ``x @ W``.
 ``init_*`` take an explicit ``torch.Generator`` and device.
 
 Attention runs through the kernel wrappers whatever ``cfg.use_pallas``
@@ -82,7 +83,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # GQA attention
 # --------------------------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attention(gen: torch.Generator, cfg: ModelConfig, cross: bool = False) -> Params:
+    """``wq``, ``wk``, ``wv``, ``wo``; with ``cfg.qkv_bias`` and not
+    ``cross`` also zero biases ``bq``, ``bk``, ``bv`` (the reference gives
+    cross-attention none)."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg)
     scale = d ** -0.5
@@ -92,7 +96,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wv": _init(gen, (d, K * hd), scale, dt),
         "wo": _init(gen, (H * hd, d), (H * hd) ** -0.5, dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
             p[name] = torch.zeros((width,), dtype=dt, device=gen.device)
     return p
@@ -153,15 +157,21 @@ def attention(
     cfg: ModelConfig,
     *,
     causal: bool = True,
+    xkv: torch.Tensor | None = None,     # cross-attention source (B, Skv, d)
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence self-attention with RoPE (training / prefill) through the
-    flash kernel."""
+    """Full-sequence attention (training / prefill) through the flash kernel:
+    self-attention over ``x``, or with ``xkv`` cross-attention from ``x`` to
+    ``xkv``. RoPE, the causal mask and the sliding window apply to
+    self-attention only, as in the reference."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, x, cfg)
-    pos = torch.arange(S, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    q, k, v = _project_qkv(p, x, x if xkv is None else xkv, cfg)
+    if use_rope and xkv is None:
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal and xkv is None,
+                              window=cfg.sliding_window if xkv is None else None)
     return out.reshape(B, S, -1) @ p["wo"]
 
 
@@ -173,9 +183,11 @@ def attention_decode(
     pos: int,                        # index of the new token
     cfg: ModelConfig,
     *,
+    use_rope: bool = True,
     rotating: bool = False,          # sliding-window rotating cache
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token decode step with RoPE through the decode kernel.
+    """One-token decode step through the decode kernel, with RoPE unless
+    ``use_rope`` is false.
 
     Writes the new key and value into ``cache_k``/``cache_v`` in place (slot
     ``pos % Smax`` for a rotating cache, else ``min(pos, Smax - 1)``) and
@@ -183,9 +195,10 @@ def attention_decode(
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, x, cfg)
-    posv = torch.full((1,), pos, device=x.device)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rope_theta)
+    if use_rope:
+        posv = torch.full((1,), pos, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
     Smax = cache_k.shape[1]
     slot = pos % Smax if rotating else min(pos, Smax - 1)
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
@@ -194,6 +207,28 @@ def attention_decode(
     kv_len = torch.full((B,), n, dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len)
     return out.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention's keys and values of the encoder's output
+    (B, F, d): ``enc_out @ wk`` and ``enc_out @ wv`` as (B, F, K, hd), what a
+    decode step reads from the filled cross cache."""
+    B, F, _ = enc_out.shape
+    return ((enc_out @ p["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd),
+            (enc_out @ p["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd))
+
+
+def attention_cross_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One token's cross-attention (B, 1, d) over the filled cross cache
+    (B, F, K, hd) through the decode kernel, every one of the F encoder
+    frames visible (``kv_len = F``); the cache is only read."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, cfg.n_heads, cfg.hd)
+    kv_len = torch.full((B,), cache_k.shape[1], dtype=torch.int32, device=x.device)
+    out = ops.decode_attention(q, cache_k, cache_v, kv_len)
+    return out.reshape(B, 1, -1) @ p["wo"]
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Decoder-only LM in PyTorch: init / forward / cache / decode.
+"""The LM in PyTorch: init / forward / cache / decode.
 
 Port of ``repro.models.model`` for blocks whose mixer is ``attn``,
 ``mamba``, ``mlstm`` or ``slstm`` and whose MLP is ``dense``, ``moe`` or
@@ -6,10 +6,18 @@ absent: the ``attn+dense`` decoders (smollm, llama3, qwen2, nemotron,
 chameleon), mixtral's ``attn+moe`` blocks (top-k experts with capacity, a
 sliding window whose decode cache rotates), jamba's interleave of
 ``mamba+dense`` / ``mamba+moe`` blocks with one ``attn+dense`` block per
-eight, and xLSTM's alternating ``mlstm`` / ``slstm`` blocks. Parameters
-keep the reference's pytree as plain dictionaries: per pattern position,
-each leaf stacked over ``n_repeats`` along a leading axis.
+eight, xLSTM's alternating ``mlstm`` / ``slstm`` blocks, and whisper's
+encoder-decoder (``cfg.enc_dec``: a non-causal encoder over precomputed
+frame embeddings, decoder blocks with cross-attention to its output,
+learned decoder positions and no RoPE). Parameters keep the reference's
+pytree as plain dictionaries: per pattern position, each leaf stacked over
+``n_repeats`` along a leading axis (the encoder's over ``n_enc_layers``).
 ``jax.lax.scan`` over the stack becomes a Python loop over the repeats.
+
+The encoder-decoder's decode reads a cross cache that ``prefill_cross``
+fills from the encoder once per request. The reference allocates that
+cache but never writes it (its decode attends over zeros); filling it is
+what makes decode equal the reference's own ``forward``.
 
 ``loss_fn`` trains every ported block: attention and mLSTM through their
 kernels' autograd Functions, mamba, sLSTM's time loop and the MoE MLP
@@ -19,7 +27,7 @@ superblock (one repeat of the whole block pattern) in non-reentrant
 ``jax.checkpoint``: only the superblocks' inputs are kept, and the
 backward runs each superblock's forward again.
 
-The encoder-decoder raises ``NotImplementedError`` naming the
+Training the encoder-decoder raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
@@ -34,7 +42,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Params,
     attention,
+    attention_cross_decode,
     attention_decode,
+    cross_kv,
     dtype_of,
     init_attention,
     init_mlp,
@@ -46,37 +56,34 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 
-_NOT_PORTED = {
-    "enc_dec": "ROADMAP.md queue 1 item 8 (encoder-decoder)",
-}
 _MIXERS = ("attn", "mamba", "mlstm", "slstm")
 _MLPS = ("dense", "moe", None)
+MAX_ABS_POS = 32768  # learned-position table of the encoder-decoder's decoder
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block's mixer is ported
     (``attn``, ``mamba``, ``mlstm``, ``slstm``) and its MLP is ``dense``,
     ``moe`` or absent."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet; "
-            f"{_NOT_PORTED['enc_dec']} brings them")
     for entry in cfg.block_pattern:
         mixer, mlp_kind = cfg.mixer_of(entry), cfg.mlp_of(entry)
         for part, ported in ((mixer, _MIXERS), (mlp_kind, _MLPS)):
             if part not in ported:
-                where = _NOT_PORTED.get(part, "ROADMAP.md queue 1")
                 raise NotImplementedError(
-                    f"{cfg.name}: block {entry!r} is not ported yet; {where} "
+                    f"{cfg.name}: block {entry!r} is not ported yet; ROADMAP.md queue 1 "
                     f"brings {part!r}")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every block can be trained: its
-    mixer is ``attn``, ``mamba``, ``mlstm`` or ``slstm`` and its MLP
-    ``dense``, ``moe`` or absent. Every block that ``check_supported`` takes
-    has a backward, so the two checks are one."""
+    """Raise ``NotImplementedError`` unless the model can be trained: every
+    block ``check_supported`` takes has a backward, but the encoder-decoder's
+    cross-attention (queries and keys of different lengths) has no backward
+    kernel yet."""
     check_supported(cfg)
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: training the encoder-decoder is not ported yet; ROADMAP.md queue 1 "
+            "item 8 (training the encoder-decoder) brings it")
 
 
 # ---------------------------------------------------------------------------
@@ -87,13 +94,17 @@ _INIT_MIXER = {"attn": init_attention, "mamba": ssm.init_mamba, "mlstm": ssm.ini
                "slstm": ssm.init_slstm}
 
 
-def _init_block(gen: torch.Generator, entry: str, cfg: ModelConfig) -> Params:
+def _init_block(gen: torch.Generator, entry: str, cfg: ModelConfig,
+                cross: bool = False) -> Params:
     dev = gen.device
     p = {"norm1": init_rmsnorm(cfg, dev), "mixer": _INIT_MIXER[cfg.mixer_of(entry)](gen, cfg)}
     mlp_kind = cfg.mlp_of(entry)
     if mlp_kind is not None:
         p["norm2"] = init_rmsnorm(cfg, dev)
         p["mlp"] = init_moe(gen, cfg) if mlp_kind == "moe" else init_mlp(gen, cfg)
+    if cross:
+        p["cross_norm"] = init_rmsnorm(cfg, dev)
+        p["cross"] = init_attention(gen, cfg, cross=True)
     return p
 
 
@@ -106,7 +117,10 @@ def _stack(trees: list[Params]) -> Params:
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: str | torch.device = "cuda") -> Params:
     """Random parameters at the reference's scales, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``. The
+    encoder-decoder adds ``enc_blocks`` (``attn+dense`` stacked over
+    ``n_enc_layers``), ``enc_norm`` and ``dec_pos`` (MAX_ABS_POS, d), and
+    its decoder blocks ``cross_norm`` and ``cross``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -114,8 +128,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     dt = dtype_of(cfg)
     p: Params = {"embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                                        device=dev) * 0.02).to(dt)}
-    p["blocks"] = [_stack([_init_block(gen, entry, cfg) for _ in range(cfg.n_repeats)])
+    p["blocks"] = [_stack([_init_block(gen, entry, cfg, cross=cfg.enc_dec)
+                           for _ in range(cfg.n_repeats)])
                    for entry in cfg.block_pattern]
+    if cfg.enc_dec:
+        p["enc_blocks"] = _stack([_init_block(gen, "attn+dense", cfg)
+                                  for _ in range(cfg.n_enc_layers)])
+        p["enc_norm"] = init_rmsnorm(cfg, dev)
+        p["dec_pos"] = (torch.randn((MAX_ABS_POS, cfg.d_model), generator=gen,
+                                    device=dev) * 0.02).to(dt)
     p["final_norm"] = init_rmsnorm(cfg, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab), generator=gen,
@@ -142,18 +163,34 @@ def _head(p: Params, cfg: ModelConfig) -> torch.Tensor:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> torch.Tensor:
+def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig,
+               enc_out: torch.Tensor | None = None) -> torch.Tensor:
+    """One block: the mixer's residual, then with ``enc_out`` the
+    cross-attention's, then the MLP's."""
     mixer = cfg.mixer_of(entry)
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
-        y = attention(bp["mixer"], h, cfg, causal=True)
+        y = attention(bp["mixer"], h, cfg, causal=True, use_rope=not cfg.enc_dec)
     elif mixer == "mamba":
         y, _ = ssm.mamba(bp["mixer"], h, cfg)
     elif mixer == "mlstm":
         y, _ = ssm.mlstm(bp["mixer"], h, cfg)
     else:
         y, _ = ssm.slstm(bp["mixer"], h, cfg)
-    return _mlp_residual(bp, x + y, entry, cfg)
+    x = x + y
+    if enc_out is not None:
+        h = rmsnorm(bp["cross_norm"], x, cfg.norm_eps)
+        x = x + attention(bp["cross"], h, cfg, causal=False, xkv=enc_out, use_rope=False)
+    return _mlp_residual(bp, x, entry, cfg)
+
+
+def _enc_block_fwd(bp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block: non-causal self-attention without RoPE, then the
+    dense MLP, each a pre-norm residual."""
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    x = x + attention(bp["mixer"], h, cfg, causal=False, use_rope=False)
+    h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    return x + mlp(bp["mlp"], h, cfg)
 
 
 def _mlp_residual(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> torch.Tensor:
@@ -165,26 +202,57 @@ def _mlp_residual(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> 
     return x + (moe_mlp(bp["mlp"], h, cfg) if mlp_kind == "moe" else mlp(bp["mlp"], h, cfg))
 
 
-def _superblock(x: torch.Tensor, bps: list[Params], cfg: ModelConfig) -> torch.Tensor:
+def _superblock(x: torch.Tensor, bps: list[Params], cfg: ModelConfig,
+                enc_out: torch.Tensor | None = None) -> torch.Tensor:
     """One repeat of the whole block pattern, in order (Jamba's interleave)."""
     for bp, entry in zip(bps, cfg.block_pattern):
-        x = _block_fwd(bp, x, entry, cfg)
+        x = _block_fwd(bp, x, entry, cfg, enc_out)
     return x
 
 
-def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over precomputed (stub frontend) frame embeddings
+    (B, F, d) in the model dtype -> (B, F, d). Under ``cfg.remat`` and
+    autograd each block is recomputed in the backward, as ``forward``'s
+    superblocks."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = enc_embeds
+    for bp in _layers(p["enc_blocks"], cfg.n_enc_layers):
+        if remat:
+            x = checkpoint(_enc_block_fwd, bp, x, cfg, use_reentrant=False)
+        else:
+            x = _enc_block_fwd(bp, x, cfg)
+    return rmsnorm(p["enc_norm"], x, cfg.norm_eps)
+
+
+def _encoded(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor | None) -> torch.Tensor:
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name}: the encoder-decoder needs enc_embeds (B, "
+                         f"{cfg.enc_frames}, {cfg.d_model})")
+    return encode(p, cfg, enc_embeds.to(dtype_of(cfg)))
+
+
+def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token logits for training / prefill: (B, S) ints -> (B, S, vocab) fp32.
-    Under ``cfg.remat`` and autograd each superblock is recomputed in the
-    backward (``torch.utils.checkpoint``, non-reentrant)."""
+    The encoder-decoder also takes the frame embeddings ``enc_embeds``
+    (B, F, d), cast to the model dtype and encoded, and adds ``dec_pos[:S]``
+    to the token embeddings. Under ``cfg.remat`` and autograd each
+    superblock is recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant)."""
     x = p["embed"][tokens].to(dtype_of(cfg))
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = _encoded(p, cfg, enc_embeds)
+        x = x + p["dec_pos"][:tokens.shape[1]][None]
     layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
     remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.n_repeats):
         bps = [stack[r] for stack in layers]
         if remat:
-            x = checkpoint(_superblock, x, bps, cfg, use_reentrant=False)
+            x = checkpoint(_superblock, x, bps, cfg, enc_out, use_reentrant=False)
         else:
-            x = _superblock(x, bps, cfg)
+            x = _superblock(x, bps, cfg, enc_out)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return (x @ _head(p, cfg)).float()
 
@@ -219,7 +287,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
     model dtype, S = min(seq_len, sliding_window); mamba: ``{"conv", "ssm"}``
     (R, batch, w-1, d_inner) in the model dtype and (R, batch, d_inner, N)
     fp32; mLSTM: ``{"C", "n"}`` (R, batch, H, hd, hd) and (R, batch, H, hd)
-    fp32; sLSTM: ``{"c", "h"}`` (R, batch, d) fp32."""
+    fp32; sLSTM: ``{"c", "h"}`` (R, batch, d) fp32. The encoder-decoder adds
+    ``{"cross_k", "cross_v"}`` (R, batch, enc_frames, K, hd) in the model
+    dtype to every entry, for ``prefill_cross`` to fill."""
     check_supported(cfg)
     dev = resolve_device(device)
     R = cfg.n_repeats
@@ -243,6 +313,25 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
             cache.append({"C": zeros(R, batch, H, hd, hd), "n": zeros(R, batch, H, hd)})
         else:
             cache.append({"c": zeros(R, batch, cfg.d_model), "h": zeros(R, batch, cfg.d_model)})
+        if cfg.enc_dec:
+            shape = (R, batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
+            cache[-1]["cross_k"] = zeros(*shape, dtype=dtype_of(cfg))
+            cache[-1]["cross_v"] = zeros(*shape, dtype=dtype_of(cfg))
+    return cache
+
+
+def prefill_cross(p: Params, cfg: ModelConfig, cache: list[dict[str, torch.Tensor]],
+                  enc_embeds: torch.Tensor) -> list[dict[str, torch.Tensor]]:
+    """Fill the encoder-decoder's cross cache in place: encode the frame
+    embeddings ``enc_embeds`` (B, F, d) once, cast to the model dtype, and
+    write each decoder layer's ``enc_out @ wk`` and ``enc_out @ wv`` into its
+    ``cross_k`` / ``cross_v`` slot. Returns ``cache`` itself."""
+    enc_out = _encoded(p, cfg, enc_embeds)
+    for block, c in zip(p["blocks"], cache):
+        for r, bp in enumerate(_layers(block["cross"], cfg.n_repeats)):
+            k, v = cross_kv(bp, enc_out, cfg)
+            c["cross_k"][r].copy_(k)
+            c["cross_v"][r].copy_(v)
     return cache
 
 
@@ -254,7 +343,7 @@ def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tenso
     if mixer == "attn":
         rotating = cfg.sliding_window is not None and c["k"].shape[2] <= cfg.sliding_window
         y, _, _ = attention_decode(bp["mixer"], h, c["k"][r], c["v"][r], pos, cfg,
-                                   rotating=rotating)
+                                   use_rope=not cfg.enc_dec, rotating=rotating)
     elif mixer == "mamba":
         y, (conv, st) = ssm.mamba(bp["mixer"], h, cfg, state=(c["conv"][r], c["ssm"][r]))
         c["conv"][r].copy_(conv)
@@ -267,7 +356,11 @@ def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tenso
         y, (cc, hh) = ssm.slstm(bp["mixer"], h, cfg, state=(c["c"][r], c["h"][r]))
         c["c"][r].copy_(cc)
         c["h"][r].copy_(hh)
-    return _mlp_residual(bp, x + y, entry, cfg)
+    x = x + y
+    if cfg.enc_dec:
+        h = rmsnorm(bp["cross_norm"], x, cfg.norm_eps)
+        x = x + attention_cross_decode(bp["cross"], h, c["cross_k"][r], c["cross_v"][r], cfg)
+    return _mlp_residual(bp, x, entry, cfg)
 
 
 def decode_step(
@@ -281,8 +374,11 @@ def decode_step(
     logits (B, vocab) fp32 and the cache. The cache is updated in place:
     attention writes the new key and value into its slot, the recurrent
     mixers copy their new state over the old (the returned list is
-    ``cache`` itself)."""
+    ``cache`` itself). The encoder-decoder adds ``dec_pos[pos]`` and reads
+    the cross cache that ``prefill_cross`` filled."""
     x = p["embed"][token][:, None, :].to(dtype_of(cfg))      # (B, 1, d)
+    if cfg.enc_dec:
+        x = x + p["dec_pos"][pos][None, None, :]
     layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
     for r in range(cfg.n_repeats):
         for stack, c, entry in zip(layers, cache, cfg.block_pattern):

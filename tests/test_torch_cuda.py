@@ -33,7 +33,11 @@ S=512, a non-zero state): output and both states rel 1e-5; stepped one
 token at a time there against its forward, rel 1e-3. The paper's
 workloads (``repro_torch.apps``, library payloads) on the card: each within
 ``launch.apps``'s limits of its float64 reference there, with the same
-``charged_ms`` and ``kv_stats`` as on the CPU.
+``charged_ms`` and ``kv_stats`` as on the CPU. Whisper's attention: the
+flash forwards at Sq != Skv (cross-attention, no mask) and the encoder's
+1500 frames, decode over its 1500-frame cross cache, the refusals of a
+mask and of grad at Sq != Skv, and reduced whisper's forward and decode
+on the card against the CPU (rel 1e-5).
 """
 import dataclasses
 
@@ -82,6 +86,7 @@ def cuda():
     (128, 2, 2, 16, True, None), (200, 6, 2, 32, False, None),
     (333, 15, 5, 64, True, 100), (256, 8, 1, 128, True, None),
     (130, 12, 1, 192, True, None),   # nemotron-4-340b's hd 192 and G = 12
+    (64, 20, 20, 64, True, None),    # whisper's decoder self-attention: causal at G = 1
 ])
 def test_flash_kernel_on_card(cuda, dtype, S, H, K, hd, causal, window):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,7 +105,8 @@ def test_flash_kernel_on_card(cuda, dtype, S, H, K, hd, causal, window):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,K,hd", [(100, 15, 5, 64), (512, 8, 2, 32),
                                       (64, 16, 1, 128), (77, 4, 4, 16),
-                                      (100, 12, 1, 192), (70, 8, 8, 192)])
+                                      (100, 12, 1, 192), (70, 8, 8, 192),
+                                      (32, 20, 20, 64)])
 def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
     g = torch.Generator(device=cuda).manual_seed(6)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
@@ -122,6 +128,7 @@ def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
     (333, 6, 2, False, None),     # not causal, ragged S
     (100, 3, 1, True, None),      # S shorter than one q tile
     (150, 6, 3, True, None),      # odd count of 64-row tiles: one block pairs a tile with itself
+    (512, 20, 20, True, None),    # whisper's decoder self-attention: causal at G = 1
 ])
 def test_flash_tensor_core_kernel_on_card(cuda, hd, S, H, K, causal, window):
     assert flash_kernel.uses_tensor_cores(torch.bfloat16, hd)
@@ -316,6 +323,103 @@ def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
         ops.decode_attention(q, cache, cache, lens)
     with torch.no_grad():
         ops.decode_attention(q, cache, cache, lens)
+
+
+# whisper-large-v3's attention: 20 heads over 20, hd 64, 1500 encoder frames; cross-attention
+# has queries and keys of different lengths (Sq, Skv) and no mask
+CROSS_CASES = [
+    (512, 1500, 20, 20, 64),   # the decoder's 512 tokens against the frames
+    (37, 1500, 20, 20, 64),    # ragged, under one 64-row q tile
+    (1, 1500, 20, 20, 64),     # one token
+    (1500, 1500, 20, 20, 64),  # the encoder's self-attention, ragged against the tiles
+    (100, 8, 20, 20, 64),      # Sq > Skv, the keys under one tile
+    (300, 700, 16, 2, 64),     # GQA, G = 8
+    (45, 77, 6, 2, 32),        # bf16 at hd 32 runs the FMA kernel too
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,H,K,hd", CROSS_CASES)
+def test_flash_at_sq_ne_skv_on_card(cuda, dtype, Sq, Skv, H, K, hd):
+    """The tensor-core (bf16, hd 64) and FMA (f32; bf16 at hd 32) forwards
+    at Sq != Skv without a mask against the plain version, and the rows'
+    log-sum-exp (B, H, Sq) they write."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(2, Sq, H, hd), (2, Skv, K, hd), (2, Skv, K, hd)])
+    n = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n + 1 and out.shape == q.shape
+    ref = flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    lse = torch.empty((2, H, Sq), dtype=torch.float32, device=cuda)
+    assert torch.equal(flash_kernel.launch(q, k, v, causal=False, window=None, lse=lse), out)
+    want = flash_attention_lse_ref(q, k, causal=False)
+    assert (lse - want).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_refuses_a_mask_at_sq_ne_skv_on_card(cuda):
+    q = torch.zeros((1, 37, 4, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 150, 4, 64), dtype=torch.bfloat16, device=cuda)
+    for causal, window in ((True, None), (False, 16), (True, 16)):
+        with pytest.raises(ValueError, match="takes no mask"):
+            flash_kernel.launch(q, k, k, causal=causal, window=window)
+    with pytest.raises(ValueError, match="takes no mask"):
+        ops.flash_attention(q, k, k)        # causal by default
+
+
+@pytest.mark.cuda
+def test_flash_at_sq_ne_skv_raises_under_grad_on_card(cuda):
+    """No backward kernel takes Sq != Skv yet: under grad the wrapper raises
+    rather than return an output without a gradient."""
+    q = torch.randn((2, 5, 4, 64), device=cuda, requires_grad=True)
+    k = torch.randn((2, 12, 4, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ops.flash_attention(q, k, k, causal=False)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k, causal=False).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_over_whisper_cross_cache_on_card(cuda, dtype):
+    """Cross decode: one token per sequence against all 1500 frames (G = 1,
+    ragged against the kernel's tiles)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(2, 20, 64), (2, 1500, 20, 64), (2, 1500, 20, 64)])
+    lens = torch.full((2,), 1500, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q.float(), k.float(), v.float(), lens)
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_whisper_on_card_equals_cpu(cuda):
+    """Reduced whisper (f32): the forward and the decode over a filled cross
+    cache on the card against the same calls on the CPU, rel 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("whisper_large_v3")), enc_frames=75)
+    params = M.init_model(cfg, seed=2, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=g)
+    frames = torch.randn((2, cfg.enc_frames, cfg.d_model), generator=g)
+
+    def run(dev):
+        p = map_tree(lambda t: t.to(dev), params)
+        full = M.forward(p, cfg, tokens.to(dev), frames.to(dev))
+        cache = M.init_cache(cfg, 2, 12, device=dev)
+        M.prefill_cross(p, cfg, cache, frames.to(dev))
+        steps = [M.decode_step(p, cfg, cache, tokens[:, t].to(dev), t)[0] for t in range(12)]
+        return full.cpu(), torch.stack(steps, dim=1).cpu()
+
+    for got, want in zip(run(cuda), run("cpu"), strict=True):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel <= 1e-5, rel
 
 
 def _mlstm_inputs(cuda, B, S, H, hd, with_state, seed):

@@ -1,8 +1,9 @@
 """The port's entry points on the CPU: ``repro_torch.launch.quickstart``
 against ``examples/quickstart.py``, ``repro_torch.launch.train_lm`` for
-smollm and xLSTM, and ``repro_torch.launch.serve_lm`` (reduced mixtral-8x7b
-and jamba-1.5-large) against ``examples/serve_lm.py`` and a greedy loop
-over the JAX package's ``decode_step``.
+smollm and xLSTM, and ``repro_torch.launch.serve_lm`` (reduced mixtral-8x7b,
+jamba-1.5-large and whisper-large-v3) against ``examples/serve_lm.py`` and
+a greedy loop over the JAX package's ``decode_step`` (whisper's with its
+cross cache filled by hand: the reference's decode never fills it).
 
 The quickstart prints the same lines as the JAX package's: every line,
 since none carries a wall-clock value (the engine's default virtual clock
@@ -31,6 +32,7 @@ from repro_torch.launch import quickstart, serve, serve_lm, train_lm
 from repro_torch.models import model as M
 from repro_torch.runtime import checkpoint as ckpt
 
+from _jax_whisper import jax_cache_filled_by_hand
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
@@ -83,6 +85,8 @@ SERVED = re.compile(r"served in \d+\.\ds  mean decode throughput \d+\.\d tok/s  
     pytest.param([], "mixtral-8x7b", id="default"),
     # reduced jamba: mamba, one attention layer per eight, MoE on alternate layers
     pytest.param(["--arch", "jamba_1_5_large_398b"], "jamba-1.5-large-398b", id="jamba"),
+    # reduced whisper: the encoder, cross-attention over the request's frames
+    pytest.param(["--arch", "whisper_large_v3"], "whisper-large-v3", id="whisper"),
 ])
 def test_serve_lm_prints_the_example_lines(monkeypatch, flags, name):
     """The example's lines for the same flags. The example itself prints its
@@ -135,6 +139,52 @@ def test_serve_lm_greedy_tokens_match_jax_decode_loop():
     for rid in range(requests):
         prompt = serve.request_prompts(seed, rid, batch, prompt_len, jcfg.vocab)
         cache = JM.init_cache(jcfg, batch, prompt_len + gen_len)
+        tok, generated = jnp.asarray(prompt[:, 0]), []
+        for pos in range(prompt_len + gen_len - 1):
+            logits, cache = step(jparams, jcfg, cache, tok, jnp.int32(pos))
+            if pos + 1 < prompt_len:
+                tok = jnp.asarray(prompt[:, pos + 1])
+            else:
+                tok = jnp.argmax(logits, axis=-1)
+                generated.append(np.asarray(tok))
+        np.testing.assert_array_equal(rep.results["summary"]["tokens"][rid],
+                                      np.stack(generated, axis=1))
+
+
+def test_serve_lm_whisper_repeats_its_tokens_when_tasks_fail():
+    """Reduced whisper under the example's fault injection and under heavier
+    failures: a retried request sees the same prompt and the same frames."""
+    cfg = reduced(get_config("whisper_large_v3"))
+    params = M.init_model(cfg, seed=0, device="cpu")
+    kw = dict(requests=4, batch=2, prompt_len=5, gen_len=6, seed=0, device="cpu")
+    runs = [serve_lm.run(cfg, params, **kw)[0] for _ in range(2)]
+    faulty = serve.serve(cfg, params, **kw, faults=FaultConfig(task_failure_prob=0.3,
+                                                                max_retries=6, seed=1))
+    assert faulty.fault_stats["injected_failures"] > 0, faulty.fault_stats
+    assert runs[0].results["summary"]["mean_prefill_s"] > 0.0
+    for rep in (runs[1], faulty):
+        for got, want in zip(rep.results["summary"]["tokens"],
+                             runs[0].results["summary"]["tokens"], strict=True):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_serve_lm_whisper_greedy_tokens_match_jax_decode_loop():
+    """At the example's shape, on params made by the JAX package: each
+    request's greedy tokens equal a greedy loop over JAX's ``decode_step``
+    on the same prompt, with JAX's cross cache filled by hand from its
+    ``encode`` of the same frames (``launch.serve.request_frames``)."""
+    arch = "whisper_large_v3"
+    jcfg, tcfg = jax_reduced(jax_get_config(arch)), reduced(get_config(arch))
+    jparams, _ = JM.init_model(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    requests, batch, prompt_len, gen_len, seed = 4, 2, 16, 16, 5
+    rep, _ = serve_lm.run(tcfg, tparams, requests=requests, batch=batch,
+                          prompt_len=prompt_len, gen_len=gen_len, seed=seed, device="cpu")
+    step = jax.jit(JM.decode_step, static_argnums=1)
+    for rid in range(requests):
+        prompt = serve.request_prompts(seed, rid, batch, prompt_len, jcfg.vocab)
+        frames = serve.request_frames(seed, rid, batch, jcfg.enc_frames, jcfg.d_model)
+        cache = jax_cache_filled_by_hand(jcfg, jparams, frames, batch, prompt_len + gen_len)
         tok, generated = jnp.asarray(prompt[:, 0]), []
         for pos in range(prompt_len + gen_len - 1):
             logits, cache = step(jparams, jcfg, cache, tok, jnp.int32(pos))

@@ -156,12 +156,6 @@ def _flatten(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch,item", [("whisper_large_v3", "item 8")])
-def test_unported_blocks_raise_with_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        M.init_model(reduced(get_config(arch)), device="cpu")
-
-
 def test_params_from_jax_checks_layout():
     c = case("smollm_360m")
     tree = jax.tree.map(np.asarray, c["jparams"])
