@@ -180,13 +180,29 @@ script started; any failure raises and exits non-zero:
     ``whisper_decode_step_profile`` at batch 2 beside its byte bound: every
     decoder weight but cross-attention's wk and wv, the head, and the
     cross caches, read once a step.
+18. whisper training: phase 17's model (32 + 32 layers, bf16, full width)
+    at B=4 and the decoder's published 448 tokens, on a card that holds
+    nothing else: ``whisper_train``, 3 AdamW steps on one fixed
+    ``synthetic_batch`` (tokens and frames) as tasks of the engine with no
+    injected failure (the engine keeps every step run's 16.45 GB state), the
+    loss finite and falling, per step run 192 flash forward launches (the
+    encoder's, the decoder's self- and cross-attention, each twice under
+    ``remat``) and 96 backward launches, host seconds per step, tokens/s and
+    peak memory; ``whisper_train_reference``, reduced f32 whisper 3 steps on
+    the card and the CPU (loss 1e-4, params 2e-3); and
+    ``whisper_train_step_profile``, as phase 11's, beside the step's bound:
+    three forwards' operations (``whisper_forward_flops``) and a fourth for
+    the recomputation under ``remat``, and the state read and written once.
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
 ``csrc/flash_attention_bwd.cu``), fed the log-sum-exp the forward kernel
 wrote, at smollm's shapes (the first case at the train phase's B=4,
-S=512), qwen2-72b's width, nemotron's (bf16 at S=2048, f32 at S=512) and
-mixtral-8x7b's (bf16 at S=8192 with the window of 4096),
+S=512), qwen2-72b's width, nemotron's (bf16 at S=2048, f32 at S=512),
+mixtral-8x7b's (bf16 at S=8192 with the window of 4096) and whisper's
+training shapes (B=4, 20 heads over 20, hd 64): the encoder's non-causal
+S=1500 and cross-attention at Sq=448 over Skv=1500 in bf16 and f32,
+cross-attention at Sq=37 and the decoder's causal S=448 (G = 1) in bf16,
 per gradient, twice: elementwise against its fp32 formulas on the same
 inputs with D from the same forward output (the kernel's arithmetic),
 |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one bf16 ulp) and
@@ -211,15 +227,15 @@ Each mLSTM record carries a SHA-256 digest of the forward's outputs (and
 of the states it saves for the backward): equal digests from two trees
 mean equal bits. The flash backward's bound counts
 10·hd FLOPs per visible (query, key) pair and query
-head (the five products q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q, ds·k) and q, k, v, o, dO
-read and dq, dk, dv written once; its library yardstick is the profiler's
-device time of the backward of
+head (the five products q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q, ds·k) and q, o, dO, dq
+over Sq·H and k, v, dk, dv over Skv·K moved once; its library yardstick is
+the profiler's device time of the backward of
 ``scaled_dot_product_attention(..., enable_gqa=True)``.
 
 Kernel launch counts are set to 0 before each forward, decode-vs-forward,
 serve and train phase (smollm's, xLSTM's, nemotron's, mixtral's,
-jamba's and whisper's) and read after it, and before each full-size app run of phase 13,
-which must launch none. The line before the last is ``{"kernels": [...]}``; the last
+jamba's and whisper's, its training too) and read after it, and before
+each full-size app run of phase 13, which must launch none. The line before the last is ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
@@ -509,12 +525,15 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
 
 
 def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd=64,
-                    seed=3):
+                    seed=3, Skv=None):
+    """Flash backward at q (B,S,H,hd) against k/v (B,Skv,K,hd), Skv = S
+    unless given (cross-attention: no mask)."""
     from repro_torch.kernels import flash_attention as flash_kernel
 
+    Skv = S if Skv is None else Skv
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
-    k, v = (torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Skv, K, hd), generator=g, device=dev).to(dtype) for _ in range(2))
     dout = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
     # the forward kernel's output and the rows' log-sum-exp it writes for the backward
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
@@ -536,10 +555,10 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
         worst[name] = (diff / (tol * e.abs() + tol * e.square().mean().sqrt())).max().item()
         assert worst[name] <= 1.0, (name, err[name], worst[name])
     del exact
-    mask = attention_mask(S, causal, window, dev)
+    mask = attention_mask(S, causal, window, dev, Skv)
     n_pairs = int(mask.sum().item())
     elt = q.element_size()
-    nbytes = 4 * B * S * (H + K) * hd * elt   # q, o, dO, dq; k, v, dk, dv
+    nbytes = 4 * B * (S * H + Skv * K) * hd * elt   # q, o, dO, dq; k, v, dk, dv
     t_bound, by = bound(nbytes, 10.0 * B * H * hd * n_pairs, dtype)
     # yardstick: the backward of SDPA over the same function (kv heads grouped)
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -553,8 +572,9 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
                                            causal=causal, window=window)
     kernel = ("delta + dq + dkdv, bf16 wgmma" if flash_kernel.uses_tensor_cores(dtype, hd)
               else "dq + dkdv, fp32 FMAs")
+    lengths = f"S={S}" if Skv == S else f"Sq={S} Skv={Skv}"
     return {
-        "shape": f"B={B} S={S} H={H} K={K} hd={hd} causal={causal} window={window}",
+        "shape": f"B={B} {lengths} H={H} K={K} hd={hd} causal={causal} window={window}",
         "dtype": DT_NAME[dtype], "kernel": kernel, "bitwise_repeatable": True,
         "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
         "tol": f"{BWD_ELT_TOL[dtype]} x (|ref| + rms(ref)), fp32 formulas",
@@ -809,8 +829,11 @@ def counts(ops) -> dict:
 def train_launches(cfg, runs: int) -> dict:
     """The kernel launches of ``runs`` train-step runs of ``cfg``: per layer
     one forward (two under ``remat``: the forward and its recomputation in
-    the backward) and one backward."""
+    the backward) and one backward; the encoder-decoder's attention layers
+    are the encoder's, and the decoder's self- and cross-attention."""
     n_attn = sum(cfg.mixer_of(e) == "attn" for e in cfg.block_pattern) * cfg.n_repeats
+    if cfg.enc_dec:
+        n_attn = cfg.n_enc_layers + 2 * n_attn
     n_mlstm = sum(cfg.mixer_of(e) == "mlstm" for e in cfg.block_pattern) * cfg.n_repeats
     fwd = 2 if cfg.remat else 1
     return {"flash_attention": fwd * n_attn * runs, "decode_attention": 0,
@@ -921,6 +944,7 @@ def main() -> int:
                                          H=NEMOTRON_H, K=NEMOTRON_K, hd=192))
     bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, 1, 2 * MIXTRAL_WINDOW,
                                      True, MIXTRAL_WINDOW, H=MIXTRAL_H, K=MIXTRAL_K, hd=128))
+    bwd_cases += whisper_bwd_checks(ops, ref, timer, dev)
     for rec in decode_cases + flash_cases + mlstm_cases + mlstm_bwd_cases + bwd_cases:
         emit({"phase": "kernel_check", **rec})
     del timer
@@ -1023,6 +1047,11 @@ def main() -> int:
     whisper_flash, whisper_decode = run_whisper(get_config, reduced, ops, serve_mod, M, dev, smi)
     free_memory()
 
+    # 18. whisper-large-v3 training at full width and full depth: both flash backwards at
+    # Sq != Skv and the non-causal one, through the engine; card against CPU; profile
+    whisper_train = run_whisper_train(get_config, reduced, ops, M, dev, smi)
+    free_memory()
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
@@ -1031,7 +1060,7 @@ def main() -> int:
          "launches": fwd_counts["flash_attention"], **_headline(flash_cases[0]),
          "nemotron_launches": nemotron_launches, "mixtral_launches": mixtral_flash,
          "jamba_launches": jamba_flash, "whisper_launches": whisper_flash,
-         "cases": flash_cases},
+         "whisper_train_launches": whisper_train["flash_attention"], "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:77",
@@ -1056,7 +1085,7 @@ def main() -> int:
          "note": "no TPU kernel: the JAX package has no Pallas backward; its training "
                  "differentiates layers.sdpa through XLA",
          "launches": train["launches"]["flash_attention_bwd"], **_headline(bwd_cases[0]),
-         "cases": bwd_cases},
+         "whisper_train_launches": whisper_train["flash_attention_bwd"], "cases": bwd_cases},
     ]
     for kr in kernels:
         assert kr["launches"] > 0, kr["name"]
@@ -1098,6 +1127,28 @@ def whisper_checks(ops, ref, timer, dev) -> tuple[list, list]:
     decode.append(check_decode(ops, ref, timer, dev, torch.bfloat16, 2, 32, [31, 31], **whisper))
     decode.append(check_decode(ops, ref, timer, dev, torch.float32, 2, 64, [64, 64], **whisper))
     return flash, decode
+
+
+def whisper_bwd_checks(ops, ref, timer, dev) -> list:
+    """Phase 3's flash backward rows at whisper-large-v3's training shapes
+    (phase 18: B=4, 448 decoder tokens, 1500 frames; 20 heads over 20, hd
+    64): the encoder's non-causal self-attention over the frames (ragged:
+    1500 = 23·64 + 28) and cross-attention from the 448 tokens to the
+    frames, each in bf16 (``flash_attention_bwd_wgmma.cu``) and f32
+    (``flash_attention_bwd.cu``); cross-attention from 37 queries (ragged,
+    under one tile) in bf16; the decoder's causal self-attention at G = 1 in
+    bf16."""
+    whisper = {"H": WHISPER_H, "K": WHISPER_H, "hd": 64}
+    B, S, F_ = WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_FRAMES
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(check_flash_bwd(ops, ref, timer, dev, dtype, B, F_, False, None, **whisper))
+        rows.append(check_flash_bwd(ops, ref, timer, dev, dtype, B, S, False, None, Skv=F_,
+                                    **whisper))
+    rows.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, B, 37, False, None, Skv=F_,
+                                **whisper))
+    rows.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, B, S, True, None, **whisper))
+    return rows
 
 
 def mlstm_checks(ops, ref, timer, dev):
@@ -1205,6 +1256,12 @@ WHISPER_RMS_TOL = 0.1
 # frames), the port 0.015 there (tests/test_torch_bf16.py) and 0.018 on an
 # H100 at full width (PERF.md).
 WHISPER_BF16_TOL = 5e-2
+# phase 18's training shape: the decoder's published context of 448 tokens
+# (max_target_positions of openai/whisper-large-v3), B=4, 3 AdamW steps with
+# no injected failure. The engine keeps every step run's output state: at
+# 16.45 GB a state (1.645 B parameters, bf16, and fp32 moments), 3 steps hold
+# 4 states; PERF.md works out the peak. A retry would add a state.
+WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 4, 448, 3
 
 
 def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
@@ -1680,6 +1737,57 @@ def run_whisper(get_config, reduced, ops, serve_mod, M, dev, smi) -> tuple[int, 
     return fwd_counts["flash_attention"], serve_counts["decode_attention"]
 
 
+def run_whisper_train(get_config, reduced, ops, M, dev, smi) -> dict:
+    """Phase 18: whisper-large-v3 training at full width and full depth
+    (phase 17's model, 32 + 32 layers, 1500 frames, bf16, weights made on
+    the card from a seed on a card that holds nothing else), B=4 S=448.
+    ``whisper_train``: ``WHISPER_TRAIN_STEPS`` AdamW steps on one fixed
+    ``synthetic_batch`` (tokens and frames) through the engine, no injected
+    failure; the loss finite and falling; per step run 2 x 96 flash forward
+    launches (encoder, decoder self- and cross-attention, each twice under
+    ``remat``) and 96 backward launches. ``whisper_train_reference``:
+    reduced f32 whisper, 3 steps on the card and the CPU (loss 1e-4, params
+    2e-3). ``whisper_train_step_profile``: ``profile_train`` at the same
+    shape beside the step's bound from its operations. Returns the train
+    phase's launches."""
+    cfg = get_config("whisper_large_v3")
+    B, S = WHISPER_TRAIN_B, WHISPER_TRAIN_S
+    allocated = torch.cuda.memory_allocated(dev) / 1e9
+    assert allocated < EMPTY_CARD_GB, allocated
+    t_phase = time.perf_counter()
+    wtrain = run_train(M, ops, cfg, dev, batch=B, seq=S, steps=WHISPER_TRAIN_STEPS, faults=None)
+    per_run = train_launches(cfg, 1)
+    assert per_run["flash_attention"] == 2 * 96 and per_run["flash_attention_bwd"] == 96, per_run
+    emit({"phase": "whisper_train", "card": smi, "layers": [cfg.n_enc_layers, cfg.n_layers],
+          "frames": cfg.enc_frames, **wtrain, "phase_s": time.perf_counter() - t_phase})
+    print(f"whisper train (32 + 32 layers, bf16, B={B} S={S}): "
+          f"{wtrain['host_s_per_step']:.3f} s per step, {wtrain['tokens_per_s']:.0f} tokens/s, "
+          f"loss {wtrain['losses'][0]:.4f} -> {wtrain['losses'][-1]:.4f}, peak "
+          f"{wtrain['peak_device_gb']:.1f} GiB ({smi})", flush=True)
+    free_memory()
+    t_phase = time.perf_counter()
+    emit({"phase": "whisper_train_reference", "config": "reduced whisper f32",
+          **train_reference(M, ops, reduced(cfg), dev), "phase_s": time.perf_counter() - t_phase})
+    allocated = torch.cuda.memory_allocated(dev) / 1e9
+    assert allocated < EMPTY_CARD_GB, allocated
+    t_phase = time.perf_counter()
+    prof = profile_train(M, cfg, dev, batch=B, seq=S, warm=1, steps=2)
+    fwd_flops = whisper_forward_flops(cfg, B, S)
+    step_flops = 3 * fwd_flops   # the forward, and the backward at twice its operations
+    # the state (params and moments) read once and written once; the forward
+    # recomputed under remat counted in, and beside it the bound without it
+    nbytes = 2 * prof["state_gb"] * 1e9
+    bound_ms, bound_by = bound(nbytes, step_flops + fwd_flops, torch.bfloat16)
+    emit({"phase": "whisper_train_step_profile", "card": smi, **prof,
+          "step_flops": step_flops, "remat_recompute_flops": fwd_flops, "bytes": nbytes,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_ms_without_recompute": bound(nbytes, step_flops, torch.bfloat16)[0],
+          "device_ms_over_bound": prof["device_ms_per_step"] / bound_ms,
+          "step_ms_over_bound": prof["step_ms"] / bound_ms,
+          "phase_s": time.perf_counter() - t_phase})
+    return wtrain["launches"]
+
+
 def profiled(fn) -> tuple[list, float]:
     """The CUDA kernels of one call of ``fn`` (``torch.profiler``'s
     ``key_averages`` rows, the step's own range left out) and the call's
@@ -1908,8 +2016,9 @@ def profile_app(apps_mod, app, ideal) -> dict:
 
 def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
               faults=TRAIN_FAULTS) -> dict:
-    """Phases 9 and 14: ``steps`` full-width steps on one fixed batch as
-    tasks of the copied engine with injected failures; the loss must be
+    """Phases 9, 14 and 18: ``steps`` full-width steps on one fixed batch
+    (the encoder-decoder's with its frames) as tasks of the copied engine,
+    with injected failures unless ``faults`` is None; the loss must be
     finite and fall, and each step run must launch each layer's kernels as
     ``train_launches`` says (under ``remat`` the forward twice)."""
     from repro_torch.core import EngineConfig, FaultConfig
@@ -1937,7 +2046,7 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     res = run_training_workflow(dag, final_key, mk, EngineConfig(
-        faults=FaultConfig(**faults), job_timeout_s=3600.0))
+        faults=FaultConfig(**(faults or {})), job_timeout_s=3600.0))
     seconds = time.perf_counter() - t0
     launches = counts(ops)
     losses = [res.report.results[k]["loss"] for k in mk]
@@ -1945,7 +2054,8 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
     runs = len(step_s)
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
     assert int(final_opt["count"]) == steps
-    assert res.report.fault_stats["injected_failures"] > 0, res.report.fault_stats
+    assert (res.report.fault_stats["injected_failures"] > 0) == (faults is not None), \
+        res.report.fault_stats
     assert runs >= steps
     assert launches == train_launches(cfg, runs), (launches, runs)
     per_step = statistics.median(step_s[1:])
@@ -2006,6 +2116,7 @@ def profile_train(M, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, warm=2, steps=3) -> d
 
     params = M.init_model(cfg, seed=0, device=dev)
     state = (params, adamw_init(params))
+    state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
     data = synthetic_batch(cfg, batch, seq, seed=7, device=dev)
     step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
 
@@ -2036,7 +2147,8 @@ def profile_train(M, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, warm=2, steps=3) -> d
 
     def loss_and_grads(c):
         p = map_tree(lambda t: t.detach().requires_grad_(), state[0])
-        return torch.autograd.grad(M.loss_fn(p, c, data["tokens"], data["labels"]), leaves(p))
+        loss = M.loss_fn(p, c, data["tokens"], data["labels"], data.get("enc_embeds"))
+        return torch.autograd.grad(loss, leaves(p))
 
     peak = {}
     for name, remat in (("remat", True), ("no_remat", False)):
@@ -2057,7 +2169,7 @@ def profile_train(M, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, warm=2, steps=3) -> d
 
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"arch": cfg.name, "shape": [batch, seq], "dtype": "bf16", "remat": cfg.remat,
-            "step_ms": step_ms, **slstm, "peak_gib_above_state": peak,
+            "step_ms": step_ms, **slstm, "state_gb": state_gb, "peak_gib_above_state": peak,
             "traced_step_ms": traced_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / step_ms,
             "kernel_launches_per_step": sum(e.count for e in kernels),

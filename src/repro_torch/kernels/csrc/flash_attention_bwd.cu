@@ -1,11 +1,13 @@
 // Flash attention backward for Hopper (sm_90a) on fp32 FMAs: the gradients
 // dq, dk, dv of o = softmax(q·kᵀ·hd^-½ + mask)·v for the forward's shapes
-// and masks: q, o, dO (B,S,H,hd), k/v (B,S,K,hd), query head h reading kv
-// head h / (H/K), causal (col <= row) and sliding window
-// (col > row - window), a ragged S masked by column; fp32 arithmetic,
-// outputs in the inputs' type. The wrapper sends here f32 at every head dim
-// (16, 32, 64, 128, 192) and bf16 at hd 16 and 32; bf16 at hd 64, 128 and
-// 192 runs on the tensor cores (flash_attention_bwd_wgmma.cu).
+// and masks: q, o, dO (B,Sq,H,hd), k/v (B,Skv,K,hd), query head h reading
+// kv head h / (H/K), causal (col <= row) and sliding window
+// (col > row - window), a ragged Skv masked by column and a ragged Sq by
+// row; fp32 arithmetic, outputs in the inputs' type. Sq != Skv
+// (cross-attention) comes without a mask, as in the forward. The wrapper
+// sends here f32 at every head dim (16, 32, 64, 128, 192) and bf16 at hd 16
+// and 32; bf16 at hd 64, 128 and 192 runs on the tensor cores
+// (flash_attention_bwd_wgmma.cu).
 //
 // Replaces no TPU kernel: the JAX package has no Pallas backward, and its
 // training step differentiates the plain attention (models/layers.py,
@@ -74,8 +76,9 @@ constexpr int dkdv_smem_floats() {
          + 2 * BQ;                   // Ls, Ds
 }
 
-__device__ __forceinline__ bool visible(int row, int col, int S, int causal, int window) {
-  return row < S && col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
+__device__ __forceinline__ bool visible(int row, int col, int Sq, int Skv, int causal,
+                                        int window) {
+  return row < Sq && col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
 }
 
 __device__ __forceinline__ float sum8(float x) {  // over the 8 lanes of a row group
@@ -113,7 +116,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse_in,
                     T* __restrict__ dq, float* __restrict__ delta_out,
-                    int S, int H, int K, int causal, int window, float sm_scale) {
+                    int Sq, int Skv, int H, int K, int causal, int window, float sm_scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * (HD + 1);
@@ -130,12 +133,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / K);
   const size_t q_row = (size_t)H * HD;
   const size_t kv_row = (size_t)K * HD;
-  const size_t q_off = (size_t)b * S * q_row + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * S * kv_row + (size_t)kh * HD;
+  const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * HD;
+  const size_t kv_off = (size_t)b * Skv * kv_row + (size_t)kh * HD;
 
-  load_rows<T, HD, BQ, THREADS>(Qs, HD + 1, q + q_off, q_row, q0, S);
-  load_rows<T, HD, BQ, THREADS>(dOs, HD + 1, dout + q_off, q_row, q0, S);
-  load_rows<T, HD, BQ, THREADS>(Vs, HD + 1, o + q_off, q_row, q0, S);  // O, for D
+  load_rows<T, HD, BQ, THREADS>(Qs, HD + 1, q + q_off, q_row, q0, Sq);
+  load_rows<T, HD, BQ, THREADS>(dOs, HD + 1, dout + q_off, q_row, q0, Sq);
+  load_rows<T, HD, BQ, THREADS>(Vs, HD + 1, o + q_off, q_row, q0, Sq);  // O, for D
   __syncthreads();
 
   // D of each row, and its lse from the forward
@@ -149,11 +152,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part = fmaf(dOs[r * (HD + 1) + cg + 8 * j], Vs[r * (HD + 1) + cg + 8 * j], part);
     delta[i] = sum8(part);
     const int row = q0 + r;
-    lse[i] = row < S ? lse_in[((size_t)b * H + h) * S + row] : 0.f;
-    if (cg == 0 && row < S) delta_out[((size_t)b * H + h) * S + row] = delta[i];
+    lse[i] = row < Sq ? lse_in[((size_t)b * H + h) * Sq + row] : 0.f;
+    if (cg == 0 && row < Sq) delta_out[((size_t)b * H + h) * Sq + row] = delta[i];
   }
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
   // one pass: ds = p ⊙ (dO·vᵀ - D), dq += ds·k
@@ -165,8 +168,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // Ks, Vs (the first time holding O) and DS consumed
-    load_rows<T, HD, BK, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, S);
-    load_rows<T, HD, BK, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, S);
+    load_rows<T, HD, BK, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, Skv);
+    load_rows<T, HD, BK, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, Skv);
     __syncthreads();
     float s[TR][TC], dp[TR][TC];
     tile_dot<HD, TR>(s, Qs, Ks, rg, cg);
@@ -178,7 +181,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < TC; ++j) {
         const int col = k0 + cg + 8 * j;
         const float p =
-            visible(row, col, S, causal, window) ? expf(s[i][j] * sm_scale - lse[i]) : 0.f;
+            visible(row, col, Sq, Skv, causal, window) ? expf(s[i][j] * sm_scale - lse[i]) : 0.f;
         DS[(rg * TR + i) * (BK + 1) + cg + 8 * j] = p * (dp[i][j] - delta[i]);
       }
     }
@@ -201,7 +204,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int row = q0 + rg * TR + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       dqb[row * q_row + cg + 8 * j] = from_f32<T>(acc[i][j] * sm_scale);
@@ -214,7 +217,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv,
-                      int S, int H, int K, int causal, int window, float sm_scale) {
+                      int Sq, int Skv, int H, int K, int causal, int window, float sm_scale) {
   constexpr int BKV = bkv<HD>();  // keys of the block's tile
   constexpr int TRK = BKV / 16;   // of them per thread
   extern __shared__ float smem[];
@@ -236,10 +239,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / K;
   const size_t q_row = (size_t)H * HD;
   const size_t kv_row = (size_t)K * HD;
-  const size_t kv_off = (size_t)b * S * kv_row + (size_t)kh * HD;
+  const size_t kv_off = (size_t)b * Skv * kv_row + (size_t)kh * HD;
 
-  load_rows<T, HD, BKV, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, S);
-  load_rows<T, HD, BKV, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, S);
+  load_rows<T, HD, BKV, THREADS>(Ks, HD + 1, k + kv_off, kv_row, k0, Skv);
+  load_rows<T, HD, BKV, THREADS>(Vs, HD + 1, v + kv_off, kv_row, k0, Skv);
 
   float adk[TRK][HD / 8], adv[TRK][HD / 8];
 #pragma unroll
@@ -248,21 +251,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < HD / 8; ++j) adk[i][j] = adv[i][j] = 0.f;
 
   const int q_begin = causal ? k0 / BQ * BQ : 0;
-  const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+  const int q_end = window > 0 ? min(Sq, k0 + BKV - 1 + window) : Sq;
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const size_t q_off = (size_t)b * S * q_row + (size_t)h * HD;
-    const float* lse_h = lse + ((size_t)b * H + h) * S;
-    const float* delta_h = delta + ((size_t)b * H + h) * S;
+    const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * HD;
+    const float* lse_h = lse + ((size_t)b * H + h) * Sq;
+    const float* delta_h = delta + ((size_t)b * H + h) * Sq;
     for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
       __syncthreads();  // Qs, dOs, PT, DST, Ls, Ds of the previous tile consumed
-      load_rows<T, HD, BQ, THREADS>(Qs, HD + 1, q + q_off, q_row, q0, S);
-      load_rows<T, HD, BQ, THREADS>(dOs, HD + 1, dout + q_off, q_row, q0, S);
+      load_rows<T, HD, BQ, THREADS>(Qs, HD + 1, q + q_off, q_row, q0, Sq);
+      load_rows<T, HD, BQ, THREADS>(dOs, HD + 1, dout + q_off, q_row, q0, Sq);
       if (tid < BQ) {
         const int row = q0 + tid;
-        Ls[tid] = row < S ? lse_h[row] : 0.f;
-        Ds[tid] = row < S ? delta_h[row] : 0.f;
+        Ls[tid] = row < Sq ? lse_h[row] : 0.f;
+        Ds[tid] = row < Sq ? delta_h[row] : 0.f;
       }
       __syncthreads();
       float s[TRK][TC], dp[TRK][TC];
@@ -274,7 +277,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < TC; ++j) {
           const int r = cg + 8 * j;
-          const float p = visible(q0 + r, col, S, causal, window)
+          const float p = visible(q0 + r, col, Sq, Skv, causal, window)
                               ? expf(s[i][j] * sm_scale - Ls[r]) : 0.f;
           PT[(rg * TRK + i) * (BQ + 1) + r] = p;
           DST[(rg * TRK + i) * (BQ + 1) + r] = p * (dp[i][j] - Ds[r]);
@@ -310,7 +313,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TRK; ++i) {
     const int key = k0 + rg * TRK + i;
-    if (key >= S) continue;
+    if (key >= Skv) continue;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       dkb[key * kv_row + cg + 8 * j] = from_f32<T>(adk[i][j] * sm_scale);
@@ -322,8 +325,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                   float* delta, int B, int S, int H, int K, int causal, int window,
-                   float sm_scale, cudaStream_t stream) {
+                   float* delta, int B, int Sq, int Skv, int H, int K, int causal,
+                   int window, float sm_scale, cudaStream_t stream) {
   const int smem_dq = dq_smem_floats<HD>() * (int)sizeof(float);
   const int smem_dkdv = dkdv_smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -332,17 +335,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, HD><<<dim3((S + BQ - 1) / BQ, B * H), THREADS, smem_dq, stream>>>(
+  flash_bwd_dq_kernel<T, HD><<<dim3((Sq + BQ - 1) / BQ, B * H), THREADS, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), delta,
-      S, H, K, causal, window, sm_scale);
+      Sq, Skv, H, K, causal, window, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   constexpr int BKV = bkv<HD>();
-  flash_bwd_dkdv_kernel<T, HD><<<dim3((S + BKV - 1) / BKV, B * K), THREADS, smem_dkdv, stream>>>(
+  const dim3 grid_kv((Skv + BKV - 1) / BKV, B * K);
+  flash_bwd_dkdv_kernel<T, HD><<<grid_kv, THREADS, smem_dkdv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, K, causal, window, sm_scale);
+      Sq, Skv, H, K, causal, window, sm_scale);
   return cudaGetLastError();
 }
 
@@ -350,43 +354,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                        float* delta, int B, int S, int H, int K, int hd, int causal,
-                        int window, float sm_scale, cudaStream_t st) {
+                        float* delta, int B, int Sq, int Skv, int H, int K, int hd,
+                        int causal, int window, float sm_scale, cudaStream_t st) {
+#define REPRO_LAUNCH(HD) \
+  launch<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, H, K, causal, window, \
+                sm_scale, st)
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+    case 16: return REPRO_LAUNCH(16);
+    case 32: return REPRO_LAUNCH(32);
   }
   if constexpr (std::is_same_v<T, float>) {
     switch (hd) {
-      case 64: return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
-      case 128: return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
-      case 192: return launch<T, 192>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, sm_scale, st);
+      case 64: return REPRO_LAUNCH(64);
+      case 128: return REPRO_LAUNCH(128);
+      case 192: return REPRO_LAUNCH(192);
     }
   }
+#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o, dout, dq (B,S,H,hd); k, v, dk, dv (B,S,K,hd); all contiguous, one
-// dtype. lse: fp32 (B,H,S), each row's log-sum-exp from the forward. delta:
-// fp32 scratch of B·H·S floats (Σ dO·O of each row, written by the first
-// kernel, read by the second). window <= 0 means no window. Returns
-// cudaGetLastError() after the launches.
+// q, o, dout, dq (B,Sq,H,hd); k, v, dk, dv (B,Skv,K,hd); all contiguous, one
+// dtype. lse: fp32 (B,H,Sq), each row's log-sum-exp from the forward. delta:
+// fp32 scratch of B·H·Sq floats (Σ dO·O of each row, written by the first
+// kernel, read by the second). window <= 0 means no window; a causal or
+// window mask needs Sq == Skv. Returns cudaGetLastError() after the launches.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* dq, void* dk, void* dv, void* delta, int dtype,
-                                   int B, int S, int H, int K, int hd, int causal,
+                                   int B, int Sq, int Skv, int H, int K, int hd, int causal,
                                    int window, float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || lse == nullptr) return cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || lse == nullptr)
+    return cudaErrorInvalidValue;
+  if ((causal || window > 0) && Sq != Skv) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, hd, causal,
+    return dispatch_hd<float>(q, k, v, o, dout, l, dq, dk, dv, d, B, Sq, Skv, H, K, hd, causal,
                               window, sm_scale, st);
   if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, hd,
+    return dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, d, B, Sq, Skv, H, K, hd,
                                       causal, window, sm_scale, st);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
 // Flash attention backward for Hopper (sm_90a) on the tensor cores: the
 // gradients dq, dk, dv of o = softmax(q·kᵀ·hd^-½ + mask)·v for bf16 inputs
-// at head dim 64, 128 or 192: q, o, dO (B,S,H,hd), k/v (B,S,K,hd), query
+// at head dim 64, 128 or 192: q, o, dO (B,Sq,H,hd), k/v (B,Skv,K,hd), query
 // head h reading kv head h / (H/K), causal (col <= row) and sliding window
-// (col > row - window), a ragged S masked by column; fp32 accumulators,
-// bf16 outputs. Every other dtype and head dim runs the FMA kernels in
+// (col > row - window), a ragged Skv masked by column and a ragged Sq by
+// row; fp32 accumulators, bf16 outputs. Sq != Skv is cross-attention
+// (whisper's decoder over its encoder's frames) and comes without a mask,
+// as in the forward. Every other dtype and head dim runs the FMA kernels in
 // flash_attention_bwd.cu.
 //
 // Replaces no TPU kernel: the JAX package has no Pallas backward, and its
@@ -18,7 +20,7 @@
 // Three kernels on one stream, no atomics, so two runs on the same inputs
 // give the same bits (the engine re-runs step tasks and relies on it):
 //   0. flash_bwd_delta_kernel: D of every row, one warp per row, to fp32
-//      scratch (B, H, S);
+//      scratch (B, H, Sq);
 //   1. flash_bwd_wgmma_dq_kernel, one block per (two 64-row q tiles, b·h):
 //      one pass over the visible kv tiles, per tile S = q·kᵀ and
 //      dP = dO·vᵀ (both operands in shared memory), p from lse, ds, and
@@ -52,11 +54,13 @@
 // (setmaxnreg), so that a consumer thread holds hd/2 fp32 accumulators, two
 // score fragments and the split operands without spilling. The rest
 // follows the forward (flash_attention_wgmma.cu): 4-D TMA tensor maps
-// (hd, heads, S, B) with 128-byte swizzle, so a tile past S reads zeros;
+// (hd, heads, Sq or Skv, B) with 128-byte swizzle, so a tile past its
+// length reads zeros; rows of a q tile past Sq get p = 0 before their lse
+// and D (never read past Sq) could enter, so they add nothing to dk or dv;
 // one producer thread that streams tiles into an mbarrier ring; two
 // consumer warpgroups; tiles past the causal diagonal or outside the window
 // are never loaded, and only tiles that cross the diagonal, the window's
-// edge or S test elements. What holds it back is in PERF.md (§6-7).
+// edge, Sq or Skv test elements. What holds it back is in PERF.md (§6-7).
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -104,26 +108,28 @@ struct KvSmem {
   uint64_t empty[NST];
 };
 
-__device__ __forceinline__ bool visible(int row, int col, int S, int causal, int window) {
-  return row < S && col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
+__device__ __forceinline__ bool visible(int row, int col, int Sq, int Skv, int causal,
+                                        int window) {
+  return row < Sq && col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
 }
 
 // whether every (row, col) of the 64 × 64 tile at (r0, c0) is visible
-__device__ __forceinline__ bool all_visible(int r0, int c0, int S, int causal, int window) {
-  return r0 + BT <= S && c0 + BT <= S && (!causal || c0 + BT - 1 <= r0) &&
+__device__ __forceinline__ bool all_visible(int r0, int c0, int Sq, int Skv, int causal,
+                                            int window) {
+  return r0 + BT <= Sq && c0 + BT <= Skv && (!causal || c0 + BT - 1 <= r0) &&
          (window <= 0 || r0 + BT - 1 - c0 < window);
 }
 
 // Stores a 64 × hd fp32 accumulator fragment, times `scale`, as bf16 rows
-// row0 + (fragment row) of `out` (rows `stride` elements apart), rows < S.
+// row0 + (fragment row) of `out` (rows `stride` elements apart), rows < n.
 template <int HD>
 __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], __nv_bfloat16* out,
-                                           size_t stride, int r_lo, int r_hi, int quad, int S,
+                                           size_t stride, int r_lo, int r_hi, int quad, int n,
                                            float scale) {
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int row = (i & 2) ? r_hi : r_lo;
-    if (row >= S) continue;
+    if (row >= n) continue;
     const int col = 8 * (i / 4) + 2 * quad;
     *reinterpret_cast<__nv_bfloat162*>(out + row * stride + col) =
         __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
@@ -135,7 +141,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], __nv_bflo
 template <int HD>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int S, int H) {
+                       float* __restrict__ delta, int rows, int Sq, int H) {
   const int row = blockIdx.x * 8 + threadIdx.x / 32;  // (b, s, h) in memory order
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -151,8 +157,8 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16*
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
-    const int h = row % H, s = (row / H) % S, b = row / (H * S);
-    delta[((size_t)b * H + h) * S + s] = acc;
+    const int h = row % H, s = (row / H) % Sq, b = row / (H * Sq);
+    delta[((size_t)b * H + h) * Sq + s] = acc;
   }
 }
 
@@ -165,8 +171,8 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int S, int H, int K, int causal,
-                          int window, float scale_log2, float sm_scale) {
+                          __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int K,
+                          int causal, int window, float scale_log2, float sm_scale) {
   using Sm = DqSmem<HD>;
   constexpr int NST = Sm::NST;
   extern __shared__ unsigned char smem_raw[];
@@ -179,13 +185,13 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int kh = h / (H / K);
   // two neighbouring 64-row q tiles, one per consumer warpgroup, the
   // heaviest blocks (late tiles under the causal mask) first
-  const int nq = (S + BT - 1) / BT;
+  const int nq = (Sq + BT - 1) / BT;
   const int tile0 = 2 * (gridDim.y - 1 - blockIdx.y);
   const int tile1 = tile0 + 1;
   const bool live1 = tile1 < nq;
   auto kv_from = [&](int t) { return window > 0 ? max(0, BT * t - window + 1) : 0; };
-  auto kv_to = [&](int t) { return causal ? min(S, BT * t + BT) : S; };
-  const int kv_begin = min(kv_from(tile0), live1 ? kv_from(tile1) : S) / BT * BT;
+  auto kv_to = [&](int t) { return causal ? min(Skv, BT * t + BT) : Skv; };
+  const int kv_begin = min(kv_from(tile0), live1 ? kv_from(tile1) : Skv) / BT * BT;
   const int kv_end = max(kv_to(tile0), live1 ? kv_to(tile1) : 0);
   const int n_tiles = (kv_end - kv_begin + BT - 1) / BT;
 
@@ -247,13 +253,13 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
     it_lo = (kv_from(row0 / BT) - kv_begin) / BT;
     it_hi = max(it_lo, min(n_tiles, (kv_to(row0 / BT) - kv_begin + BT - 1) / BT));
   }
-  // each row's lse in base 2 and its D (rows past S: p·0, never stored)
-  const float* lse_bh = lse + ((size_t)b * H + h) * S;
-  const float* d_bh = delta + ((size_t)b * H + h) * S;
-  const float l2_lo = r_lo < S ? lse_bh[r_lo] * kLog2e : 0.f;
-  const float l2_hi = r_hi < S ? lse_bh[r_hi] * kLog2e : 0.f;
-  const float d_lo = r_lo < S ? d_bh[r_lo] : 0.f;
-  const float d_hi = r_hi < S ? d_bh[r_hi] : 0.f;
+  // each row's lse in base 2 and its D (rows past Sq: p = 0, never stored)
+  const float* lse_bh = lse + ((size_t)b * H + h) * Sq;
+  const float* d_bh = delta + ((size_t)b * H + h) * Sq;
+  const float l2_lo = r_lo < Sq ? lse_bh[r_lo] * kLog2e : 0.f;
+  const float l2_hi = r_hi < Sq ? lse_bh[r_hi] * kLog2e : 0.f;
+  const float d_lo = r_lo < Sq ? d_bh[r_lo] : 0.f;
+  const float d_hi = r_hi < Sq ? d_bh[r_hi] : 0.f;
 
   float acc[HD / 2];
 #pragma unroll
@@ -297,12 +303,12 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(acc);
     if (it > it_lo) release(it - 1);
     const int k0 = kv_begin + it * BT;
-    const bool full = all_visible(row0, k0, S, causal, window);
+    const bool full = all_visible(row0, k0, Sq, Skv, causal, window);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const bool hi = i & 2;
       const int col = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
-      const float p = (full || visible(hi ? r_hi : r_lo, col, S, causal, window))
+      const float p = (full || visible(hi ? r_hi : r_lo, col, Sq, Skv, causal, window))
                           ? fast_exp2(fmaf(sc[i], scale_log2, -(hi ? l2_hi : l2_lo))) : 0.f;
       dp[i] = p * (dp[i] - (hi ? d_hi : d_lo));
     }
@@ -323,8 +329,8 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
     release(it);
   }
   if (!live) return;
-  store_rows<HD>(acc, dq + (size_t)b * S * H * HD + (size_t)h * HD, (size_t)H * HD, r_lo, r_hi,
-                 quad, S, sm_scale);
+  store_rows<HD>(acc, dq + (size_t)b * Sq * H * HD + (size_t)h * HD, (size_t)H * HD, r_lo, r_hi,
+                 quad, Sq, sm_scale);
 }
 
 // --- kernel 2: dk, dv -----------------------------------------------------
@@ -337,8 +343,8 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tdo,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                            int S, int H, int K, int causal, int window, float scale_log2,
-                            float sm_scale) {
+                            int Sq, int Skv, int H, int K, int causal, int window,
+                            float scale_log2, float sm_scale) {
   using Sm = KvSmem<HD>;
   constexpr int NST = Sm::NST;
   extern __shared__ unsigned char smem_raw[];
@@ -353,7 +359,7 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   // causal mask, are handed out first for every (b, kv head)
   const int k0 = BT * blockIdx.y;
   const int qt_begin = causal ? blockIdx.y : 0;
-  const int qt_end = ((window > 0 ? min(S, k0 + BT - 1 + window) : S) + BT - 1) / BT;
+  const int qt_end = ((window > 0 ? min(Sq, k0 + BT - 1 + window) : Sq) + BT - 1) / BT;
   const int n_q = qt_end - qt_begin;
   const int n_it = G * n_q;  // (head of the group, q tile) pairs, head-major
 
@@ -446,25 +452,25 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     const int q0 = BT * (qt_begin + it % n_q);
     const int buf = it % 2;
     // this thread's 16 columns: lse (base 2) for warpgroup 0, D for 1
-    const float* rowvec = (wg == 0 ? lse : delta) + ((size_t)b * H + h) * S;
+    const float* rowvec = (wg == 0 ? lse : delta) + ((size_t)b * H + h) * Sq;
     const float unit = wg == 0 ? kLog2e : 1.f;
     float cv[16];
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
       const int row = q0 + 8 * (c / 2) + 2 * quad + (c & 1);
-      cv[c] = row < S ? rowvec[row] * unit : 0.f;
+      cv[c] = row < Sq ? rowvec[row] * unit : 0.f;
     }
     issue_scores(it);
     wgmma_wait<0>();
     fence_regs(sc);
     if (wg == 0) {  // Pᵀ = exp(Sᵀ·scale - lse), handed to warpgroup 1
-      const bool full = all_visible(q0, k0, S, causal, window);
+      const bool full = all_visible(q0, k0, Sq, Skv, causal, window);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int row = q0 + 8 * (i / 4) + 2 * quad + (i & 1);
         const int key = (i & 2) ? key_hi : key_lo;
         const int c = 2 * (i / 4) + (i & 1);
-        sc[i] = (full || visible(row, key, S, causal, window))
+        sc[i] = (full || visible(row, key, Sq, Skv, causal, window))
                     ? fast_exp2(fmaf(sc[i], scale_log2, -cv[c])) : 0.f;
       }
       if (it >= 2) named_sync(kPEmpty + buf, CONSUMERS);  // warpgroup 1 read this buffer
@@ -490,8 +496,8 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const size_t kv_row = (size_t)K * HD;
-  __nv_bfloat16* out = (wg == 0 ? dv : dk) + (size_t)b * S * kv_row + (size_t)kh * HD;
-  store_rows<HD>(acc, out, kv_row, key_lo, key_hi, quad, S, wg == 0 ? 1.f : sm_scale);
+  __nv_bfloat16* out = (wg == 0 ? dv : dk) + (size_t)b * Skv * kv_row + (size_t)kh * HD;
+  store_rows<HD>(acc, out, kv_row, key_lo, key_hi, quad, Skv, wg == 0 ? 1.f : sm_scale);
 }
 
 // --- host side -------------------------------------------------------------
@@ -504,11 +510,11 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                   float* delta, int B, int S, int H, int K, int causal, int window,
+                   float* delta, int B, int Sq, int Skv, int H, int K, int causal, int window,
                    float sm_scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, B, S, H, HD, BT) || !make_map(&tk, k, B, S, K, HD, BT) ||
-      !make_map(&tv, v, B, S, K, HD, BT) || !make_map(&tdo, dout, B, S, H, HD, BT))
+  if (!make_map(&tq, q, B, Sq, H, HD, BT) || !make_map(&tk, k, B, Skv, K, HD, BT) ||
+      !make_map(&tv, v, B, Skv, K, HD, BT) || !make_map(&tdo, dout, B, Sq, H, HD, BT))
     return cudaErrorInvalidValue;
   const int smem_dq = (int)sizeof(DqSmem<HD>) + 1024;  // + room to align the base to 1024
   const int smem_kv = (int)sizeof(KvSmem<HD>) + 1024;
@@ -517,46 +523,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     return e != cudaSuccess ? e : allow_smem(flash_bwd_wgmma_dkdv_kernel<HD>, smem_kv);
   }();
   if (attr != cudaSuccess) return attr;
-  const int rows = B * S * H;
+  const int rows = B * Sq * H;
   flash_bwd_delta_kernel<HD><<<(rows + 7) / 8, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta,
-      rows, S, H);
+      rows, Sq, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale_log2 = sm_scale * kLog2e;
-  const int nq = (S + BT - 1) / BT;
+  const int nq = (Sq + BT - 1) / BT, nkv = (Skv + BT - 1) / BT;
   flash_bwd_wgmma_dq_kernel<HD><<<dim3(B * H, (nq + 1) / 2), THREADS, smem_dq, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), S, H, K, causal, window,
-      scale_log2, sm_scale);
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, K, causal,
+      window, scale_log2, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_wgmma_dkdv_kernel<HD><<<dim3(B * K, nq), THREADS, smem_kv, stream>>>(
+  flash_bwd_wgmma_dkdv_kernel<HD><<<dim3(B * K, nkv), THREADS, smem_kv, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, K, causal, window, scale_log2, sm_scale);
+      static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, K, causal, window, scale_log2, sm_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dout, dq (B,S,H,hd); k, v, dk, dv (B,S,K,hd): bf16, contiguous,
-// 16-byte aligned; hd 64, 128 or 192. lse: fp32 (B,H,S), each row's
-// log-sum-exp from the forward. delta: fp32 scratch of B·H·S floats.
-// window <= 0 means no window. Returns cudaGetLastError() after the launches.
+// q, o, dout, dq (B,Sq,H,hd); k, v, dk, dv (B,Skv,K,hd): bf16, contiguous,
+// 16-byte aligned; hd 64, 128 or 192. lse: fp32 (B,H,Sq), each row's
+// log-sum-exp from the forward. delta: fp32 scratch of B·H·Sq floats.
+// window <= 0 means no window; a causal or window mask needs Sq == Skv.
+// Returns cudaGetLastError() after the launches.
 extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          void* dq, void* dk, void* dv, void* delta, int B,
-                                         int S, int H, int K, int hd, int causal, int window,
-                                         float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || lse == nullptr) return cudaErrorInvalidValue;
+                                         int Sq, int Skv, int H, int K, int hd, int causal,
+                                         int window, float sm_scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || lse == nullptr)
+    return cudaErrorInvalidValue;
+  if ((causal || window > 0) && Sq != Skv) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, causal, window, sm_scale, st);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, causal, window, sm_scale, st);
-  if (hd == 192)
-    return launch<192>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H, K, causal, window, sm_scale, st);
+#define REPRO_LAUNCH(HD) \
+  launch<HD>(q, k, v, o, dout, l, dq, dk, dv, d, B, Sq, Skv, H, K, causal, window, sm_scale, st)
+  if (hd == 64) return REPRO_LAUNCH(64);
+  if (hd == 128) return REPRO_LAUNCH(128);
+  if (hd == 192) return REPRO_LAUNCH(192);
+#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 

@@ -4,9 +4,9 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``. Causal
 and sliding-window masks, GQA (query head h reads kv head h // (H/K)), a
 ragged length masked in the kernel (no padding), fp32 softmax and
 accumulator, output in q's dtype, head dims 16, 32, 64, 128 and 192. The
-forward also takes queries and keys of different lengths, Sq != Skv
-(cross-attention), without a mask; the backward takes Sq == Skv only. The
-dtype and head dim alone choose the kernels (``uses_tensor_cores``):
+forward and the backward also take queries and keys of different lengths,
+Sq != Skv (cross-attention), without a mask. The dtype and head dim alone
+choose the kernels (``uses_tensor_cores``):
 
 - bf16 at hd 64, 128 or 192 runs on the tensor cores: the forward in
   ``csrc/flash_attention_wgmma.cu``, the backward in
@@ -31,9 +31,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 192)
 WGMMA_HEAD_DIMS = (64, 128, 192)  # bf16 head dims of the tensor-core kernels
 
-# where the backward at Sq != Skv (cross-attention's) is planned
-BWD_CROSS_ROADMAP = "ROADMAP.md queue 1 item 8 (training the encoder-decoder)"
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -56,7 +53,7 @@ def _wgmma_fn():
 @functools.cache
 def _bwd_fn():
     fn = _build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -64,7 +61,7 @@ def _bwd_fn():
 @functools.cache
 def _bwd_wgmma_fn():
     fn = _build.library("flash_attention_bwd_wgmma").flash_attention_bwd_wgmma
-    fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -149,33 +146,30 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                do: torch.Tensor, lse: torch.Tensor, *, causal: bool, window: int | None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``launch``'s output: q, o (its output), do (the output's
-    gradient) (B,S,H,hd), k/v (B,S,K,hd), lse (fp32 (B,H,S), as ``launch``
-    wrote it), on one CUDA device -> (dq, dk, dv) in the inputs' dtype.
+    gradient) (B,Sq,H,hd), k/v (B,Skv,K,hd), lse (fp32 (B,H,Sq), as
+    ``launch`` wrote it), on one CUDA device -> (dq, dk, dv) in the inputs'
+    dtype; Sq != Skv without a mask, as in ``launch``.
 
     bf16 at hd 64, 128 or 192 (``uses_tensor_cores``): three kernels on
     one stream, D = Σ do·o per row into fp32 scratch, then dq, then dk and
     dv. Otherwise two FMA kernels: dq (which writes D), then dk
-    and dv. Neither uses atomics: the same inputs give the same bits.
-    Queries and keys of different lengths raise ``NotImplementedError``."""
-    if q.shape[1] != k.shape[1]:
-        raise NotImplementedError(
-            f"flash_attention backward: Sq {q.shape[1]} != Skv {k.shape[1]} is not ported; "
-            f"{BWD_CROSS_ROADMAP} brings it")
+    and dv. Neither uses atomics: the same inputs give the same bits."""
     _check(q, k, v, causal, window, o=o, do=do)
     _check_lse(q, lse)
-    B, S, H, hd = q.shape
-    K = k.shape[2]
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     win = -1 if window is None else int(window)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if uses_tensor_cores(q.dtype, hd):
-            err = _bwd_wgmma_fn()(*ptrs, B, S, H, K, hd, int(causal), win, hd ** -0.5, stream)
+            err = _bwd_wgmma_fn()(*ptrs, B, Sq, Skv, H, K, hd, int(causal), win, hd ** -0.5,
+                                  stream)
         else:
-            err = _bwd_fn()(*ptrs, DTYPES[q.dtype], B, S, H, K, hd, int(causal), win,
+            err = _bwd_fn()(*ptrs, DTYPES[q.dtype], B, Sq, Skv, H, K, hd, int(causal), win,
                             hd ** -0.5, stream)
     _build.check(err, "flash_attention_bwd")
     return dq, dk, dv

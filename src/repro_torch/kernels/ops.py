@@ -13,8 +13,7 @@ CPU). When it records a graph, the forward kernel also writes each row's
 log-sum-exp, which the backward kernels read. Under ``torch.no_grad()``,
 or for inputs that need no grad, it records no graph, allocates no
 log-sum-exp and launches the forward alone. Queries and keys of different
-lengths (cross-attention) run the forward kernel; on the card they raise
-under grad, since no backward kernel takes them yet.
+lengths (cross-attention) run the same kernels, forward and backward.
 
 ``mlstm_chunk`` is likewise a ``torch.autograd.Function``: on the card its
 forward, when it records a graph, also saves each chunk's entering state
@@ -93,14 +92,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,Sq,H,hd), k/v (B,Skv,K,hd) -> (B,Sq,H,hd) in q.dtype;
-    differentiable, but on the card only where Sq == Skv. Sq != Skv takes no
-    causal or window mask."""
+    differentiable. Sq != Skv takes no causal or window mask."""
     # grad mode is off inside Function.forward: whether a graph is recorded
     # is decided here
-    recording = _needs_grad(q, k, v)
-    if recording and q.shape[1] != k.shape[1] and not _on_cpu(q, k, v):
-        raise _no_backward("flash_attention at Sq != Skv", _fa.BWD_CROSS_ROADMAP)
-    return _FlashAttention.apply(q, k, v, causal, window, recording)
+    return _FlashAttention.apply(q, k, v, causal, window, _needs_grad(q, k, v))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,7 +105,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v), whose output was
     ``out``, against the output's gradient ``dout`` (shaped like q). On the
-    card ``lse`` (fp32 (B,H,S)) is required: each row's log-sum-exp as the
+    card ``lse`` (fp32 (B,H,Sq)) is required: each row's log-sum-exp as the
     forward kernel wrote it (``flash_attention.launch(..., lse=)``); nothing
     recomputes it. On the CPU it is not read."""
     if _on_cpu(q, k, v, out, dout):

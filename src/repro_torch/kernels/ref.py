@@ -73,10 +73,10 @@ def flash_attention_lse_ref(
 
 
 def flash_attention_bwd_ref(
-    q: torch.Tensor,            # (B, S, H, hd)
-    k: torch.Tensor,            # (B, S, K, hd)
-    v: torch.Tensor,            # (B, S, K, hd)
-    dout: torch.Tensor,         # (B, S, H, hd): the output's gradient
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Skv, K, hd)
+    v: torch.Tensor,            # (B, Skv, K, hd)
+    dout: torch.Tensor,         # (B, Sq, H, hd): the output's gradient
     *,
     causal: bool = True,
     window: int | None = None,
@@ -91,15 +91,15 @@ def flash_attention_bwd_ref(
 
 
 def flash_attention_bwd_fp32_ref(
-    q: torch.Tensor,            # (B, S, H, hd)
-    k: torch.Tensor,            # (B, S, K, hd)
-    v: torch.Tensor,            # (B, S, K, hd)
-    out: torch.Tensor,          # (B, S, H, hd): the forward's output
-    dout: torch.Tensor,         # (B, S, H, hd): the output's gradient
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Skv, K, hd)
+    v: torch.Tensor,            # (B, Skv, K, hd)
+    out: torch.Tensor,          # (B, Sq, H, hd): the forward's output
+    dout: torch.Tensor,         # (B, Sq, H, hd): the output's gradient
     *,
     causal: bool = True,
     window: int | None = None,
-    lse: torch.Tensor | None = None,  # (B, H, S) fp32 rows' log-sum-exp
+    lse: torch.Tensor | None = None,  # (B, H, Sq) fp32 rows' log-sum-exp
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in fp32 by the backward's formulas, every input upcast:
     p = softmax(q·kᵀ·scale) (= exp(q·kᵀ·scale − lse) on visible pairs when
@@ -109,25 +109,25 @@ def flash_attention_bwd_fp32_ref(
     rounded to the inputs' dtype, as in the backward kernel; the kernel
     then rounds only its outputs. ``flash_attention_bwd_ref`` on bf16
     inputs rounds its products to bf16 as well."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     G = H // K
     scale = hd ** -0.5
-    qg, og, dog = (t.float().reshape(B, S, K, G, hd) for t in (q, out, dout))
+    qg, og, dog = (t.float().reshape(B, Sq, K, G, hd) for t in (q, out, dout))
     kf, vf = k.float(), v.float()
     s = torch.einsum("bskgh,btkh->bkgst", qg, kf) * scale
-    visible = _visible(S, S, causal, window, q.device)
+    visible = _visible(Sq, Skv, causal, window, q.device)
     if lse is None:
         p = torch.softmax(torch.where(visible, s, NEG_INF), dim=-1)
     else:
-        lg = lse.float().reshape(B, K, G, S)[..., None]
+        lg = lse.float().reshape(B, K, G, Sq)[..., None]
         p = torch.where(visible, torch.exp(s - lg), 0.0)
     delta = torch.einsum("bskgh,bskgh->bkgs", dog, og)[..., None]
     ds = p * (torch.einsum("bskgh,btkh->bkgst", dog, vf) - delta)
     dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
     dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
     dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
-    return dq.reshape(B, S, H, hd), dk, dv
+    return dq.reshape(B, Sq, H, hd), dk, dv
 
 
 def decode_attention_ref(

@@ -7,7 +7,10 @@ on the card) -> a WUKONG-orchestrated workflow (``runtime.orchestrator``)
 with injected failures, retries and async checkpoints, resuming from the
 checkpoint when one exists. With ``--hosts/--host-id`` each host reads
 its disjoint data shard. Without ``--full-width`` it trains the reduced
-config.
+config. The pipeline's batches carry tokens only, so whisper's
+encoder-decoder fails its first step with the ``ValueError`` of its missing
+frames, as the reference's ``forward`` fails its assertion there; train it
+through ``launch.train_lm``, whose batches carry frames.
 """
 from __future__ import annotations
 

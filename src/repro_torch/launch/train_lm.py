@@ -6,10 +6,17 @@ The counterpart of ``examples/train_lm.py``, with the same flags plus
 is a task of the copied engine's training workflow
 (``runtime.orchestrator``), with injected Lambda-style failures and
 retries and periodic async checkpoints; a run resumes from the checkpoint
-when one exists. It trains every ported block: the ``attn+dense``
-decoders (smollm-360m by default) and xLSTM (``--arch xlstm_350m``), with
-``remat`` as the config sets it (``reduced`` turns it off). Defaults are
-laptop-sized; ``--full-width`` keeps the arch's real width.
+when one exists. It trains every ported model: the ``attn+dense``
+decoders (smollm-360m by default), xLSTM (``--arch xlstm_350m``), MoE,
+jamba and whisper's encoder-decoder (``--arch whisper_large_v3``, whose
+batches also carry seeded frames; ``--layers`` cuts its decoder, the
+encoder keeps the config's depth), with ``remat`` as the config sets it
+(``reduced`` turns it off). Defaults are laptop-sized; ``--full-width``
+keeps the arch's real width.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_lm --arch whisper_large_v3 --device cpu \
+        --steps 2 --batch 2 --seq 8
+    python -m repro_torch.launch.train_lm --arch whisper_large_v3 --full-width --layers 32
 """
 from __future__ import annotations
 

@@ -19,16 +19,13 @@ fills from the encoder once per request. The reference allocates that
 cache but never writes it (its decode attends over zeros); filling it is
 what makes decode equal the reference's own ``forward``.
 
-``loss_fn`` trains every ported block: attention and mLSTM through their
-kernels' autograd Functions, mamba, sLSTM's time loop and the MoE MLP
-through autograd. With ``cfg.remat`` set, ``forward`` wraps each
-superblock (one repeat of the whole block pattern) in non-reentrant
-``torch.utils.checkpoint``, as the reference wraps it in
-``jax.checkpoint``: only the superblocks' inputs are kept, and the
-backward runs each superblock's forward again.
-
-Training the encoder-decoder raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+``loss_fn`` trains every ported block: attention (self and cross) and
+mLSTM through their kernels' autograd Functions, mamba, sLSTM's time loop
+and the MoE MLP through autograd. With ``cfg.remat`` set, ``forward`` wraps
+each superblock (one repeat of the whole block pattern) and ``encode`` each
+encoder block in non-reentrant ``torch.utils.checkpoint``, as the reference
+wraps them in ``jax.checkpoint``: only their inputs are kept, and the
+backward runs each one's forward again.
 """
 from __future__ import annotations
 
@@ -64,7 +61,7 @@ MAX_ABS_POS = 32768  # learned-position table of the encoder-decoder's decoder
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block's mixer is ported
     (``attn``, ``mamba``, ``mlstm``, ``slstm``) and its MLP is ``dense``,
-    ``moe`` or absent."""
+    ``moe`` or absent. Every such block serves and trains."""
     for entry in cfg.block_pattern:
         mixer, mlp_kind = cfg.mixer_of(entry), cfg.mlp_of(entry)
         for part, ported in ((mixer, _MIXERS), (mlp_kind, _MLPS)):
@@ -72,18 +69,6 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: block {entry!r} is not ported yet; ROADMAP.md queue 1 "
                     f"brings {part!r}")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the model can be trained: every
-    block ``check_supported`` takes has a backward, but the encoder-decoder's
-    cross-attention (queries and keys of different lengths) has no backward
-    kernel yet."""
-    check_supported(cfg)
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: training the encoder-decoder is not ported yet; ROADMAP.md queue 1 "
-            "item 8 (training the encoder-decoder) brings it")
 
 
 # ---------------------------------------------------------------------------
@@ -257,12 +242,14 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return (x @ _head(p, cfg)).float()
 
 
-def loss_fn(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
+def loss_fn(p: Params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross entropy over fp32 logits plus the z-loss
-    ``1e-4 · mean(logz²)`` (a 0-d fp32 tensor), as the reference's."""
-    check_trainable(cfg)
-    logits = forward(p, cfg, tokens)
+    ``1e-4 · mean(logz²)`` (a 0-d fp32 tensor), as the reference's. The
+    encoder-decoder needs its frames ``enc_embeds`` (B, F, d), as in
+    ``forward``."""
+    check_supported(cfg)
+    logits = forward(p, cfg, tokens, enc_embeds)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
     ce = (logz - gold).mean()

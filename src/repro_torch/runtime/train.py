@@ -7,7 +7,9 @@ views of the parameters, and ``adamw_update`` returns new tensors, so a
 step that the engine runs twice on the same state gives the same result
 and leaves that state as it was. Microbatches (the reference's
 ``lax.scan``) are a Python loop that sums fp32 gradients; only one
-microbatch's activations are alive at a time.
+microbatch's activations are alive at a time. The encoder-decoder's batch
+also carries its frames, ``enc_embeds``, split into microbatches with the
+tokens.
 """
 from __future__ import annotations
 
@@ -17,37 +19,41 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import resolve_device
+from repro_torch.models.layers import dtype_of, resolve_device
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
 def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1):
-    """The train step of ``cfg`` (``attn+dense`` decoders and xLSTM's
-    mLSTM / sLSTM blocks: ``model.check_trainable``) under ``opt``;
-    ``batch`` = {"tokens", "labels"}: (B, S) integer tensors, B divisible by
-    ``n_microbatches``. Metrics are 0-d tensors: loss, grad_norm, lr_scale."""
-    M.check_trainable(cfg)
+    """The train step of ``cfg`` (every model ``model.check_supported``
+    takes) under ``opt``; ``batch`` = {"tokens", "labels"}: (B, S) integer
+    tensors, B divisible by ``n_microbatches``, and for the encoder-decoder
+    "enc_embeds" (B, F, d). Metrics are 0-d tensors: loss, grad_norm,
+    lr_scale."""
+    M.check_supported(cfg)
 
-    def value_and_grad(params, tokens, labels):
+    def value_and_grad(params, tokens, labels, enc):
         with torch.enable_grad():
             p = map_tree(lambda t: t.detach().requires_grad_(), params)
-            loss = M.loss_fn(p, cfg, tokens, labels)
+            loss = M.loss_fn(p, cfg, tokens, labels, enc)
             grads = torch.autograd.grad(loss, leaves(p))
         return loss.detach(), unflatten(params, list(grads))
 
     def train_step(params, opt_state, batch):
         tokens, labels = batch["tokens"], batch["labels"]
+        enc = batch.get("enc_embeds")
         if n_microbatches == 1:
-            loss, grads = value_and_grad(params, tokens, labels)
+            loss, grads = value_and_grad(params, tokens, labels, enc)
         else:
             B = tokens.shape[0]
             if B % n_microbatches:
                 raise ValueError(f"batch {B} not divisible by {n_microbatches} microbatches")
+            split = [x.chunk(n_microbatches) for x in (tokens, labels)]
+            split.append([None] * n_microbatches if enc is None else enc.chunk(n_microbatches))
             loss, grads = 0.0, None
-            for t, lab in zip(tokens.chunk(n_microbatches), labels.chunk(n_microbatches)):
-                mloss, g = value_and_grad(params, t, lab)
+            for t, lab, e in zip(*split):
+                mloss, g = value_and_grad(params, t, lab, e)
                 g = map_tree(lambda x: x.float(), g)
                 grads = g if grads is None else map_tree(torch.add, grads, g)
                 loss = loss + mloss
@@ -66,9 +72,17 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0, *,
                     device: str | torch.device = "cuda") -> dict[str, Any]:
     """Uniform random tokens (a data-pipeline stand-in) drawn from a
     ``torch.Generator`` seeded with ``seed``, labels the tokens shifted by
-    one (rolled). Torch cannot reproduce JAX's threefry draws: the same
-    seed gives other tokens than ``repro.runtime.train.synthetic_batch``."""
+    one (rolled); for the encoder-decoder also standard normal frames
+    ``enc_embeds`` (batch, enc_frames, d) in the model dtype, drawn after
+    the tokens from the same generator. Torch cannot reproduce JAX's
+    threefry draws: the same seed gives other tokens and frames than
+    ``repro.runtime.train.synthetic_batch``, which also draws its frames
+    from the very key of its tokens (a quirk not copied here)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    out = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    if cfg.enc_dec:
+        out["enc_embeds"] = torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen,
+                                        device=dev).to(dtype_of(cfg))
+    return out

@@ -24,8 +24,9 @@ the port runs it), also at a chunk of 40 (no multiple of the 16-row mma
 tile) and with the gates where d log f's terms cancel most (log f near 0, i
 near 1); two runs give the same bits, and saving the states for it leaves
 the forward's output as it was, to the bit. A reduced f32
-model's train step on the card (smollm, and xLSTM with and without
-``remat``): loss 1e-4, params 2e-3 against the same step on the CPU. The
+model's train step on the card (smollm, xLSTM with and without ``remat``,
+and whisper with and without it): loss 1e-4, params 2e-3 against the same
+step on the CPU. The
 MoE MLP on the card against the same call on the CPU (f32, with dropped
 assignments): the same routing, rel 1e-5. The mamba mixer (plain
 PyTorch) at d_model 1024 on the card against the same call on the CPU (f32,
@@ -34,10 +35,11 @@ token at a time there against its forward, rel 1e-3. The paper's
 workloads (``repro_torch.apps``, library payloads) on the card: each within
 ``launch.apps``'s limits of its float64 reference there, with the same
 ``charged_ms`` and ``kv_stats`` as on the CPU. Whisper's attention: the
-flash forwards at Sq != Skv (cross-attention, no mask) and the encoder's
-1500 frames, decode over its 1500-frame cross cache, the refusals of a
-mask and of grad at Sq != Skv, and reduced whisper's forward and decode
-on the card against the CPU (rel 1e-5).
+flash forwards and backwards at Sq != Skv (cross-attention, no mask) and
+the encoder's 1500 frames (the backward held as above), decode over its
+1500-frame cross cache, the refusal of a mask at Sq != Skv by the
+wrappers and by the C entry points, and reduced whisper's forward and
+decode on the card against the CPU (rel 1e-5).
 """
 import dataclasses
 
@@ -221,7 +223,7 @@ def test_mlstm_kernel_refuses_what_it_does_not_take(cuda):
 
 def _forward_with_lse(q, k, v, causal, window):
     """The forward kernel's output and the rows' log-sum-exp it wrote."""
-    B, S, H, _ = q.shape
+    B, S, H, _ = q.shape  # S: the queries' length
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     return flash_kernel.launch(q, k, v, causal=causal, window=window, lse=lse), lse
 
@@ -247,21 +249,28 @@ def test_flash_forward_writes_lse_on_card(cuda, dtype, hd, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 192])
-@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
 @pytest.mark.parametrize("H,K", [(2, 2), (6, 2), (8, 1)])  # G = 1, 3, 8
-def test_flash_bwd_kernel_on_card(cuda, dtype, hd, window, H, K):
+@pytest.mark.parametrize("S", [200, 37])  # ragged: 3 full 64-row tiles and a part; under one
+def test_flash_bwd_kernel_on_card(cuda, dtype, hd, causal, window, H, K, S):
     torch.backends.cuda.matmul.allow_tf32 = False
-    S = 200  # ragged: three full 64-row tiles and a partial one
     g = torch.Generator(device=cuda).manual_seed(10)
     q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
                    for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd), (2, S, H, hd)])
-    o, lse = _forward_with_lse(q, k, v, True, window)  # the backward reads the forward's lse
+    _hold_flash_bwd(q, k, v, do, causal, window, dtype)
+
+
+def _hold_flash_bwd(q, k, v, do, causal, window, dtype):
+    """The backward kernel, fed the forward kernel's output and lse, against
+    autograd of the plain version and elementwise against its fp32
+    formulas."""
+    o, lse = _forward_with_lse(q, k, v, causal, window)  # the backward reads the forward's lse
     n = ops.flash_attention.bwd_launches
-    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, causal=True, window=window)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.bwd_launches == n + 1
-    want = flash_attention_bwd_ref(q, k, v, do, causal=True, window=window)
-    exact = flash_attention_bwd_fp32_ref(q, k, v, o, do, causal=True, window=window)
+    want = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    exact = flash_attention_bwd_fp32_ref(q, k, v, o, do, causal=causal, window=window)
     tol = BWD_ELT_TOL[dtype]
     for a, b, e in zip(got, want, exact, strict=True):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -372,15 +381,58 @@ def test_flash_refuses_a_mask_at_sq_ne_skv_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_at_sq_ne_skv_raises_under_grad_on_card(cuda):
-    """No backward kernel takes Sq != Skv yet: under grad the wrapper raises
-    rather than return an output without a gradient."""
-    q = torch.randn((2, 5, 4, 64), device=cuda, requires_grad=True)
-    k = torch.randn((2, 12, 4, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ops.flash_attention(q, k, k, causal=False)
-    with torch.no_grad():
-        assert ops.flash_attention(q, k, k, causal=False).grad_fn is None
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,H,K,hd", CROSS_CASES)
+def test_flash_bwd_at_sq_ne_skv_on_card(cuda, dtype, Sq, Skv, H, K, hd):
+    """The backward kernels at Sq != Skv without a mask, held as at Sq ==
+    Skv; through the autograd Function, one forward and one backward launch,
+    and the same bits twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+                   for s in [(2, Sq, H, hd), (2, Skv, K, hd), (2, Skv, K, hd), (2, Sq, H, hd)])
+    _hold_flash_bwd(q, k, v, do, False, None, dtype)
+    fwd, bwd = ops.flash_attention.launches, ops.flash_attention.bwd_launches
+    runs = []
+    for _ in range(2):
+        leaves_ = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*leaves_, causal=False)
+        runs.append(torch.autograd.grad(out, leaves_, do))
+    assert ops.flash_attention.launches == fwd + 2
+    assert ops.flash_attention.bwd_launches == bwd + 2
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [("float32", 64), ("bfloat16", 32), ("bfloat16", 64)])
+def test_flash_c_entry_points_refuse_a_mask_at_sq_ne_skv_on_card(cuda, dtype, hd):
+    """Below the wrappers' checks, each C entry point (forward and backward,
+    FMA and tensor-core) returns cudaErrorInvalidValue (1) for a causal or
+    window mask at Sq != Skv, and 0 without one."""
+    B, Sq, Skv, H = 1, 37, 150, 4
+    q, o, do, dq = (torch.zeros((B, Sq, H, hd), dtype=TORCH_DT[dtype], device=cuda)
+                    for _ in range(4))
+    k, v, dk, dv = (torch.zeros((B, Skv, H, hd), dtype=TORCH_DT[dtype], device=cuda)
+                    for _ in range(4))
+    lse, delta = (torch.zeros((B, H, Sq), device=cuda) for _ in range(2))
+    wgmma = flash_kernel.uses_tensor_cores(q.dtype, hd)
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    bwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
+    dt = () if wgmma else (flash_kernel.DTYPES[q.dtype],)
+
+    def call(fn, ptrs, causal, window):
+        return fn(*ptrs, *dt, B, Sq, Skv, H, H, hd, causal, window, hd ** -0.5, stream)
+
+    fns = ((flash_kernel._wgmma_fn() if wgmma else flash_kernel._fn(), fwd_ptrs),
+           (flash_kernel._bwd_wgmma_fn() if wgmma else flash_kernel._bwd_fn(), bwd_ptrs))
+    for fn, ptrs in fns:
+        for causal, window in ((1, -1), (0, 16), (1, 16)):
+            assert call(fn, ptrs, causal, window) == 1
+        assert call(fn, ptrs, 0, -1) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -586,7 +638,8 @@ def test_attention_gradients_reach_the_projections_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,remat", [("smollm_360m", False), ("xlstm_350m", False),
-                                        ("xlstm_350m", True)])
+                                        ("xlstm_350m", True), ("whisper_large_v3", False),
+                                        ("whisper_large_v3", True)])
 def test_train_step_on_card_equals_cpu(cuda, arch, remat):
     torch.backends.cuda.matmul.allow_tf32 = False
     if arch == "smollm_360m":
@@ -606,7 +659,9 @@ def test_train_step_on_card_equals_cpu(cuda, arch, remat):
         pg, og, mg = step(pg, og, map_tree(lambda t: t.to(cuda), batch))
         assert abs(mc["loss"].item() - mg["loss"].item()) < 1e-4
         states = {"cpu": (pc, oc), "cuda": (pg, og)}
-    kernel_layers = cfg.n_layers if arch == "smollm_360m" else cfg.n_layers // 2
+    kernel_layers = {"smollm_360m": cfg.n_layers, "xlstm_350m": cfg.n_layers // 2,
+                     # decoder self- and cross-attention, and the encoder's
+                     "whisper_large_v3": 2 * cfg.n_layers + cfg.n_enc_layers}[arch]
     assert (ops.flash_attention.bwd_launches + ops.mlstm_chunk.bwd_launches
             == bwd + 2 * kernel_layers)
     for a, b in zip(leaves(states["cpu"][0]), leaves(states["cuda"][0]), strict=True):

@@ -61,7 +61,7 @@ def test_quickstart_prints_the_reference_lines():
     assert got == printed(quickstart.main)  # and again, to the character
 
 
-@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m", "whisper_large_v3"])
 def test_train_lm_runs_and_resumes_on_cpu(tmp_path, arch):
     argv = ["--device", "cpu", "--arch", arch, "--steps", "4", "--batch", "2", "--seq", "16",
             "--layers", "1", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]

@@ -27,7 +27,10 @@ identical pricing to the JAX workflow), its purity under re-execution,
 checkpoints written by the JAX package and by the port, and the launcher.
 xLSTM (reduced xlstm-350m: mLSTM hd 32, sLSTM) is held at S = 64, where
 the JAX package's chunk is the whole sequence and its masked ``exp``
-cannot overflow (``tests/test_torch_ssm.py``).
+cannot overflow (``tests/test_torch_ssm.py``). Reduced whisper-large-v3
+(2 + 2 layers, 8 frames) trains on the frames JAX's ``synthetic_batch``
+draws, converted through numpy: its encoder, cross-attention at Sq 16
+over Skv 8, and the encoder's ``remat``.
 """
 import dataclasses
 import functools
@@ -55,7 +58,7 @@ from repro.runtime.train import synthetic_batch as jsynthetic_batch
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_attention_bwd_fp32_ref
+from repro_torch.kernels.ref import flash_attention_bwd_fp32_ref, flash_attention_lse_ref
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
@@ -67,11 +70,16 @@ from repro_torch.tree import leaves, map_tree, paths
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192", "xlstm_350m", "mixtral_8x7b",
-         "jamba_1_5_large_398b_8layers"]
+         "jamba_1_5_large_398b_8layers", "whisper_large_v3"]
 B, S = 4, 16
 SEQ = {"xlstm_350m": 64}     # S by arch, where not S
 OPT = dict(lr=1e-3, warmup=3)
 MAMBA_LEAVES = ("in_proj", "x_proj", "dt_proj", "out_proj", "A_log", "D", "dt_bias")
+# the encoder-decoder's own leaves, each of which must get a gradient
+WHISPER_LEAVES = (("enc_blocks", "mixer", "wq"), ("enc_blocks", "mlp", "w_up"),
+                  ("enc_blocks", "norm1", "scale"), ("enc_norm", "scale"), ("dec_pos",),
+                  ("blocks", 0, "cross_norm", "scale"),
+                  *(("blocks", 0, "cross", name) for name in ("wq", "wk", "wv", "wo")))
 
 
 def configs(arch, **kw):
@@ -111,7 +119,7 @@ def case(arch, remat=False):
     batch = to_numpy(jsynthetic_batch(jcfg, B, SEQ.get(arch, S), seed=5))
     jbatch = jax.tree.map(jnp.asarray, batch)
     loss, grads = jax.jit(jax.value_and_grad(JM.loss_fn), static_argnums=1)(
-        jparams, jcfg, jbatch["tokens"], jbatch["labels"])
+        jparams, jcfg, jbatch["tokens"], jbatch["labels"], jbatch.get("enc_embeds"))
     opt = jadamw_init(jparams)
     p1, o1, m1 = jax.jit(jbuild_train_step(jcfg, JAdamWConfig(**OPT)))(jparams, opt, jbatch)
     return dict(jcfg=jcfg, tcfg=tcfg, tree=tree, jparams=jparams, batch=batch,
@@ -143,7 +151,7 @@ def max_abs(a, b):
 def test_loss_fn_matches_jax(arch):
     c = case(arch)
     b = port_batch(c)
-    loss = M.loss_fn(port_params(c), c["tcfg"], b["tokens"], b["labels"])
+    loss = M.loss_fn(port_params(c), c["tcfg"], b["tokens"], b["labels"], b.get("enc_embeds"))
     assert loss.dtype == torch.float32 and loss.dim() == 0
     assert abs(loss.item() - c["loss"]) < 1e-5, (loss.item(), c["loss"])
 
@@ -151,7 +159,7 @@ def test_loss_fn_matches_jax(arch):
 def port_grads(c, cfg=None):
     p = map_tree(lambda t: t.requires_grad_(), port_params(c))
     b = port_batch(c)
-    loss = M.loss_fn(p, cfg or c["tcfg"], b["tokens"], b["labels"])
+    loss = M.loss_fn(p, cfg or c["tcfg"], b["tokens"], b["labels"], b.get("enc_embeds"))
     loss.backward()
     return loss.detach(), map_tree(lambda t: t.grad, p)
 
@@ -173,6 +181,12 @@ def test_gradients_match_jax_grad(arch):
     names = MAMBA_LEAVES if "in_proj" in mixer else ("wq", "wk", "wv")
     for name in names:
         assert float(mixer[name].abs().max()) > 0, name
+    if c["tcfg"].enc_dec:  # the encoder and the cross-attention learn through the decoder
+        for path in WHISPER_LEAVES:
+            leaf = got
+            for key in path:
+                leaf = leaf[key]
+            assert float(leaf.abs().max()) > 0, path
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -193,11 +207,11 @@ def test_train_step_matches_jax(arch):
             assert max_abs(got, want) <= 1e-4 * max(1.0, float(np.max(np.abs(want))))
 
 
-@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "xlstm_350m", "whisper_large_v3"])
 def test_remat_gives_the_same_loss_and_gradients(arch):
-    """``remat`` recomputes each superblock in the backward: on the CPU the
-    same loss and gradients to the bit; under ``remat`` the port matches the
-    JAX package under ``remat``."""
+    """``remat`` recomputes each superblock (and whisper's each encoder
+    block) in the backward: on the CPU the same loss and gradients to the
+    bit; under ``remat`` the port matches the JAX package under ``remat``."""
     c = case(arch)
     loss, grads = port_grads(c)
     remat_cfg = dataclasses.replace(c["tcfg"], remat=True)
@@ -271,14 +285,24 @@ def test_cosine_schedule_matches_jax():
     assert cosine_schedule(0, warmup=warmup).item() == pytest.approx(1 / warmup)
 
 
-def test_microbatching_matches_full_batch():
-    c = case("smollm_360m")
+def microbatched_equals_full_batch(arch):
+    """Four microbatches against the full batch (whisper's frames split with
+    the tokens, as the reference's ``split``): loss 1e-3, params 2e-3."""
+    c = case(arch)
     p0, b = port_params(c), port_batch(c)
     p1, _, m1 = build_train_step(c["tcfg"], AdamWConfig())(p0, adamw_init(p0), b)
     p4, _, m4 = build_train_step(c["tcfg"], AdamWConfig(), n_microbatches=4)(
         p0, adamw_init(p0), b)
     assert abs(m1["loss"].item() - m4["loss"].item()) < 1e-3
     assert max(max_abs(a, b) for a, b in zip(leaves(p1), leaves(p4))) < 2e-3
+
+
+def test_microbatching_matches_full_batch():
+    microbatched_equals_full_batch("smollm_360m")
+
+
+def test_whisper_microbatching_splits_the_frames_with_the_tokens():
+    microbatched_equals_full_batch("whisper_large_v3")
 
 
 def step_twice(arch):
@@ -306,16 +330,17 @@ def test_xlstm_step_twice_is_identical_and_leaves_the_state_unchanged():
     step_twice("xlstm_350m")
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper_large_v3", "item 8"),       # encoder-decoder
-])
-def test_training_refuses_blocks_without_a_backward(arch, item):
-    _, tcfg = configs(arch)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        build_train_step(tcfg, AdamWConfig())
-    tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=item):
-        M.loss_fn({}, tcfg, tok, tok)
+def test_whisper_step_twice_is_identical_and_leaves_the_state_unchanged():
+    step_twice("whisper_large_v3")
+
+
+def test_whisper_step_without_frames_raises():
+    """A batch without frames fails as the encoder-decoder's forward does."""
+    c = case("whisper_large_v3")
+    p0, b = port_params(c), port_batch(c)
+    del b["enc_embeds"]
+    with pytest.raises(ValueError, match="enc_embeds"):
+        build_train_step(c["tcfg"], AdamWConfig())(p0, adamw_init(p0), b)
 
 
 def test_synthetic_batch_is_seeded_and_rolled():
@@ -325,6 +350,24 @@ def test_synthetic_batch_is_seeded_and_rolled():
     assert torch.equal(a["tokens"], b["tokens"])
     assert torch.equal(a["labels"], torch.roll(a["tokens"], -1, dims=1))
     assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < tcfg.vocab
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_synthetic_batch_draws_seeded_frames_for_the_encoder_decoder(dtype):
+    _, tcfg = configs("whisper_large_v3", dtype=dtype)
+    a = synthetic_batch(tcfg, 2, 8, seed=3, device="cpu")
+    b = synthetic_batch(tcfg, 2, 8, seed=3, device="cpu")
+    other = synthetic_batch(tcfg, 2, 8, seed=4, device="cpu")
+    frames = a["enc_embeds"]
+    assert frames.shape == (2, tcfg.enc_frames, tcfg.d_model)
+    assert frames.dtype == getattr(torch, dtype)
+    assert torch.equal(frames, b["enc_embeds"]) and torch.equal(a["tokens"], b["tokens"])
+    assert not torch.equal(frames, other["enc_embeds"])
+    # drawn after the tokens: the tokens are those of the decoder-only batch
+    _, smollm = configs("smollm_360m", vocab=tcfg.vocab)
+    assert torch.equal(a["tokens"], synthetic_batch(smollm, 2, 8, seed=3, device="cpu")["tokens"])
+    assert 0.5 < float(frames.float().std()) < 1.5
+    assert "enc_embeds" not in synthetic_batch(smollm, 2, 8, seed=3, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -529,4 +572,32 @@ def test_flash_attention_bwd_fp32_ref_matches_jax_grad(H, K, S, window):
         causal=True, window=window)
     for g, w in zip(got, vjp(jnp.asarray(dout)), strict=True):
         assert g.dtype == torch.float32
+        assert max_abs(g, w) < 1e-5
+
+
+@pytest.mark.parametrize("route", ["fp32_ref", "function"])
+@pytest.mark.parametrize("Sq,Skv", [(16, 70), (70, 16), (37, 100)])  # ragged Skv, both ways
+def test_flash_backward_at_sq_ne_skv_matches_jax_grad(route, Sq, Skv):
+    """Cross-attention's backward (non-causal, Sq != Skv): the fp32 formulas
+    (given the rows' log-sum-exp) and the CPU autograd Function against
+    ``jax.grad`` of the JAX package's ``sdpa``."""
+    rng = np.random.default_rng(Sq * Skv)
+    H, K, hd = 6, 2, 16
+    q = rng.standard_normal((2, Sq, H, hd), dtype=np.float32)
+    k, v = (rng.standard_normal((2, Skv, K, hd), dtype=np.float32) for _ in range(2))
+    dout = rng.standard_normal((2, Sq, H, hd), dtype=np.float32)
+    out, vjp = jax.vjp(lambda a, b, c_: JL.sdpa(a, b, c_, causal=False),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    if route == "fp32_ref":
+        lse = flash_attention_lse_ref(tq, tk, causal=False)
+        got = flash_attention_bwd_fp32_ref(tq, tk, tv, torch.from_numpy(np.array(out)),
+                                           torch.from_numpy(dout), causal=False, lse=lse)
+    else:
+        tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+        y = ops.flash_attention(tq, tk, tv, causal=False)
+        assert max_abs(y.detach(), out) < 1e-5
+        got = torch.autograd.grad(y, (tq, tk, tv), torch.from_numpy(dout))
+    for g, w in zip(got, vjp(jnp.asarray(dout)), strict=True):
+        assert tuple(g.shape) == w.shape
         assert max_abs(g, w) < 1e-5

@@ -37,7 +37,6 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_lse_ref
 from repro_torch.launch import serve
@@ -316,16 +315,6 @@ def test_cross_decode_matches_jax_sdpa_over_the_whole_cache():
     want = JL.sdpa(q, jk, jv, causal=False).reshape(B, 1, -1) @ p["wo"]
     got = L.attention_cross_decode(tp, tx, tk, tv, tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
-
-
-def test_flash_backward_refuses_sq_ne_skv():
-    """The backward kernels take one length: at Sq != Skv the wrapper raises
-    before it reads a pointer, naming the ROADMAP item that brings it."""
-    q = torch.zeros((1, 5, 2, 16))
-    k = torch.zeros((1, 8, 2, 16))
-    lse = torch.zeros((1, 2, 5))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        flash_kernel.launch_bwd(q, k, k, q, q, lse, causal=False, window=None)
 
 
 def test_cpu_flash_at_sq_ne_skv_differentiates_as_its_plain_version():
