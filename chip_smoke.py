@@ -193,6 +193,24 @@ script started; any failure raises and exits non-zero:
     ``whisper_train_step_profile``, as phase 11's, beside the step's bound:
     three forwards' operations (``whisper_forward_flops``) and a fourth for
     the recomputation under ``remat``, and the state read and written once.
+19. the dry run (``repro_torch.launch.dryrun``): (a) ``--all
+    --both-meshes`` as a process of its own, every one of the 34 (arch x
+    shape) cells ``ok``, a line per cell with the argument bytes per device
+    on the 1x1, 16x16 and 2x16x16 meshes, the traced peak, whether it fits
+    one H100 and its FLOPs (``dryrun``); meanwhile (b) every case of phase 3
+    through its kernel op on the card and on fake CUDA tensors, the fake
+    outputs' shapes, dtypes and strides those of the kernel's and the op's
+    FLOP formula the case's bound operations (``dryrun_fake_kernels``), and
+    the cells that fit one H100 at their full shape traced on fake CUDA
+    tensors: xlstm-350m's decode_32k and long_500k, and smollm-360m's
+    train_4k at the least power of two of microbatches whose trace fits;
+    then (c) each of them run once on the card (``dryrun_card_cell``): the
+    bytes the arguments requested equal to the argument bytes (what the
+    allocator holds for them beside), FlopCounterMode's count the trace's
+    exactly, the kernel
+    launches its kernel calls, and the measured peak within ``PEAK_BAND``
+    of the traced one. smollm's cell launches the flash forward and
+    backward (``dryrun_launches`` in the kernels line).
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
@@ -234,7 +252,8 @@ the profiler's device time of the backward of
 
 Kernel launch counts are set to 0 before each forward, decode-vs-forward,
 serve and train phase (smollm's, xLSTM's, nemotron's, mixtral's,
-jamba's and whisper's, its training too) and read after it, and before
+jamba's and whisper's, its training too, and each cell phase 19 runs) and
+read after it, and before
 each full-size app run of phase 13, which must launch none. The line before the last is ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
@@ -247,6 +266,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -346,6 +366,12 @@ REPS = 30
 # the script's start; each record carries the seconds since, so that a run
 # shows where its time goes
 T_START = time.perf_counter()
+
+
+# Every case of phase 3, as (kernel op, its shapes, the operations its bound
+# counts); phase 19 runs each again through the op on the card and under
+# FakeTensorMode, and holds the op's FLOP formula to those operations.
+KERNEL_CASES: list[tuple[str, dict, float]] = []
 
 
 def emit(rec: dict) -> None:
@@ -465,6 +491,8 @@ def check_decode(ops, ref, timer, dev, dtype, B, S, lens, H=15, K=5, hd=64, seed
     elt = q.element_size()
     nbytes = (2 * n_valid * K * hd + 2 * B * H * hd) * elt + 4 * B
     t_bound, by = bound(nbytes, 4.0 * n_valid * H * hd, dtype)
+    KERNEL_CASES.append(("decode_attention", dict(dtype=dtype, B=B, S=S, lens=list(lens), H=H,
+                                                  K=K, hd=hd), 4.0 * n_valid * H * hd))
     mine = lambda: ops.decode_attention(q, kc, vc, kv_len)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)  # noqa: E731
     return with_ratio({
@@ -508,6 +536,9 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
         lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)  # noqa: E731
     nbytes = 2 * B * (S * H + Skv * K) * hd * q.element_size()   # q, o; k, v
     t_bound, by = bound(nbytes, 4.0 * B * H * hd * n_pairs, dtype)
+    KERNEL_CASES.append(("flash_attention_fwd", dict(dtype=dtype, B=B, S=S, Skv=Skv, causal=causal,
+                                                     window=window, H=H, K=K, hd=hd),
+                         4.0 * B * H * hd * n_pairs))
     mine = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
     lengths = f"S={S}" if Skv == S else f"Sq={S} Skv={Skv}"
     return with_ratio({
@@ -560,6 +591,9 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
     elt = q.element_size()
     nbytes = 4 * B * (S * H + Skv * K) * hd * elt   # q, o, dO, dq; k, v, dk, dv
     t_bound, by = bound(nbytes, 10.0 * B * H * hd * n_pairs, dtype)
+    KERNEL_CASES.append(("flash_attention_bwd", dict(dtype=dtype, B=B, S=S, Skv=Skv, causal=causal,
+                                                     window=window, H=H, K=K, hd=hd),
+                         10.0 * B * H * hd * n_pairs))
     # yardstick: the backward of SDPA over the same function (kv heads grouped)
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     if window is None:
@@ -641,6 +675,8 @@ def check_mlstm(ops, ref, timer, dev, B, S, H, hd, with_state, seed=2, chunk=64)
     # the fp32-FMA bound (PR 12's route) is kept beside it
     t_bound, by = bound(nbytes, flops, torch.float32, TF32X3_FLOPS)
     t_fma, fma_by = bound(nbytes, flops, torch.float32)
+    KERNEL_CASES.append(("mlstm_chunk_fwd", dict(B=B, S=S, H=H, hd=hd, chunk=c,
+                                                 with_state=with_state), flops))
     mine = lambda: ops.mlstm_chunk(q, k, v, log_f, i_gate, chunk=chunk, state=state)  # noqa: E731
     return {
         "shape": f"B={B} S={S} H={H} hd={hd} chunk={c} state={with_state}", "dtype": "f32",
@@ -712,6 +748,9 @@ def check_mlstm_bwd(ops, ref, timer, dev, B, S, H, hd, with_state, final_grads, 
     # the fp32-FMA bound (the first backward's route) is kept beside it
     t_bound, by = bound(4.0 * elems, flops, torch.float32, TF32X3_FLOPS)
     t_fma, fma_by = bound(4.0 * elems, flops, torch.float32)
+    KERNEL_CASES.append(("mlstm_chunk_bwd", dict(B=B, S=S, H=H, hd=hd, chunk=c,
+                                                 with_state=with_state, final_grads=final_grads),
+                         flops))
     mine = lambda: ops.mlstm_chunk_bwd(*args, saved=saved, **kw)  # noqa: E731
     return {
         "shape": f"B={B} S={S} H={H} hd={hd} chunk={c} state={with_state} "
@@ -1052,6 +1091,11 @@ def main() -> int:
     whisper_train = run_whisper_train(get_config, reduced, ops, M, dev, smi)
     free_memory()
 
+    # 19. the dry run: every (arch x shape) cell traced without allocation, each fake kernel
+    # held to its kernel, the cells that fit one H100 run on it against their traces
+    dryrun_launches = run_dryrun(ops, get_config, dev, smi)
+    free_memory()
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
@@ -1060,7 +1104,8 @@ def main() -> int:
          "launches": fwd_counts["flash_attention"], **_headline(flash_cases[0]),
          "nemotron_launches": nemotron_launches, "mixtral_launches": mixtral_flash,
          "jamba_launches": jamba_flash, "whisper_launches": whisper_flash,
-         "whisper_train_launches": whisper_train["flash_attention"], "cases": flash_cases},
+         "whisper_train_launches": whisper_train["flash_attention"],
+         "dryrun_launches": dryrun_launches["flash_attention"], "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:77",
@@ -1085,7 +1130,8 @@ def main() -> int:
          "note": "no TPU kernel: the JAX package has no Pallas backward; its training "
                  "differentiates layers.sdpa through XLA",
          "launches": train["launches"]["flash_attention_bwd"], **_headline(bwd_cases[0]),
-         "whisper_train_launches": whisper_train["flash_attention_bwd"], "cases": bwd_cases},
+         "whisper_train_launches": whisper_train["flash_attention_bwd"],
+         "dryrun_launches": dryrun_launches["flash_attention_bwd"], "cases": bwd_cases},
     ]
     for kr in kernels:
         assert kr["launches"] > 0, kr["name"]
@@ -2348,6 +2394,260 @@ def _headline(case: dict) -> dict:
     """The main path's shape: the first (bf16) case of each kernel."""
     return {k: case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
+
+
+# Phase 19: the dry run's records go here (the repository's build/, git-ignored)
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+# The dry run on the card's machine: probe traces in parallel, one process each
+DRYRUN_JOBS = 8
+# the cells phase 19 runs on the card: what the dry run says fits one H100 at
+# its full shape (smollm's train cell at the least power of two of
+# microbatches that fits, the reference's own Variant(n_microbatches=N))
+DRYRUN_CARD_CELLS = (("xlstm_350m", "decode_32k"), ("xlstm_350m", "long_500k"),
+                     ("smollm_360m", "train_4k"))
+# the fake-CUDA trace's bytes and peak against the meta trace's (relative)
+META_GAP = 0.01
+# the CUDA caching allocator rounds each tensor up to 512 bytes, and hands a
+# large tensor a cached block whole when splitting it would leave 1 MB or less
+ALLOC_UNSPLIT = 1 << 20
+# The measured peak (max_memory_allocated over the step) against the traced
+# one: measured / traced must lie in this band. First reading (H100, 700 W):
+# 1.0 exactly for both xLSTM decode cells, 1.000001 for smollm's train cell at
+# 16 microbatches (77 KB over 75.6 GB). The trace counts the same allocations
+# rounded as the allocator rounds them, so it can over-count only by a tensor
+# that a real run frees sooner (none seen); it leaves out the kernels' scratch
+# (flash backward's row sums, B·H·Sq fp32, 3.9 MB per call there; decode's
+# partials; the mLSTM workspaces) and the cached blocks the allocator hands
+# out whole (up to 1 MB over a large tensor's request), which a peak can hold:
+# 1 % above covers that at these cells.
+PEAK_BAND = (0.999, 1.01)
+PEAK_BAND_WHY = ("the trace counts the step's own allocations, 512-byte rounded (first "
+                 "reading 1.0, 1.0, 1.000001); above it only the kernels' scratch it omits")
+
+
+def _op_inputs(kind: str, shape: dict, dev) -> list:
+    """Random inputs on the card of one phase-3 case, as its kernel op takes
+    them (``torch.ops.repro_torch``); a backward's from its forward op."""
+    K = torch.ops.repro_torch
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*size, dtype=torch.float32):
+        return torch.randn(size, generator=g, device=dev).to(dtype)
+
+    if kind.startswith("flash"):
+        d, B, S, Skv, H, Kh, hd = (shape[k] for k in ("dtype", "B", "S", "Skv", "H", "K", "hd"))
+        q, k, v = randn(B, S, H, hd, dtype=d), randn(B, Skv, Kh, hd, dtype=d), randn(
+            B, Skv, Kh, hd, dtype=d)
+        mask = (shape["causal"], shape["window"])
+        if kind == "flash_attention_fwd":
+            return [q, k, v, *mask, True]
+        out, (lse,) = K.flash_attention_fwd(q, k, v, *mask, True)
+        return [q, k, v, out, randn(B, S, H, hd, dtype=d), lse, *mask]
+    if kind == "decode_attention":
+        d, B, S, H, Kh, hd = (shape[k] for k in ("dtype", "B", "S", "H", "K", "hd"))
+        return [randn(B, H, hd, dtype=d), randn(B, S, Kh, hd, dtype=d),
+                randn(B, S, Kh, hd, dtype=d),
+                torch.tensor(shape["lens"], dtype=torch.int32, device=dev)]
+    B, S, H, hd, chunk = (shape[k] for k in ("B", "S", "H", "hd", "chunk"))
+    q, k, v = (randn(B, S, H, hd) for _ in range(3))
+    log_f, i_gate = F.logsigmoid(randn(B, S, H) + 2.0), torch.sigmoid(randn(B, S, H))
+    state = [randn(B, H, hd, hd) * 0.1, randn(B, H, hd)] if shape["with_state"] else [None, None]
+    if kind == "mlstm_chunk_fwd":
+        return [q, k, v, log_f, i_gate, *state, chunk, True]
+    y, _, _, saved = K.mlstm_chunk_fwd(q, k, v, log_f, i_gate, *state, chunk, True)
+    final = ([randn(B, H, hd, hd), randn(B, H, hd)] if shape["final_grads"] else [None, None])
+    return [q, k, v, log_f, i_gate, y, randn(B, S, H, hd), *saved, *final, chunk,
+            shape["with_state"]]
+
+
+def fake_kernel_checks(dev) -> list:
+    """Phase 19 (b): each phase-3 case through its kernel op on the card and
+    on fake CUDA tensors of the same inputs (``FakeTensorMode``): the fake
+    outputs' shapes, dtypes and strides must equal the kernel's, and the
+    op's FLOP formula (``FlopCounterMode`` over the real call) must equal
+    the operations the case's bound counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def layout(out):
+        return [(tuple(t.shape), str(t.dtype), tuple(t.stride()))
+                for t in torch.utils._pytree.tree_leaves(out)]
+
+    checked = []
+    for kind, shape, bound_flops in KERNEL_CASES:
+        op = getattr(torch.ops.repro_torch, kind)
+        args = _op_inputs(kind, shape, dev)
+        with FlopCounterMode(display=False) as fc:
+            real = op(*args)
+        mode = FakeTensorMode()
+        fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+        with mode:
+            fake = op(*fake_args)
+        assert layout(fake) == layout(real), (kind, shape, layout(fake), layout(real))
+        assert fc.get_total_flops() == bound_flops, (kind, shape, fc.get_total_flops(),
+                                                     bound_flops)
+        checked.append({"op": kind, "shape": {k: str(v) for k, v in shape.items()},
+                        "outputs": layout(real), "flops": fc.get_total_flops()})
+        del args, real, fake, fake_args
+    return checked
+
+
+def _gb(n: float) -> float:
+    return n / 1e9
+
+
+def dryrun_start() -> subprocess.Popen:
+    """Phase 19 (a): ``python -m repro_torch.launch.dryrun --all
+    --both-meshes`` as a process of its own (its fake process group of 512
+    ranks is global), started to run while the rest of the phase traces."""
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                             "--both-meshes", "--jobs", str(DRYRUN_JOBS), "--out",
+                             str(DRYRUN_DIR)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def dryrun_records(proc: subprocess.Popen, t0: float) -> tuple[dict, dict]:
+    """(a)'s end: every one of the 34 cells must be ok. Prints a line per cell;
+    returns the records by (arch, shape, mesh) and the phase's summary."""
+    out, err = proc.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, out[-4000:] + err[-4000:]
+    assert "34 ok, 0 failed" in out, out[-2000:]
+    recs = {}
+    for path in DRYRUN_DIR.glob("*__baseline.json"):
+        r = json.loads(path.read_text())
+        recs[r["arch"], r["shape"], r["mesh"]] = r
+    cells = sorted({(a, sh) for a, sh, _ in recs})
+    assert len(cells) == 34 and all(r["ok"] for r in recs.values())
+    for arch, shape in cells:
+        host = recs[arch, shape, "1x1"]
+        by_mesh = " ".join(f"{m} {_gb(recs[arch, shape, m]['argument_bytes']['total']):.3f}"
+                           for m in ("1x1", "16x16", "2x16x16"))
+        print(f"dryrun {arch} {shape}: args/device GB {by_mesh} | traced peak "
+              f"{_gb(host['peak_bytes']):.3f} GB fits_one_h100={host['fits_one_h100']} "
+              f"flops {host['flops']:.4e}", flush=True)
+    fits = [f"{a} {sh}" for a, sh in cells if recs[a, sh, "1x1"]["fits_one_h100"]]
+    return recs, {"seconds": seconds, "cells": len(cells), "fit_one_h100": fits}
+
+
+def trace_on_card_route(D, get_config, arch: str, shape: str, variant) -> dict:
+    """The cell traced on fake CUDA tensors, the card's route."""
+    t0 = time.perf_counter()
+    traced = D.trace_cell(get_config(arch), shape, variant, device="cuda")
+    traced["seconds"] = time.perf_counter() - t0
+    return traced
+
+
+def run_dryrun_cell(D, ops, get_config, arch: str, shape: str, variant, traced: dict,
+                    meta: dict, dev) -> dict:
+    """Phase 19 (c): one cell that fits one H100, its trace on fake CUDA
+    tensors (``traced``) held to the meta trace (``meta``: FLOPs and kernel
+    calls equal, bytes and peak within META_GAP), then run once on the card:
+    the allocated arguments must be the dry run's argument bytes up to the
+    allocator's 512 bytes per tensor, FlopCounterMode's count the trace's
+    exactly, the kernel launches its kernel calls, and the measured peak
+    within PEAK_BAND of the traced one. Also places the arguments on the
+    card's own 1x1 mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.tree import leaves
+
+    for key in ("flops", "kernel_calls"):
+        assert traced[key] == meta[key], (arch, shape, key, traced[key], meta[key])
+    # meta tensors allocate as the CPU does where an op allocates by device (log_sigmoid's
+    # buffer, empty on CUDA): bytes and peak may differ a little from the card's route
+    meta_gap = {key: traced[key] / meta[key] - 1 for key in ("bytes_accessed", "peak_bytes")}
+    assert all(abs(g) <= META_GAP for g in meta_gap.values()), (arch, shape, meta_gap)
+    cell = D.build_cell(get_config(arch), shape, variant)
+    mesh = mesh_lib.make_host_mesh("cuda")
+    try:
+        arg_bytes = D.argument_bytes(cell, mesh)
+    finally:
+        dist.destroy_process_group()
+    free_memory()
+    base = torch.cuda.memory_allocated()
+    base_requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    args = D.materialize(cell, dev)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - base_requested
+    n_tensors = sum(isinstance(t, torch.Tensor) for t in leaves(args))
+    # what the tensors asked for is the argument bytes exactly; what the allocator holds for
+    # them adds its rounding: 512 B a tensor, and a cached block it does not split (a
+    # large one may exceed the request by up to 1 MB)
+    assert requested == arg_bytes["total"], (arch, shape, requested, arg_bytes)
+    assert 0 <= allocated - requested <= n_tensors * ALLOC_UNSPLIT, (
+        arch, shape, allocated, requested)
+    torch.cuda.reset_peak_memory_stats()
+    reset(ops)
+    step = cell.step()
+    t0 = time.perf_counter()
+    with D.flop_counter() as fc:
+        out = step(args)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = counts(ops)
+    del out, args
+    free_memory()
+    flops = fc.get_total_flops()
+    ratio = peak / traced["peak_bytes"]
+    rec = {"arch": arch, "shape": shape, "variant": variant.tag,
+           "trace_s": traced["seconds"], "fake_cuda_over_meta_minus_1": meta_gap,
+           "argument_bytes": arg_bytes, "requested_bytes": requested,
+           "allocated_bytes": allocated, "tensors": n_tensors,
+           "flops": flops, "traced_flops": traced["flops"],
+           "traced_peak_bytes": traced["peak_bytes"], "traced_peak_by_phase":
+           traced["peak_by_phase"], "meta_peak_bytes": meta["peak_bytes"], "peak_bytes": peak,
+           "peak_over_traced": ratio, "peak_band": PEAK_BAND, "peak_band_why": PEAK_BAND_WHY,
+           "traced_kernel_calls": traced["kernel_calls"], "launches": launches,
+           "step_s": step_s}
+    emit({"phase": "dryrun_card_cell", **rec})
+    assert flops == traced["flops"], (arch, shape, flops, traced["flops"])
+    for name, n in traced["kernel_calls"].items():
+        key = {"flash_attention_fwd": "flash_attention", "mlstm_chunk_fwd": "mlstm_chunk"}.get(
+            name, name)
+        assert launches[key] == n, (arch, shape, name, launches, traced["kernel_calls"])
+    assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (arch, shape, peak, traced["peak_bytes"])
+    return rec
+
+
+def run_dryrun(ops, get_config, dev, smi) -> dict:
+    """Phase 19: the dry run (a) over every cell in a process of its own;
+    meanwhile (b) each fake kernel held to its kernel, and the cells that fit
+    one H100 traced on the card's route (smollm's train cell at the least
+    power of two of microbatches that its meta trace fits); then (c) those
+    cells run on the card."""
+    from repro_torch.launch import dryrun as D
+
+    t_phase = time.perf_counter()
+    proc = dryrun_start()
+    t0 = time.perf_counter()
+    fakes = fake_kernel_checks(dev)
+    emit({"phase": "dryrun_fake_kernels", "cases": len(fakes), "seconds":
+          time.perf_counter() - t0, "checked": fakes})
+    free_memory()
+    arch, shape = DRYRUN_CARD_CELLS[2]
+    t0 = time.perf_counter()
+    n, smollm_meta = D.least_microbatches(get_config(arch), shape)
+    search_s = time.perf_counter() - t0
+    variants = [D.Variant()] * 2 + [D.Variant(n_microbatches=n, tag=f"n_microbatches={n}")]
+    traced = [trace_on_card_route(D, get_config, a, sh, v)
+              for (a, sh), v in zip(DRYRUN_CARD_CELLS, variants)]
+    recs, summary = dryrun_records(proc, t_phase)
+    emit({"phase": "dryrun", **summary, "card": smi})
+    fit = {(a, sh) for a, sh, m in recs if m == "1x1" and recs[a, sh, m]["fits_one_h100"]}
+    assert fit == set(DRYRUN_CARD_CELLS[:2]), fit
+    metas = [recs[a, sh, "1x1"] for a, sh in DRYRUN_CARD_CELLS[:2]] + [smollm_meta]
+    cells = [run_dryrun_cell(D, ops, get_config, a, sh, v, t, m, dev)
+             for (a, sh), v, t, m in zip(DRYRUN_CARD_CELLS, variants, traced, metas)]
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "dryrun_summary", "card": smi, "phase_s": phase_s,
+          "microbatch_search_s": search_s, "n_microbatches": n,
+          "cells_on_card": [f"{c['arch']} {c['shape']} {c['variant']}" for c in cells]})
+    return {"flash_attention": cells[2]["launches"]["flash_attention"],
+            "flash_attention_bwd": cells[2]["launches"]["flash_attention_bwd"]}
 
 
 def free_memory() -> None:

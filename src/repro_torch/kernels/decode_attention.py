@@ -48,18 +48,13 @@ def split_plan(B: int, K: int, S: int) -> tuple[int, int]:
     return -(-S // split_len), split_len
 
 
-def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           kv_len: torch.Tensor) -> torch.Tensor:
-    """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32, on one CUDA device."""
+def check_args(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               kv_len: torch.Tensor) -> None:
+    """Raise unless q (B,H,hd), caches (B,S,K,hd) and kv_len (B,) int32 have
+    the shapes, dtypes, head dim and layout (contiguous) the kernels take.
+    Reads no memory: a dry run's fake kernel checks the same (``ops``)."""
     B, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
-    dev = q.get_device()
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("kv_len", kv_len)):
-        if not t.is_cuda or t.get_device() != dev:
-            raise ValueError(f"decode_attention: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} is not contiguous and 16-byte aligned")
     if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"decode_attention: q {q.dtype}, caches {k_cache.dtype}/"
                          f"{v_cache.dtype}: need one dtype of {list(DTYPES)}")
@@ -73,6 +68,24 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}: need "
                          f"(B,S,K,hd), K | H, H/K <= {MAX_G}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("kv_len", kv_len)):
+        if not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} is not contiguous")
+
+
+def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           kv_len: torch.Tensor) -> torch.Tensor:
+    """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32, on one CUDA device."""
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    dev = q.get_device()
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("kv_len", kv_len)):
+        if not t.is_cuda or t.get_device() != dev:
+            raise ValueError(f"decode_attention: {name} on {t.device}, q on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
+    check_args(q, k_cache, v_cache, kv_len)
     n_split, split_len = split_plan(B, K, S)
     o = torch.empty_like(q)
     part = (torch.empty(B * K * n_split * (H // K) * (hd + 2), dtype=torch.float32,

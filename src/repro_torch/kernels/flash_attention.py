@@ -72,23 +72,18 @@ def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           window: int | None, **more: torch.Tensor) -> None:
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+               window: int | None, **more: torch.Tensor) -> None:
     """Raise unless q (B,Sq,H,hd), k/v (B,Skv,K,hd) and ``more`` (each shaped
-    like q) are what the kernels take: one CUDA device, one dtype,
-    contiguous and 16-byte aligned, a head dim and window they support, and
-    no causal or window mask where Sq != Skv (the reference masks only
-    self-attention)."""
+    like q) have the shapes, dtype, head dim, layout and mask the kernels
+    take: one dtype, contiguous, no causal or window mask where Sq != Skv
+    (the reference masks only self-attention). Reads no memory: a dry run's
+    fake kernels check the same (``ops``)."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    dev = q.get_device()
-    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
-        if not t.is_cuda or t.get_device() != dev:
-            raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
+    for name, t in (("k", k), ("v", v), *more.items()):
         if t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not contiguous and 16-byte aligned")
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not in {list(DTYPES)}")
     if hd not in HEAD_DIMS:
@@ -99,11 +94,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     for name, t in more.items():
         if t.shape != q.shape:
             raise ValueError(f"flash_attention: {name} {tuple(t.shape)} != q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} is not contiguous")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if Sq != Skv and (causal or window is not None):
         raise ValueError(f"flash_attention: Sq {Sq} != Skv {Skv} takes no mask "
                          f"(causal={causal}, window={window})")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int | None, **more: torch.Tensor) -> None:
+    """``check_args``, and all on q's CUDA device and 16-byte aligned."""
+    check_args(q, k, v, causal, window, **more)
+    dev = q.get_device()
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
+        if not t.is_cuda or t.get_device() != dev:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
 def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:

@@ -55,17 +55,27 @@ def _bwd():
     return fn, size
 
 
+def check_layout(named: list[tuple[str, torch.Tensor]]) -> None:
+    """Raise unless every tensor is fp32 and contiguous. Reads no memory: a
+    dry run's fake kernels check the same (``ops``)."""
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise ValueError(f"mlstm_chunk: {name} is {t.dtype}, need torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk: {name} is not contiguous")
+
+
 def _check(named: list[tuple[str, torch.Tensor]], device: torch.device) -> None:
+    """``check_layout``, and all on ``device`` (CUDA) and 16-byte aligned."""
+    check_layout(named)
     for name, t in named:
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"mlstm_chunk: {name} on {t.device}, q on {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"mlstm_chunk: {name} is {t.dtype}, need torch.float32")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"mlstm_chunk: {name} is not contiguous and 16-byte aligned")
+        if t.data_ptr() % 16:
+            raise ValueError(f"mlstm_chunk: {name} is not 16-byte aligned")
 
 
-def _check_shapes(q, k, v, log_f, i_gate, chunk, state) -> None:
+def check_shapes(q, k, v, log_f, i_gate, chunk, state) -> None:
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"mlstm_chunk: head dim {hd} not in {HEAD_DIMS}")
@@ -102,7 +112,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tenso
     if state is not None:
         named += [("C", state[0]), ("n", state[1])]
     _check(named, q.device)
-    _check_shapes(q, k, v, log_f, i_gate, chunk, state)
+    check_shapes(q, k, v, log_f, i_gate, chunk, state)
     y = torch.empty_like(q)
     C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=q.device)
     n = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
@@ -121,6 +131,31 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tenso
     return (y, (C, n), saved) if save else (y, (C, n))
 
 
+def check_bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+                   i_gate: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                   saved: tuple[torch.Tensor, ...], *, chunk: int,
+                   dC: torch.Tensor | None, dn: torch.Tensor | None
+                   ) -> list[tuple[str, torch.Tensor]]:
+    """Raise unless ``launch_bwd``'s arguments have the shapes and dtypes it
+    takes (``check_layout``, ``check_shapes``); returns them named. Reads no memory: a dry run's fake kernel
+    checks the same (``ops``)."""
+    B, S, H, hd = q.shape
+    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate), ("y", y),
+             ("dy", dy), ("C_states", saved[0]), ("n_states", saved[1]), ("nrm", saved[2])]
+    if (dC is None) != (dn is None):
+        raise ValueError("mlstm_chunk_bwd: pass both final-state gradients or neither")
+    if dC is not None:
+        named += [("dC", dC), ("dn", dn)]
+    check_layout(named)
+    check_shapes(q, k, v, log_f, i_gate, chunk, None)
+    want = ((q.shape,) * 2 + saved_shapes(B, S, H, hd, chunk)
+            + (((B, H, hd, hd), (B, H, hd)) if dC is not None else ()))
+    for (name, t), shape in zip(named[5:], want, strict=True):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"mlstm_chunk_bwd: {name} {tuple(t.shape)}, need {tuple(shape)}")
+    return named
+
+
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
                i_gate: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
                saved: tuple[torch.Tensor, torch.Tensor, torch.Tensor], *, chunk: int,
@@ -130,19 +165,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.T
     ``dy`` and the final state's (``dC``, ``dn``; None: zeros). dC0 and dn0
     are None unless ``state_grads``. All fp32 on one CUDA device."""
     B, S, H, hd = q.shape
-    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate), ("y", y),
-             ("dy", dy), ("C_states", saved[0]), ("n_states", saved[1]), ("nrm", saved[2])]
-    if (dC is None) != (dn is None):
-        raise ValueError("mlstm_chunk_bwd: pass both final-state gradients or neither")
-    if dC is not None:
-        named += [("dC", dC), ("dn", dn)]
+    named = check_bwd_args(q, k, v, log_f, i_gate, y, dy, saved, chunk=chunk, dC=dC, dn=dn)
     _check(named, q.device)
-    _check_shapes(q, k, v, log_f, i_gate, chunk, None)
-    want = ((q.shape,) * 2 + saved_shapes(B, S, H, hd, chunk)
-            + (((B, H, hd, hd), (B, H, hd)) if dC is not None else ()))
-    for (name, t), shape in zip(named[5:], want, strict=True):
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"mlstm_chunk_bwd: {name} {tuple(t.shape)}, need {tuple(shape)}")
     fn, size = _bwd()
     ws = torch.empty(size(B, S, H, hd, chunk), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -6,6 +6,19 @@ kernel, or raises (no fallback). Each wrapper counts its kernel launches in
 a plain integer attribute, ``<wrapper>.launches``, so a run can show that
 its path went through the kernel.
 
+Each of the five kernel entry points (flash forward with its log-sum-exp,
+flash backward, decode, ``mlstm_chunk`` forward with its saved states, its
+backward) is a ``torch.library`` custom op, ``torch.ops.repro_torch.*``.
+On real CUDA tensors the op launches the kernel and counts the launch. On
+a ``FakeTensor`` (``FakeTensorMode``) or a meta tensor it runs the op's
+fake implementation instead: the kernel's argument checks, then outputs
+with the shapes, dtypes and strides the kernel allocates, computing
+nothing and counting nothing. That is how a dry run
+(``launch/dryrun.py``) traces the card's route without a card. Each op
+also has a FLOP formula (``torch.utils.flop_counter``), the operations
+``chip_smoke.py`` reckons for the kernel's bound, so ``FlopCounterMode``
+counts the kernels on the card and in a trace alike.
+
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward is
 ``flash_attention_bwd`` (the backward kernels on the card, counted in
 ``flash_attention.bwd_launches``; autograd of the plain version on the
@@ -29,6 +42,8 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -45,12 +60,196 @@ _count_lock = threading.Lock()  # engine tasks may call from several threads
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True for CPU tensors (the plain version); False for CUDA tensors, real
+    or fake, and for meta tensors (a dry run's trace): the kernel's op."""
     if all(t.is_cuda for t in ts):  # the card's path: the cheapest test first
         return False
     devices = {t.device.type for t in ts}
     if devices == {"cpu"}:
         return True
-    raise ValueError(f"tensors on {sorted(devices)}: need all on cpu or all on cuda")
+    if devices == {"meta"}:
+        return False
+    raise ValueError(f"tensors on {sorted(devices)}: need all on cpu, all on cuda or all "
+                     f"on meta")
+
+
+def _count(wrapper, name: str = "launches") -> None:
+    with _count_lock:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _op(name: str) -> str:
+    """A kernel op's qualified name: ``torch.ops.repro_torch.<name>``."""
+    return f"repro_torch::{name}"  # lint: allow(REPRO020) torch.library's separator, no KV key
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops: launch on real CUDA tensors, shapes only on fake ones.
+# An output asked for only sometimes is a list, empty when it is not: 0-element
+# tensors would share no storage and count as aliases of each other.
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op(_op("flash_attention_fwd"), mutates_args=())
+def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int | None,
+               with_lse: bool) -> tuple[Tensor, list[Tensor]]:
+    """(out (B,Sq,H,hd), [lse fp32 (B,H,Sq)] if ``with_lse`` else [])."""
+    lse = _lse_like(q) if with_lse else None
+    out = _fa.launch(q, k, v, causal=causal, window=window, lse=lse)
+    _count(flash_attention)
+    return out, [] if lse is None else [lse]
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, causal, window, with_lse):
+    _fa.check_args(q, k, v, causal, window)
+    return torch.empty_like(q), [_lse_like(q)] if with_lse else []
+
+
+def _lse_like(q: Tensor) -> Tensor:
+    B, S, H, _ = q.shape
+    return torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+
+
+@torch.library.custom_op(_op("flash_attention_bwd"), mutates_args=())
+def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor, lse: Tensor,
+               causal: bool, window: int | None) -> tuple[Tensor, Tensor, Tensor]:
+    grads = _fa.launch_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+    _count(flash_attention, "bwd_launches")
+    return grads
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, out, dout, lse, causal, window):
+    _fa.check_args(q, k, v, causal, window, o=out, do=dout)
+    _fa._check_lse(q, lse)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.custom_op(_op("decode_attention"), mutates_args=())
+def _decode(q: Tensor, k_cache: Tensor, v_cache: Tensor, kv_len: Tensor) -> Tensor:
+    out = _dec.launch(q, k_cache, v_cache, kv_len)
+    _count(decode_attention)
+    return out
+
+
+@_decode.register_fake
+def _(q, k_cache, v_cache, kv_len):
+    _dec.check_args(q, k_cache, v_cache, kv_len)
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(_op("mlstm_chunk_fwd"), mutates_args=())
+def _mlstm_fwd(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor, i_gate: Tensor,
+               C0: Tensor | None, n0: Tensor | None, chunk: int, save: bool
+               ) -> tuple[Tensor, Tensor, Tensor, list[Tensor]]:
+    """(y, C, n, [C_states, n_states, nrm] if ``save`` else [])."""
+    state = None if C0 is None else (C0, n0)
+    if save:
+        y, (C, n), saved = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state,
+                                      save=True)
+    else:
+        (y, (C, n)), saved = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state), ()
+    _count(mlstm_chunk)
+    return y, C, n, list(saved)
+
+
+@_mlstm_fwd.register_fake
+def _(q, k, v, log_f, i_gate, C0, n0, chunk, save):
+    state = None if C0 is None else (C0, n0)
+    named = [("q", q), ("k", k), ("v", v), ("log_f", log_f), ("i_gate", i_gate)]
+    _ml.check_layout(named + ([] if state is None else [("C", C0), ("n", n0)]))
+    _ml.check_shapes(q, k, v, log_f, i_gate, chunk, state)
+    B, S, H, hd = q.shape
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)  # noqa: E731
+    saved = [new(*shape) for shape in _ml.saved_shapes(B, S, H, hd, chunk)] if save else []
+    return torch.empty_like(q), new(B, H, hd, hd), new(B, H, hd), saved
+
+
+@torch.library.custom_op(_op("mlstm_chunk_bwd"), mutates_args=())
+def _mlstm_bwd(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor, i_gate: Tensor, y: Tensor,
+               dy: Tensor, C_states: Tensor, n_states: Tensor, nrm: Tensor,
+               dC: Tensor | None, dn: Tensor | None, chunk: int, state_grads: bool
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, list[Tensor]]:
+    """(dq, dk, dv, dlog_f, di, [dC0, dn0] if ``state_grads`` else [])."""
+    grads = _ml.launch_bwd(q, k, v, log_f, i_gate, y, dy, (C_states, n_states, nrm),
+                           chunk=chunk, dC=dC, dn=dn, state_grads=state_grads)
+    _count(mlstm_chunk, "bwd_launches")
+    return (*grads[:5], list(grads[5:]) if state_grads else [])
+
+
+@_mlstm_bwd.register_fake
+def _(q, k, v, log_f, i_gate, y, dy, C_states, n_states, nrm, dC, dn, chunk, state_grads):
+    _ml.check_bwd_args(q, k, v, log_f, i_gate, y, dy, (C_states, n_states, nrm), chunk=chunk,
+                       dC=dC, dn=dn)
+    B, _, H, hd = q.shape
+    state = [q.new_empty((B, H, hd, hd)), q.new_empty((B, H, hd))] if state_grads else []
+    return (*(torch.empty_like(t) for t in (q, k, v, log_f, i_gate)), state)
+
+
+# ---------------------------------------------------------------------------
+# FLOP formulas: the operations chip_smoke.py reckons for each kernel's bound
+# ---------------------------------------------------------------------------
+
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs attention sees: ``ref._visible``'s count."""
+    if not causal and window is None:
+        return Sq * Skv
+    S = Sq  # a mask needs Sq == Skv
+    if causal:
+        w = S if window is None else min(window, S)
+        return w * (w + 1) // 2 + (S - w) * w
+    w = min(window, S)  # keys after the query, and w - 1 before it
+    return S * S - (S - w) * (S - w + 1) // 2
+
+
+def mlstm_pairs(S: int, chunk: int) -> int:
+    """The causal (t <= s) pairs within each chunk, the last one ragged."""
+    rest = S % chunk
+    return (S // chunk) * chunk * (chunk + 1) // 2 + rest * (rest + 1) // 2
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_fwd_flops(q, k, v, causal, window, with_lse, *, out_shape=None, **kw) -> int:
+    B, Sq, H, hd = q
+    return 4 * B * H * hd * attention_pairs(Sq, k[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q, k, v, out, dout, lse, causal, window, *, out_shape=None, **kw) -> int:
+    B, Sq, H, hd = q
+    return 10 * B * H * hd * attention_pairs(Sq, k[1], causal, window)
+
+
+def decode_keys(kv_len: Tensor, S: int) -> int:
+    """The cache keys a decode call reads: Σ_b min(kv_len_b, S). The values of
+    a fake or meta ``kv_len`` are unknown, and every slot counts: a dry run's
+    decode cells fill their caches (``pos = seq_len - 1``)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if isinstance(kv_len, FakeTensor) or kv_len.is_meta:
+        return kv_len.shape[0] * S
+    return int(kv_len.clamp(0, S).sum().item())
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention, get_raw=True)
+def _decode_flops(q, k_cache, v_cache, kv_len, *, out_val=None, **kw) -> int:
+    _, H, hd = q.shape
+    return 4 * H * hd * decode_keys(kv_len, k_cache.shape[1])
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunk_fwd)
+def _mlstm_fwd_flops(q, k, v, log_f, i_gate, C0, n0, chunk, save, *, out_shape=None,
+                     **kw) -> int:
+    B, S, H, hd = q
+    return B * H * (4 * hd * mlstm_pairs(S, chunk) + 4 * hd * hd * S)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunk_bwd)
+def _mlstm_bwd_flops(q, *rest, out_shape=None, **kw) -> int:
+    B, S, H, hd = q
+    chunk = rest[-2]
+    return B * H * (10 * hd * mlstm_pairs(S, chunk) + 8 * hd * hd * S
+                    + 2 * hd * hd * -(-S // chunk))
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -69,13 +268,9 @@ class _FlashAttention(torch.autograd.Function):
         lse = None
         if _on_cpu(q, k, v):
             out = flash_attention_ref(q, k, v, causal=causal, window=window)
-        else:
-            if recording:  # the backward kernels read each row's log-sum-exp
-                B, S, H, _ = q.shape
-                lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-            out = _fa.launch(q, k, v, causal=causal, window=window, lse=lse)
-            with _count_lock:
-                flash_attention.launches += 1
+        else:  # recording: the backward kernels read each row's log-sum-exp
+            out, lse = _flash_fwd(q, k, v, causal, window, recording)
+            lse = lse[0] if lse else None
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window)
         return out
@@ -113,10 +308,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse is None:
         raise ValueError("flash_attention_bwd: on the card the backward reads each row's "
                          "log-sum-exp from the forward; pass lse=")
-    grads = _fa.launch_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
-    with _count_lock:
-        flash_attention.bwd_launches += 1
-    return grads
+    return _flash_bwd(q, k, v, out, dout, lse, causal, window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -127,10 +319,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if _needs_grad(q, k_cache, v_cache):
         raise _no_backward("decode_attention", "it serves decoding only, ROADMAP.md "
                            "queue 2; training runs flash_attention")
-    out = _dec.launch(q, k_cache, v_cache, kv_len)
-    with _count_lock:
-        decode_attention.launches += 1
-    return out
+    return _decode(q, k_cache, v_cache, kv_len)
 
 
 class _MlstmChunk(torch.autograd.Function):
@@ -141,14 +330,8 @@ class _MlstmChunk(torch.autograd.Function):
         saved = ()
         if _on_cpu(q, k, v, log_f, i_gate, *(state or ())):
             y, (C, n) = mlstm_chunk_ref(q, k, v, log_f, i_gate, chunk=chunk, state=state)
-        else:
-            if recording:  # the backward kernel reads the chunks' states and the normalisers
-                y, (C, n), saved = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state,
-                                              save=True)
-            else:
-                y, (C, n) = _ml.launch(q, k, v, log_f, i_gate, chunk=chunk, state=state)
-            with _count_lock:
-                mlstm_chunk.launches += 1
+        else:  # recording: the backward kernel reads the chunks' states and the normalisers
+            y, C, n, saved = _mlstm_fwd(q, k, v, log_f, i_gate, C0, n0, chunk, recording)
         ctx.save_for_backward(q, k, v, log_f, i_gate, C0, n0, y, *saved)
         ctx.chunk = chunk
         return y, C, n
@@ -205,13 +388,10 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: to
         dC = dn.new_zeros((*dn.shape, dn.shape[-1]))
     if dn is None and dC is not None:
         dn = dC.new_zeros(dC.shape[:-1])
-    grads = _ml.launch_bwd(q, k, v, log_f, i_gate, y, dy, saved, chunk=chunk,
-                           dC=None if dC is None else dC.contiguous(),
-                           dn=None if dn is None else dn.contiguous(),
-                           state_grads=state is not None)
-    with _count_lock:
-        mlstm_chunk.bwd_launches += 1
-    return grads
+    grads = _mlstm_bwd(q, k, v, log_f, i_gate, y, dy, *saved,
+                       None if dC is None else dC.contiguous(),
+                       None if dn is None else dn.contiguous(), chunk, state is not None)
+    return (*grads[:5], *(grads[5] or (None, None)))
 
 
 flash_attention.launches = 0

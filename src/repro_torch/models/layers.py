@@ -4,7 +4,11 @@ Port of ``repro.models.layers`` for ``attn+dense`` and ``attn+moe``
 blocks, and the encoder-decoder's cross-attention. Parameters are plain
 dictionaries of tensors with the reference's names and layouts: weights
 stored ``(in, out)`` and applied as ``x @ W``.
-``init_*`` take an explicit ``torch.Generator`` and device.
+``init_*`` take an explicit ``torch.Generator`` and device. The reference's
+``init_*`` return ``(params, specs)``; here ``specs_*`` beside each
+``init_*`` give the specs: the same tree with, at each leaf, a tuple of
+*logical axis names* per dimension (the names below), which
+``runtime.sharding`` resolves to mesh axes.
 
 Attention runs through the kernel wrappers whatever ``cfg.use_pallas``
 says: ``attention`` calls ``ops.flash_attention`` and ``attention_decode``
@@ -23,6 +27,12 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
+
+# Logical axis names (runtime/sharding.py maps them onto a mesh)
+VOCAB, EMBED, HEADS, KV, HD, FF, EXPERTS, LAYERS, INNER, STATE = (
+    "vocab", "embed", "heads", "kv_heads", "head_dim", "ff", "experts",
+    "layers", "inner", "state",
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,6 +61,10 @@ def _init(gen: torch.Generator, shape: tuple[int, ...], scale: float,
 
 def init_rmsnorm(cfg: ModelConfig, device: torch.device) -> Params:
     return {"scale": torch.ones((cfg.d_model,), dtype=torch.float32, device=device)}
+
+
+def specs_rmsnorm(cfg: ModelConfig) -> Params:
+    return {"scale": (EMBED,)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -100,6 +114,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, cross: bool = False) 
         for name, width in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
             p[name] = torch.zeros((width,), dtype=dt, device=gen.device)
     return p
+
+
+def specs_attention(cfg: ModelConfig, cross: bool = False) -> Params:
+    s: Params = {"wq": (EMBED, HEADS), "wk": (EMBED, KV), "wv": (EMBED, KV),
+                 "wo": (HEADS, EMBED)}
+    if cfg.qkv_bias and not cross:
+        s.update(bq=(HEADS,), bk=(KV,), bv=(KV,))
+    return s
 
 
 def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
@@ -246,6 +268,11 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def specs_mlp(cfg: ModelConfig) -> Params:
+    s: Params = {"w_gate": (EMBED, FF)} if cfg.activation == "swiglu" else {}
+    return {**s, "w_up": (EMBED, FF), "w_down": (FF, EMBED)}
+
+
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.activation == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -273,6 +300,11 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "w_up": _init(gen, (E, d, f), d ** -0.5, dt),
         "w_down": _init(gen, (E, f, d), f ** -0.5, dt),
     }
+
+
+def specs_moe(cfg: ModelConfig) -> Params:
+    return {"router": (EMBED, None), "w_gate": (EXPERTS, EMBED, FF),
+            "w_up": (EXPERTS, EMBED, FF), "w_down": (EXPERTS, FF, EMBED)}
 
 
 class MoeRoute(NamedTuple):

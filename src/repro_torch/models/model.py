@@ -14,6 +14,11 @@ pytree as plain dictionaries: per pattern position, each leaf stacked over
 ``n_repeats`` along a leading axis (the encoder's over ``n_enc_layers``).
 ``jax.lax.scan`` over the stack becomes a Python loop over the repeats.
 
+``abstract_params``, ``model_specs`` and ``cache_specs`` are the dry run's
+trees (``launch/dryrun.py``): the parameters as meta tensors, nothing
+allocated, and the reference's logical-axis specs of the parameters and
+the decode cache, leaf for leaf.
+
 The encoder-decoder's decode reads a cross cache that ``prefill_cross``
 fills from the encoder once per request. The reference allocates that
 cache but never writes it (its decode attends over zeros); filling it is
@@ -37,6 +42,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    EMBED,
+    HEADS,
+    INNER,
+    KV,
+    LAYERS,
+    STATE,
+    VOCAB,
     Params,
     attention,
     attention_cross_decode,
@@ -51,7 +63,12 @@ from repro_torch.models.layers import (
     moe_mlp,
     resolve_device,
     rmsnorm,
+    specs_attention,
+    specs_mlp,
+    specs_moe,
+    specs_rmsnorm,
 )
+from repro_torch.tree import is_spec, map_tree
 
 _MIXERS = ("attn", "mamba", "mlstm", "slstm")
 _MLPS = ("dense", "moe", None)
@@ -127,6 +144,58 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         p["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab), generator=gen,
                                     device=dev) * 0.02).to(dt)
     return p
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """``init_model``'s tree as meta tensors of its shapes, dtypes and
+    strides: nothing is allocated. ``init_model`` runs under
+    ``FakeTensorMode`` (its draws come from a CPU generator, and a meta
+    device has none)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_model(cfg, device="cpu")
+    return map_tree(lambda t: torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                  device="meta"), fake)
+
+
+_SPECS_MIXER = {"attn": specs_attention, "mamba": ssm.specs_mamba, "mlstm": ssm.specs_mlstm,
+                "slstm": ssm.specs_slstm}
+
+
+def _block_specs(entry: str, cfg: ModelConfig, cross: bool = False) -> Params:
+    s = {"norm1": specs_rmsnorm(cfg), "mixer": _SPECS_MIXER[cfg.mixer_of(entry)](cfg)}
+    mlp_kind = cfg.mlp_of(entry)
+    if mlp_kind is not None:
+        s["norm2"] = specs_rmsnorm(cfg)
+        s["mlp"] = specs_moe(cfg) if mlp_kind == "moe" else specs_mlp(cfg)
+    if cross:
+        s["cross_norm"] = specs_rmsnorm(cfg)
+        s["cross"] = specs_attention(cfg, cross=True)
+    return s
+
+
+def _stack_specs(spec: Params) -> Params:
+    """Prepend the layers axis to every leaf spec."""
+    return map_tree(lambda s: (LAYERS, *s), spec, is_leaf=is_spec)
+
+
+def model_specs(cfg: ModelConfig) -> Params:
+    """The reference's logical-axis spec tree, paralleling ``init_model``'s:
+    at each leaf a tuple of axis names (``models.layers``), one per dimension,
+    ``layers`` first on every stacked leaf."""
+    check_supported(cfg)
+    s: Params = {"embed": (VOCAB, EMBED)}
+    s["blocks"] = [_stack_specs(_block_specs(entry, cfg, cross=cfg.enc_dec))
+                   for entry in cfg.block_pattern]
+    if cfg.enc_dec:
+        s["enc_blocks"] = _stack_specs(_block_specs("attn+dense", cfg))
+        s["enc_norm"] = specs_rmsnorm(cfg)
+        s["dec_pos"] = (None, EMBED)
+    s["final_norm"] = specs_rmsnorm(cfg)
+    if not cfg.tie_embeddings:
+        s["lm_head"] = (EMBED, VOCAB)
+    return s
 
 
 def _layers(block: Params, n: int) -> list[Params]:
@@ -305,6 +374,28 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
             cache[-1]["cross_k"] = zeros(*shape, dtype=dtype_of(cfg))
             cache[-1]["cross_v"] = zeros(*shape, dtype=dtype_of(cfg))
     return cache
+
+
+def cache_specs(cfg: ModelConfig) -> list[dict[str, tuple]]:
+    """Logical-axis specs paralleling ``init_cache``'s tree, the reference's:
+    ``batch`` and ``kv_seq`` name the cache's batch and sequence axes."""
+    specs = []
+    for entry in cfg.block_pattern:
+        mixer = cfg.mixer_of(entry)
+        if mixer == "attn":
+            c = {"k": (LAYERS, "batch", "kv_seq", KV, None),
+                 "v": (LAYERS, "batch", "kv_seq", KV, None)}
+        elif mixer == "mamba":
+            c = {"conv": (LAYERS, "batch", None, INNER), "ssm": (LAYERS, "batch", INNER, STATE)}
+        elif mixer == "mlstm":
+            c = {"C": (LAYERS, "batch", HEADS, None, None), "n": (LAYERS, "batch", HEADS, None)}
+        else:
+            c = {"c": (LAYERS, "batch", EMBED), "h": (LAYERS, "batch", EMBED)}
+        if cfg.enc_dec:
+            c["cross_k"] = (LAYERS, "batch", None, KV, None)
+            c["cross_v"] = (LAYERS, "batch", None, KV, None)
+        specs.append(c)
+    return specs
 
 
 def prefill_cross(p: Params, cfg: ModelConfig, cache: list[dict[str, torch.Tensor]],

@@ -3,7 +3,8 @@
 Port of ``repro.models.ssm``. Parameters keep the reference's names,
 layouts, scales and dtypes (mamba's ``dt_bias``, ``A_log`` and ``D`` and
 the xLSTM gate weights ``wi``, ``wf`` and ``r_gates`` in fp32);
-``init_*`` take an explicit ``torch.Generator``. Every function carries
+``init_*`` take an explicit ``torch.Generator``; ``specs_*`` give the
+reference's logical-axis specs of their trees (``layers``). Every function carries
 explicit recurrent state, so the same code serves the forward (state
 zeros, full sequence) and decode (state threaded through steps).
 
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, _init, dtype_of
+from repro_torch.models.layers import EMBED, HEADS, INNER, STATE, Params, _init, dtype_of
 
 MAMBA_CHUNK = 256
 MLSTM_CHUNK = 256  # the reference's chunk, kept for its S % chunk assertion
@@ -66,6 +67,12 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "D": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": _init(gen, (di, d), di ** -0.5, dt),
     }
+
+
+def specs_mamba(cfg: ModelConfig) -> Params:
+    return {"in_proj": (EMBED, INNER), "conv_w": (None, INNER), "conv_b": (INNER,),
+            "x_proj": (INNER, None), "dt_proj": (None, INNER), "dt_bias": (INNER,),
+            "A_log": (INNER, STATE), "D": (INNER,), "out_proj": (INNER, EMBED)}
 
 
 def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -168,6 +175,11 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
+def specs_mlstm(cfg: ModelConfig) -> Params:
+    return {"wq": (EMBED, HEADS), "wk": (EMBED, HEADS), "wv": (EMBED, HEADS),
+            "wi": (EMBED, None), "wf": (EMBED, None), "wo": (HEADS, EMBED)}
+
+
 def mlstm(
     p: Params,
     x: torch.Tensor,                   # (B, S, d)
@@ -231,6 +243,11 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "b_gates": torch.zeros((4 * d,), dtype=torch.float32, device=gen.device),
         "w_out": _init(gen, (d, d), d ** -0.5, dt),
     }
+
+
+def specs_slstm(cfg: ModelConfig) -> Params:
+    return {"w_gates": (EMBED, None), "r_gates": (HEADS, None, None), "b_gates": (None,),
+            "w_out": (EMBED, EMBED)}
 
 
 def slstm(

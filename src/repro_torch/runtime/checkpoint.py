@@ -12,7 +12,8 @@ written by the JAX package loads here:
   converts no bf16 value numerically;
 - writes go to a temporary name, then ``os.replace`` (atomic).
 
-``save(..., async_=True)`` copies the tree to the host on the caller (the
+``restore(..., placements, mesh)`` puts each leaf onto a ``DeviceMesh``
+(elastic resume). ``save(..., async_=True)`` copies the tree to the host on the caller (the
 training loop may go on and replace the tensors) and writes the file on a
 thread it returns.
 """
@@ -25,7 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import paths, unflatten
+from repro_torch.tree import leaves, paths, unflatten
 
 _BF16_BITS = np.dtype("V2")
 
@@ -86,10 +87,22 @@ def _leaf(arr: np.ndarray, like: torch.Tensor, key: str) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def restore(path: str, like: Any) -> tuple[Any, int]:
+def restore(path: str, like: Any, placements: Any | None = None, mesh: Any | None = None
+            ) -> tuple[Any, int]:
     """Load a checkpoint into the structure of ``like`` (a tree of tensors
-    giving each leaf's shape, dtype and device); returns (tree, step)."""
+    giving each leaf's shape, dtype and device); returns (tree, step).
+    With ``placements`` (a parallel tree, ``runtime.sharding.tree_shardings``)
+    and ``mesh`` (the current ``DeviceMesh``) each leaf is put onto the mesh
+    as a DTensor with ``distribute_tensor``: the reference's elastic resume,
+    which reshards a checkpoint onto whatever mesh the job now has."""
     with np.load(path) as z:
         step = int(z["__step__"])
         flat = [_leaf(z[_key(p)], leaf, _key(p)) for p, leaf in paths(like)]
+    if placements is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.runtime.sharding import is_placements
+
+        flat = [distribute_tensor(t, mesh, list(pl)) for t, pl in
+                zip(flat, leaves(placements, is_leaf=is_placements), strict=True)]
     return unflatten(like, flat), step

@@ -77,9 +77,12 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0, *,
     the tokens from the same generator. Torch cannot reproduce JAX's
     threefry draws: the same seed gives other tokens and frames than
     ``repro.runtime.train.synthetic_batch``, which also draws its frames
-    from the very key of its tokens (a quirk not copied here)."""
+    from the very key of its tokens (a quirk not copied here). On
+    ``device="meta"`` it allocates nothing: the reference's ``abstract=True``
+    batch, for a dry run."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a meta batch (a dry run's) is shapes only: its draws need a generator, which meta lacks
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
     out = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
     if cfg.enc_dec:

@@ -796,3 +796,72 @@ def test_orchestrator_on_card_reports_as_on_cpu(cuda):
             reports.append(dc.asdict(JobOrchestrator(cfg).run()))
     assert reports[0]["completed"] == 12 and reports[0]["failed"] == 0
     assert reports[0] == reports[1]
+
+
+# ---------------------------------------------------------------------------
+# The kernel ops' fake implementations (a dry run's trace) against the kernels
+# ---------------------------------------------------------------------------
+
+def _fake_and_real(op, args):
+    """(real outputs, fake outputs) of ``op`` on ``args`` and on fake CUDA
+    copies of them, and the launches the fake call added (must be none)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    real = op(*args)
+    before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
+              ops.decode_attention.launches, ops.mlstm_chunk.launches,
+              ops.mlstm_chunk.bwd_launches)
+    mode = FakeTensorMode()
+    fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+    with mode:
+        fake = op(*fake_args)
+    after = (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
+             ops.decode_attention.launches, ops.mlstm_chunk.launches,
+             ops.mlstm_chunk.bwd_launches)
+    return real, fake, after == before
+
+
+def _layout(out):
+    return [(tuple(t.shape), t.dtype, t.stride(), t.device.type)
+            for t in torch.utils._pytree.tree_leaves(out)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fake_kernels_match_the_kernels_on_card(cuda, dtype):
+    K = torch.ops.repro_torch
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q = torch.randn((2, 100, 6, 64), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((2, 100, 2, 64), generator=g, device=cuda).to(dt) for _ in range(2))
+    n = ops.flash_attention.launches
+    real, fake, quiet = _fake_and_real(K.flash_attention_fwd, [q, k, v, True, 32, True])
+    assert ops.flash_attention.launches == n + 1 and quiet
+    assert _layout(fake) == _layout(real)
+    out, (lse,) = real
+    real, fake, quiet = _fake_and_real(K.flash_attention_bwd, [q, k, v, out, q, lse, True, 32])
+    assert quiet and _layout(fake) == _layout(real)
+    lens = torch.tensor([1, 100], dtype=torch.int32, device=cuda)
+    real, fake, quiet = _fake_and_real(K.decode_attention, [q[:, 0].contiguous(), k, v, lens])
+    assert quiet and _layout(fake) == _layout(real)
+    x = torch.randn((2, 100, 4, 64), generator=g, device=cuda)
+    gate = torch.sigmoid(torch.randn((2, 100, 4), generator=g, device=cuda))
+    real, fake, quiet = _fake_and_real(K.mlstm_chunk_fwd, [x, x, x, gate.log(), gate, None, None,
+                                                           64, True])
+    assert quiet and _layout(fake) == _layout(real)
+    y, _, _, saved = real
+    real, fake, quiet = _fake_and_real(K.mlstm_chunk_bwd, [x, x, x, gate.log(), gate, y, y,
+                                                           *saved, None, None, 64, False])
+    assert quiet and _layout(fake) == _layout(real)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_still_launch_through_the_ops_on_card(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    n = ops.flash_attention.launches
+    ops.flash_attention(q, q, q)
+    assert ops.flash_attention.launches == n + 1
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                            q[..., :48].contiguous())
+    assert ops.flash_attention.launches == n + 1

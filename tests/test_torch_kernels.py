@@ -207,11 +207,13 @@ def test_cpu_tensors_use_plain_version_and_count_nothing():
 
 
 def test_wrappers_refuse_other_devices():
+    # meta tensors take the fake kernels (a dry run's trace); mixed devices are refused
     q = torch.empty((1, 8, 2, 16), device="meta")
+    c = torch.empty((1, 8, 2, 16))
     with pytest.raises(ValueError, match="meta"):
-        ops.flash_attention(q, q, q)
+        ops.flash_attention(q, c, c)
     with pytest.raises(ValueError, match="meta"):
-        ops.decode_attention(q[:, 0], q, q, torch.empty((1,), device="meta"))
+        ops.decode_attention(q[:, 0], c, c, torch.empty((1,), device="meta"))
 
 
 def test_cuda_request_without_cuda_raises():
