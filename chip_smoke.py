@@ -12,9 +12,9 @@ script started; any failure raises and exits non-zero:
    backward's also their registers and spills by kernel, the shared memory
    of the two forward kernels and of the backward's tiles kernel, and how
    many state-kernel clusters the card holds;
-   for the flash backward kernels and every hd-192 instantiation of the
-   forward and decode kernels their registers, spills and dynamic shared
-   memory);
+   for every flash kernel of the 3xTF32 route (f32, bf16 at hd 16/32), the
+   wgmma backward's and every hd-192 instantiation of the wgmma forward and
+   decode their registers, spills and dynamic shared memory);
 3. kernel checks: each CUDA kernel against its plain PyTorch version on
    the card at smollm-360m's shapes (tolerance f32 2e-5, bf16 2e-2), plus
    flash at qwen2-72b's attention width (hd 128, G = 8) and at
@@ -40,9 +40,11 @@ script started; any failure raises and exits non-zero:
    timed with CUDA events (median of 30, L2 flushed before each run)
    beside the plain version,
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
-   only (its ratio recorded), and the card's bound for the same work; for
-   the attention kernels and SDPA also the kernels' own device time from
-   ``torch.profiler`` (``kernel_ms``: the call without its launch gaps);
+   only (its ratio recorded), and the card's bound for the same work (the
+   flash rows of the 3xTF32 route at its rate, a third of the TF32 rate,
+   with the fp32-FMA bound beside it); for the attention kernels and SDPA
+   also the kernels' own device time from ``torch.profiler``
+   (``kernel_ms``: the call without its launch gaps);
    the rows' log-sum-exp the forward writes for the backward against
    ``ref.flash_attention_lse_ref`` (abs 1e-4);
 4. forward: full-width smollm-360m in bf16 at B=2, S=512; logits finite,
@@ -535,24 +537,40 @@ def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd
     else:
         lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)  # noqa: E731
     nbytes = 2 * B * (S * H + Skv * K) * hd * q.element_size()   # q, o; k, v
-    t_bound, by = bound(nbytes, 4.0 * B * H * hd * n_pairs, dtype)
+    flops = 4.0 * B * H * hd * n_pairs
+    route = flash_kernel.route(dtype, hd)
+    bounds = route_bounds(nbytes, flops, dtype, route)
     KERNEL_CASES.append(("flash_attention_fwd", dict(dtype=dtype, B=B, S=S, Skv=Skv, causal=causal,
-                                                     window=window, H=H, K=K, hd=hd),
-                         4.0 * B * H * hd * n_pairs))
+                                                     window=window, H=H, K=K, hd=hd), flops))
     mine = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
     lengths = f"S={S}" if Skv == S else f"Sq={S} Skv={Skv}"
     return with_ratio({
         "shape": f"B={B} {lengths} H={H} K={K} hd={hd} causal={causal} window={window}",
         "dtype": DT_NAME[dtype],
-        "kernel": "wgmma" if flash_kernel.uses_tensor_cores(dtype, hd) else "fma",
+        "kernel": route,
+        "kv_split": (flash_kernel.split_plan(B, S, Skv, H, hd, causal or window is not None)[0]
+                     if route == "3xtf32" else 1),
         "max_abs_err": err, "tol": TOL[dtype], **by_rms, "lse_max_abs_err": lse_err.item(),
         "lse_tol": LSE_TOL,
         "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                           window=window)),
-        "library_ms": timer(lib), "library_kernel_ms": timer.kernels_ms(lib),
-        "bound_ms": t_bound, "bound_by": by,
+        "library_ms": timer(lib), "library_kernel_ms": timer.kernels_ms(lib), **bounds,
     })
+
+
+def route_bounds(nbytes: float, flops: float, dtype, route: str) -> dict:
+    """The bound of an attention case at its route's rate: bf16 ``wgmma`` at
+    the bf16 peak; ``3xtf32`` (f32 at every hd, bf16 at hd 16/32) at three
+    TF32 products a product, with the fp32-FMA bound (the route before it)
+    beside it, as ``check_mlstm`` records."""
+    if route == "wgmma":
+        t_bound, by = bound(nbytes, flops, dtype)
+        return {"bound_ms": t_bound, "bound_by": by}
+    t_bound, by = bound(nbytes, flops, dtype, TF32X3_FLOPS)
+    t_fma, fma_by = bound(nbytes, flops, torch.float32)
+    return {"bound_ms": t_bound, "bound_by": by, "bound_fp32_fma_ms": t_fma,
+            "bound_fp32_fma_by": fma_by}
 
 
 def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd=64,
@@ -590,10 +608,11 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
     n_pairs = int(mask.sum().item())
     elt = q.element_size()
     nbytes = 4 * B * (S * H + Skv * K) * hd * elt   # q, o, dO, dq; k, v, dk, dv
-    t_bound, by = bound(nbytes, 10.0 * B * H * hd * n_pairs, dtype)
+    flops = 10.0 * B * H * hd * n_pairs
+    route = flash_kernel.route(dtype, hd)
+    bounds = route_bounds(nbytes, flops, dtype, route)
     KERNEL_CASES.append(("flash_attention_bwd", dict(dtype=dtype, B=B, S=S, Skv=Skv, causal=causal,
-                                                     window=window, H=H, K=K, hd=hd),
-                         10.0 * B * H * hd * n_pairs))
+                                                     window=window, H=H, K=K, hd=hd), flops))
     # yardstick: the backward of SDPA over the same function (kv heads grouped)
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     if window is None:
@@ -604,12 +623,12 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
     lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), douts, retain_graph=True)  # noqa: E731
     mine = lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse=lse,  # noqa: E731
                                            causal=causal, window=window)
-    kernel = ("delta + dq + dkdv, bf16 wgmma" if flash_kernel.uses_tensor_cores(dtype, hd)
-              else "dq + dkdv, fp32 FMAs")
+    kernel = ("delta + dq + dkdv, bf16 wgmma" if route == "wgmma"
+              else "delta + (dq | dkdv), 3xTF32 mma.sync")
     lengths = f"S={S}" if Skv == S else f"Sq={S} Skv={Skv}"
     return {
         "shape": f"B={B} {lengths} H={H} K={K} hd={hd} causal={causal} window={window}",
-        "dtype": DT_NAME[dtype], "kernel": kernel, "bitwise_repeatable": True,
+        "dtype": DT_NAME[dtype], "route": route, "kernel": kernel, "bitwise_repeatable": True,
         "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
         "tol": f"{BWD_ELT_TOL[dtype]} x (|ref| + rms(ref)), fp32 formulas",
         "err_over_tol_by_grad": worst,
@@ -618,8 +637,7 @@ def check_flash_bwd(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5
         "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                                               window=window)),
-        "library_ms": timer.kernels_ms(lib), "library_event_ms": timer(lib),
-        "bound_ms": t_bound, "bound_by": by,
+        "library_ms": timer.kernels_ms(lib), "library_event_ms": timer(lib), **bounds,
     }
 
 
@@ -802,18 +820,19 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 def attention_build(_build, libs) -> dict:
-    """For the flash backward kernels and every hd-192 instantiation of the
-    forward and decode kernels: ptxas's registers and spills, and the
+    """For the flash kernels of the 3xTF32 route (forward and backward, every
+    instantiation), the wgmma backward's and every hd-192 instantiation of
+    the wgmma forward and decode: ptxas's registers and spills, and the
     dynamic shared memory a block takes (read from the libraries)."""
     fwd, wg = _build.library("flash_attention"), _build.library("flash_attention_wgmma")
     bwd, bwg = _build.library("flash_attention_bwd"), _build.library("flash_attention_bwd_wgmma")
     dec = _build.library("decode_attention")
-    smem = {"flash_fwd_kernel<f32,192>": fwd.flash_attention_fwd_smem_bytes(192),
-            "flash_wgmma_kernel<192>": wg.flash_attention_wgmma_smem_bytes(192)}
+    smem = {"flash_wgmma_kernel<192>": wg.flash_attention_wgmma_smem_bytes(192)}
     for hd in (16, 32, 64, 128, 192):
+        for dt, code in (("f32", 0), ("bf16", 1)):
+            smem[f"flash_fwd_kernel<{dt},{hd}>"] = fwd.flash_attention_fwd_smem_bytes(code, hd)
+            smem[f"flash_bwd_kernel<{dt},{hd}>"] = bwd.flash_attention_bwd_smem_bytes(code, hd)
         for i, kind in enumerate(("dq", "dkdv")):
-            for dt in ("f32", "bf16"):
-                smem[f"flash_bwd_{kind}_kernel<{dt},{hd}>"] = bwd.flash_attention_bwd_smem_bytes(hd, i)
             smem[f"flash_bwd_wgmma_{kind}_kernel<{hd}>"] = bwg.flash_attention_bwd_wgmma_smem_bytes(hd, i)
     for dt, code in (("f32", 0), ("bf16", 1)):
         for gmax in (4, 8, 12, 16):
@@ -823,7 +842,7 @@ def attention_build(_build, libs) -> dict:
                 "flash_attention_bwd_wgmma", "decode_attention"):
         ptxas.update(ptxas_by_kernel(libs[lib].with_suffix(".log").read_text()))
     keep = {n: r for n, r in ptxas.items()
-            if "flash_bwd" in n or ",192" in n or "<192" in n}
+            if "flash_bwd" in n or "flash_fwd" in n or ",192" in n or "<192" in n}
     return {n: {**r, "smem_bytes": smem.get(n)} for n, r in keep.items()}
 
 

@@ -1,6 +1,8 @@
 // fp32 products at fp32 accuracy on Hopper's tensor cores (3xTF32), and the
 // asynchronous copies that feed them; shared by the mLSTM forward
-// (mlstm_chunk.cu) and its backward (mlstm_chunk_bwd.cu).
+// (mlstm_chunk.cu), its backward (mlstm_chunk_bwd.cu) and the flash kernels
+// that take f32 (flash_attention.cu, flash_attention_bwd.cu, through
+// flash_tf32.cuh).
 //
 // Each operand is split into a TF32 high part (rounded to nearest, ties
 // away, as cvt.rna) and the remainder, which the tensor core reads as TF32
@@ -16,10 +18,16 @@ namespace repro {
 
 // 16 bytes from global memory into shared memory, or 16 zero bytes when
 // `valid` is false (src must still be a mapped address).
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// The same for 4 bytes (one float).
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // Wait until at most N of this thread's committed groups are in flight.
@@ -28,16 +36,18 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows 0 .. rows-1 of COLS floats from src (row r at src + r·src_stride)
-// into shared memory (row r at dst + r·dst_stride) by cp.async, NT threads
-// sharing the 16-byte pieces; rows at or past `valid` are zero-filled. src
-// must point at a real row; src, dst and both strides 16-byte aligned.
-template <int COLS, int NT>
-__device__ __forceinline__ void load_tile(float* dst, int dst_stride, const float* src,
+// Rows 0 .. rows-1 of COLS elements (float, or bf16 for the flash kernels)
+// from src (row r at src + r·src_stride) into shared memory (row r at
+// dst + r·dst_stride) by cp.async, NT threads sharing the 16-byte pieces;
+// rows at or past `valid` are zero-filled. src must point at a real row;
+// src, dst and both strides 16-byte aligned.
+template <int COLS, int NT, typename T>
+__device__ __forceinline__ void load_tile(T* dst, int dst_stride, const T* src,
                                           size_t src_stride, int rows, int valid) {
-  constexpr int PER_ROW = COLS / 4;
+  constexpr int VEC = 16 / sizeof(T);  // elements per piece
+  constexpr int PER_ROW = COLS / VEC;
   for (int e = threadIdx.x; e < rows * PER_ROW; e += NT) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * 4;
+    const int r = e / PER_ROW, c = (e % PER_ROW) * VEC;
     const bool ok = r < valid;
     cp16(dst + r * dst_stride + c, ok ? src + r * src_stride + c : src, ok);
   }

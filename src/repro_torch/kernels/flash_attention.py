@@ -6,17 +6,23 @@ ragged length masked in the kernel (no padding), fp32 softmax and
 accumulator, output in q's dtype, head dims 16, 32, 64, 128 and 192. The
 forward and the backward also take queries and keys of different lengths,
 Sq != Skv (cross-attention), without a mask. The dtype and head dim alone
-choose the kernels (``uses_tensor_cores``):
+choose the kernels (``route``), both routes on the tensor cores:
 
-- bf16 at hd 64, 128 or 192 runs on the tensor cores: the forward in
+- ``"wgmma"``: bf16 at hd 64, 128 or 192, the forward in
   ``csrc/flash_attention_wgmma.cu``, the backward in
   ``csrc/flash_attention_bwd_wgmma.cu`` (wgmma, TMA loads, a
   warp-specialised pipeline);
-- everything else (f32 at every head dim, bf16 at hd 16 and 32) runs on
-  fp32 FMAs: ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``.
+- ``"3xtf32"``: everything else (f32 at every head dim, bf16 at hd 16 and
+  32), ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
+  (mma.sync in TF32 at fp32 accuracy: each product as three TF32
+  products, fed by cp.async).
 
 ``launch`` writes each row's log-sum-exp when given a buffer for it;
-``launch_bwd`` needs it. Launch through ``ops.flash_attention``.
+``launch_bwd`` needs it. On the ``"3xtf32"`` route a short Sq without a
+mask (a few queries against many keys, as whisper's cross-attention from
+its decoder) splits the kv axis over more blocks (``split_plan``, from the
+shapes alone) and merges their partial results in a second kernel. Launch
+through ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 192)
 WGMMA_HEAD_DIMS = (64, 128, 192)  # bf16 head dims of the tensor-core kernels
+SPLIT_KEYS = 256  # the 3xTF32 forward's kv split: at most one range per SPLIT_KEYS keys
+TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's SMs
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -37,7 +45,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _fn():
     fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 11 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -66,10 +74,25 @@ def _bwd_wgmma_fn():
     return fn
 
 
-def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
-    """Whether ``launch`` and ``launch_bwd`` run the wgmma kernels for this
-    dtype and head dim (else the FMA kernels)."""
-    return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+def route(dtype: torch.dtype, hd: int) -> str:
+    """Which kernels ``launch`` and ``launch_bwd`` run for this dtype and
+    head dim: ``"wgmma"`` (bf16 at hd 64, 128, 192) or ``"3xtf32"``."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "3xtf32"
+
+
+def split_plan(B: int, Sq: int, Skv: int, H: int, hd: int, masked: bool) -> tuple[int, int]:
+    """(n_split, split_len) of the 3xTF32 forward: the kv axis of Skv keys in
+    n_split ranges of split_len keys, whole kv tiles each, where the q tiles
+    (``csrc/flash_attention.cu`` ``Tiles``: 64 rows, 128 at hd 192) give
+    fewer than ``TARGET_BLOCKS`` blocks and no mask is asked for: enough
+    ranges to reach it, at most one per ``SPLIT_KEYS`` keys. Else one
+    range."""
+    q_rows, tile = (128 if hd > 128 else 64), (32 if hd >= 128 else 64)
+    blocks = -(-Sq // q_rows) * B * H
+    want = -(-TARGET_BLOCKS // blocks)
+    n_split = 1 if masked else max(1, min(-(-Skv // SPLIT_KEYS), want))
+    split_len = -(-(-(-Skv // tile)) // n_split) * tile
+    return -(-Skv // split_len), split_len
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -142,12 +165,16 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if uses_tensor_cores(q.dtype, hd):
+        if route(q.dtype, hd) == "wgmma":
             err = _wgmma_fn()(*ptrs, B, Sq, Skv, H, K, hd, int(causal), win, hd ** -0.5,
                               stream)
         else:
-            err = _fn()(*ptrs, DTYPES[q.dtype], B, Sq, Skv, H, K, hd, int(causal), win,
-                        hd ** -0.5, stream)
+            n_split, split_len = split_plan(B, Sq, Skv, H, hd, causal or window is not None)
+            part = (torch.empty(n_split * B * H * Sq * (hd + 1), dtype=torch.float32,
+                                device=q.device) if n_split > 1 else None)
+            err = _fn()(*ptrs, None if part is None else part.data_ptr(), DTYPES[q.dtype], B,
+                        Sq, Skv, H, K, hd, int(causal), win, n_split, split_len, hd ** -0.5,
+                        stream)
     _build.check(err, "flash_attention_fwd")
     return o
 
@@ -160,10 +187,10 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     ``launch`` wrote it), on one CUDA device -> (dq, dk, dv) in the inputs'
     dtype; Sq != Skv without a mask, as in ``launch``.
 
-    bf16 at hd 64, 128 or 192 (``uses_tensor_cores``): three kernels on
-    one stream, D = Σ do·o per row into fp32 scratch, then dq, then dk and
-    dv. Otherwise two FMA kernels: dq (which writes D), then dk
-    and dv. Neither uses atomics: the same inputs give the same bits."""
+    ``route`` ``"wgmma"``: three kernels on one stream, D = Σ do·o per row
+    into fp32 scratch, then dq, then dk and dv. ``"3xtf32"``: two kernels,
+    D, then one launch of dk/dv blocks and dq blocks. Neither uses atomics:
+    the same inputs give the same bits."""
     _check(q, k, v, causal, window, o=o, do=do)
     _check_lse(q, lse)
     B, Sq, H, hd = q.shape
@@ -175,7 +202,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if uses_tensor_cores(q.dtype, hd):
+        if route(q.dtype, hd) == "wgmma":
             err = _bwd_wgmma_fn()(*ptrs, B, Sq, Skv, H, K, hd, int(causal), win, hd ** -0.5,
                                   stream)
         else:

@@ -16,7 +16,9 @@ formulas on the same inputs and forward output (the kernel's arithmetic),
 |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one bf16 ulp)
 and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and
 bf16 3e-2, against autograd of the plain version; two runs on the same
-inputs give the same bits. The mLSTM backward, per gradient, elementwise against its plain
+inputs give the same bits. The 3xTF32 route (f32 at every head dim, bf16 at
+hd 16/32) is also held at the 16-row tile edges (S = 1, 7, 37, 200, 1000),
+at G = 1 and 12, forward and backward, and its forward twice to the bit. The mLSTM backward, per gradient, elementwise against its plain
 version ``mlstm_chunk_bwd_ref`` on the same inputs and forward output,
 |err| <= 1e-4·(|ref| + rms(ref)) (the f32 flash backward's rule), against
 the plain version in float64 (the truth) and in fp32 (the plain version as
@@ -103,6 +105,68 @@ def test_flash_kernel_on_card(cuda, dtype, S, H, K, hd, causal, window):
     torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# the 3xTF32 route (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu): f32 at every head
+# dim, bf16 at hd 16 and 32
+ROUTE_3XTF32 = [("float32", 16), ("float32", 32), ("float32", 64), ("float32", 128),
+                ("float32", 192), ("bfloat16", 16), ("bfloat16", 32)]
+# lengths at the edges of the 16-row mma tiles and of the 64- and 128-row q tiles
+EDGE_LENGTHS = [1, 7, 37, 200, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", ROUTE_3XTF32)
+@pytest.mark.parametrize("S", EDGE_LENGTHS)
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+@pytest.mark.parametrize("H,K", [(12, 1), (4, 4)])  # G = 12 (nemotron's), G = 1
+def test_flash_3xtf32_forward_on_card(cuda, dtype, hd, S, causal, window, H, K):
+    """The 3xTF32 forward against the plain version at the tile edges, with
+    the rows' log-sum-exp; the same bits when asked again."""
+    assert flash_kernel.route(TORCH_DT[dtype], hd) == "3xtf32"
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd)])
+    n = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    again, lse = _forward_with_lse(q, k, v, causal, window)
+    assert torch.equal(again, out)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, causal=causal, window=window),
+                               atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", ROUTE_3XTF32)
+# 37 and 200 run in test_flash_bwd_kernel_on_card, Sq = 1 in CROSS_CASES: at S = 1 the one
+# visible key leaves dq and dk exactly zero, rounding noise against a limit that vanishes
+@pytest.mark.parametrize("S", [7, 1000])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+@pytest.mark.parametrize("H,K", [(12, 1), (4, 4)])
+def test_flash_3xtf32_backward_on_card(cuda, dtype, hd, S, causal, window, H, K):
+    """The 3xTF32 backward at the tile edges, at G = 12 and G = 1, held as
+    ``test_flash_bwd_kernel_on_card`` holds it."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+                   for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd), (2, S, H, hd)])
+    _hold_flash_bwd(q, k, v, do, causal, window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", ROUTE_3XTF32 + [("bfloat16", 64), ("bfloat16", 192)])
+def test_flash_forward_is_deterministic_on_card(cuda, dtype, hd):
+    """Two forward launches on the same inputs give the same bits, output and
+    log-sum-exp."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(2, 300, 12, hd), (2, 300, 2, hd), (2, 300, 2, hd)])
+    first = _forward_with_lse(q, k, v, True, None)
+    again = _forward_with_lse(q, k, v, True, None)
+    for a, b in zip(first, again, strict=True):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,K,hd", [(100, 15, 5, 64), (512, 8, 2, 32),
@@ -133,7 +197,7 @@ def test_decode_kernel_on_card(cuda, dtype, S, H, K, hd):
     (512, 20, 20, True, None),    # whisper's decoder self-attention: causal at G = 1
 ])
 def test_flash_tensor_core_kernel_on_card(cuda, hd, S, H, K, causal, window):
-    assert flash_kernel.uses_tensor_cores(torch.bfloat16, hd)
+    assert flash_kernel.route(torch.bfloat16, hd) == "wgmma"
     g = torch.Generator(device=cuda).manual_seed(8)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
                for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd)])
@@ -282,7 +346,8 @@ def _hold_flash_bwd(q, k, v, do, causal, window, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd,S", [("bfloat16", 64, 300), ("bfloat16", 128, 300),
-                                        ("bfloat16", 192, 300), ("float32", 64, 200)])
+                                        ("bfloat16", 192, 300), ("float32", 64, 200),
+                                        ("float32", 128, 300), ("float32", 192, 300)])
 def test_flash_bwd_is_deterministic_on_card(cuda, dtype, hd, S):
     """The engine re-runs step tasks: the same inputs must give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(13)
@@ -343,7 +408,9 @@ CROSS_CASES = [
     (1500, 1500, 20, 20, 64),  # the encoder's self-attention, ragged against the tiles
     (100, 8, 20, 20, 64),      # Sq > Skv, the keys under one tile
     (300, 700, 16, 2, 64),     # GQA, G = 8
-    (45, 77, 6, 2, 32),        # bf16 at hd 32 runs the FMA kernel too
+    (45, 77, 6, 2, 32),        # bf16 at hd 32 runs the 3xTF32 kernel too
+    (37, 300, 8, 2, 128),      # hd 128, G = 4, Sq under one tile
+    (200, 77, 12, 1, 192),     # nemotron's hd 192 and G = 12, Sq > Skv
 ]
 
 
@@ -351,7 +418,7 @@ CROSS_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Skv,H,K,hd", CROSS_CASES)
 def test_flash_at_sq_ne_skv_on_card(cuda, dtype, Sq, Skv, H, K, hd):
-    """The tensor-core (bf16, hd 64) and FMA (f32; bf16 at hd 32) forwards
+    """The wgmma (bf16, hd 64) and 3xTF32 (f32; bf16 at hd 32) forwards
     at Sq != Skv without a mask against the plain version, and the rows'
     log-sum-exp (B, H, Sq) they write."""
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -408,7 +475,7 @@ def test_flash_bwd_at_sq_ne_skv_on_card(cuda, dtype, Sq, Skv, H, K, hd):
 @pytest.mark.parametrize("dtype,hd", [("float32", 64), ("bfloat16", 32), ("bfloat16", 64)])
 def test_flash_c_entry_points_refuse_a_mask_at_sq_ne_skv_on_card(cuda, dtype, hd):
     """Below the wrappers' checks, each C entry point (forward and backward,
-    FMA and tensor-core) returns cudaErrorInvalidValue (1) for a causal or
+    3xTF32 and wgmma) returns cudaErrorInvalidValue (1) for a causal or
     window mask at Sq != Skv, and 0 without one."""
     B, Sq, Skv, H = 1, 37, 150, 4
     q, o, do, dq = (torch.zeros((B, Sq, H, hd), dtype=TORCH_DT[dtype], device=cuda)
@@ -416,22 +483,26 @@ def test_flash_c_entry_points_refuse_a_mask_at_sq_ne_skv_on_card(cuda, dtype, hd
     k, v, dk, dv = (torch.zeros((B, Skv, H, hd), dtype=TORCH_DT[dtype], device=cuda)
                     for _ in range(4))
     lse, delta = (torch.zeros((B, H, Sq), device=cuda) for _ in range(2))
-    wgmma = flash_kernel.uses_tensor_cores(q.dtype, hd)
+    wgmma = flash_kernel.route(q.dtype, hd) == "wgmma"
     stream = torch.cuda.current_stream().cuda_stream
     fwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
     bwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
     dt = () if wgmma else (flash_kernel.DTYPES[q.dtype],)
+    # the 3xTF32 forward also takes a scratch pointer and its kv split (none here)
+    fwd_split = ((), ()) if wgmma else ((None,), (1, 0))
 
-    def call(fn, ptrs, causal, window):
-        return fn(*ptrs, *dt, B, Sq, Skv, H, H, hd, causal, window, hd ** -0.5, stream)
+    def call(fn, ptrs, split, causal, window):
+        return fn(*ptrs, *split[0], *dt, B, Sq, Skv, H, H, hd, causal, window, *split[1],
+                  hd ** -0.5, stream)
 
-    fns = ((flash_kernel._wgmma_fn() if wgmma else flash_kernel._fn(), fwd_ptrs),
-           (flash_kernel._bwd_wgmma_fn() if wgmma else flash_kernel._bwd_fn(), bwd_ptrs))
-    for fn, ptrs in fns:
+    fns = ((flash_kernel._wgmma_fn() if wgmma else flash_kernel._fn(), fwd_ptrs, fwd_split),
+           (flash_kernel._bwd_wgmma_fn() if wgmma else flash_kernel._bwd_fn(), bwd_ptrs,
+            ((), ())))
+    for fn, ptrs, split in fns:
         for causal, window in ((1, -1), (0, 16), (1, 16)):
-            assert call(fn, ptrs, causal, window) == 1
-        assert call(fn, ptrs, 0, -1) == 0
+            assert call(fn, ptrs, split, causal, window) == 1
+        assert call(fn, ptrs, split, 0, -1) == 0
     torch.cuda.synchronize()
 
 
