@@ -46,7 +46,10 @@ script started; any failure raises and exits non-zero:
    also the kernels' own device time from ``torch.profiler``
    (``kernel_ms``: the call without its launch gaps);
    the rows' log-sum-exp the forward writes for the backward against
-   ``ref.flash_attention_lse_ref`` (abs 1e-4);
+   ``ref.flash_attention_lse_ref`` (abs 1e-4); every decode case also with
+   its rows' log-sum-exp asked for (what the sequence-parallel decode
+   merges by): the same output, the lse against the plain version's
+   (f32 2e-5, bf16 2e-2), -inf exactly where kv_len is 0;
 4. forward: full-width smollm-360m in bf16 at B=2, S=512; logits finite,
    one flash launch per layer;
 5. decode vs forward: full width over 64 positions, f32 weights
@@ -199,7 +202,9 @@ script started; any failure raises and exits non-zero:
     --both-meshes`` as a process of its own, every one of the 34 (arch x
     shape) cells ``ok``, a line per cell with the argument bytes per device
     on the 1x1, 16x16 and 2x16x16 meshes, the traced peak, whether it fits
-    one H100 and its FLOPs (``dryrun``); meanwhile (b) every case of phase 3
+    one H100 and its FLOPs, and a line per cell and production mesh with one
+    device's sharded trace: its peak, whether it fits, its FLOPs and its
+    collectives' bytes and count (``dryrun``); meanwhile (b) every case of phase 3
     through its kernel op on the card and on fake CUDA tensors, the fake
     outputs' shapes, dtypes and strides those of the kernel's and the op's
     FLOP formula the case's bound operations (``dryrun_fake_kernels``), and
@@ -212,7 +217,12 @@ script started; any failure raises and exits non-zero:
     exactly, the kernel
     launches its kernel calls, and the measured peak within ``PEAK_BAND``
     of the traced one. smollm's cell launches the flash forward and
-    backward (``dryrun_launches`` in the kernels line).
+    backward (``dryrun_launches`` in the kernels line). Last (d), smollm's
+    train cell at 32 microbatches stepped as plain tensors and then as
+    DTensors placed by the rules on the card's world-of-one NCCL 1x1 mesh
+    (``dryrun_sharded_card_cell``): every output equal to the bit, the same
+    kernel launches through the sharded entries (``sharded_launches`` in the
+    kernels line), no collective.
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
@@ -485,6 +495,7 @@ def check_decode(ops, ref, timer, dev, dtype, B, S, lens, H=15, K=5, hd=64, seed
     want = ref.decode_attention_ref(q, kc, vc, kv_len)
     err = max_err(out, want, dtype)
     by_rms = rms_limit(err, want, rms_tol)
+    lse_err = check_decode_lse(ops, ref, q, kc, vc, kv_len, out, dtype)
     # yardstick: SDPA over the cache with a length mask, kv heads repeated
     qs = q[:, :, None, :]
     ks, vs = (c.transpose(1, 2).repeat_interleave(H // K, dim=1) for c in (kc, vc))
@@ -500,12 +511,28 @@ def check_decode(ops, ref, timer, dev, dtype, B, S, lens, H=15, K=5, hd=64, seed
     return with_ratio({
         "shape": f"B={B} S={S} H={H} K={K} hd={hd} kv_len={_lens(lens)}",
         "dtype": DT_NAME[dtype], "n_split": decode_kernel.split_plan(B, K, S)[0],
-        "max_abs_err": err, "tol": TOL[dtype], **by_rms,
+        "max_abs_err": err, "tol": TOL[dtype], **by_rms, "lse_max_abs_err": lse_err,
         "ms": timer(mine), "kernel_ms": timer.kernels_ms(mine),
         "plain_ms": timer(lambda: ref.decode_attention_ref(q, kc, vc, kv_len)),
         "library_ms": timer(lib), "library_kernel_ms": timer.kernels_ms(lib),
         "bound_ms": t_bound, "bound_by": by,
     })
+
+
+def check_decode_lse(ops, ref, q, kc, vc, kv_len, out, dtype) -> float:
+    """The decode kernel asked for each row's log-sum-exp (what the
+    sequence-parallel decode merges by): the same output as without it, and
+    the lse within TOL of the plain version's, -inf exactly where kv_len <= 0.
+    Returns the lse's largest error."""
+    out2, lse = ops.decode_attention(q, kc, vc, kv_len, with_lse=True)
+    assert torch.equal(out2, out)
+    _, want = ref.decode_attention_ref(q, kc, vc, kv_len, with_lse=True)
+    empty = (kv_len <= 0)[:, None].expand_as(lse)
+    assert torch.equal(torch.isneginf(lse), empty) and torch.equal(torch.isneginf(want), empty)
+    if bool(empty.all()):
+        return 0.0
+    torch.testing.assert_close(lse[~empty], want[~empty], atol=TOL[dtype], rtol=TOL[dtype])
+    return (lse[~empty] - want[~empty]).abs().max().item()
 
 
 def check_flash(ops, ref, timer, dev, dtype, B, S, causal, window, H=15, K=5, hd=64, seed=1,
@@ -1124,7 +1151,8 @@ def main() -> int:
          "nemotron_launches": nemotron_launches, "mixtral_launches": mixtral_flash,
          "jamba_launches": jamba_flash, "whisper_launches": whisper_flash,
          "whisper_train_launches": whisper_train["flash_attention"],
-         "dryrun_launches": dryrun_launches["flash_attention"], "cases": flash_cases},
+         "dryrun_launches": dryrun_launches["flash_attention"],
+         "sharded_launches": dryrun_launches["sharded_flash_attention"], "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:77",
@@ -1150,7 +1178,8 @@ def main() -> int:
                  "differentiates layers.sdpa through XLA",
          "launches": train["launches"]["flash_attention_bwd"], **_headline(bwd_cases[0]),
          "whisper_train_launches": whisper_train["flash_attention_bwd"],
-         "dryrun_launches": dryrun_launches["flash_attention_bwd"], "cases": bwd_cases},
+         "dryrun_launches": dryrun_launches["flash_attention_bwd"],
+         "sharded_launches": dryrun_launches["sharded_flash_attention_bwd"], "cases": bwd_cases},
     ]
     for kr in kernels:
         assert kr["launches"] > 0, kr["name"]
@@ -2424,6 +2453,13 @@ DRYRUN_JOBS = 8
 # microbatches that fits, the reference's own Variant(n_microbatches=N))
 DRYRUN_CARD_CELLS = (("xlstm_350m", "decode_32k"), ("xlstm_350m", "long_500k"),
                      ("smollm_360m", "train_4k"))
+# the production meshes, whose records hold one device's trace and collectives
+DRYRUN_MESHES = ("16x16", "2x16x16")
+DRYRUN_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                      "collective-permute")
+# phase 19 (d): the card cell run as DTensors over the card's own 1x1 mesh, at twice
+# the microbatches of (c) (the same step; half the activations, room for both runs)
+SHARDED_CARD_MICROBATCHES = 32
 # the fake-CUDA trace's bytes and peak against the meta trace's (relative)
 META_GAP = 0.01
 # the CUDA caching allocator rounds each tensor up to 512 bytes, and hands a
@@ -2466,7 +2502,7 @@ def _op_inputs(kind: str, shape: dict, dev) -> list:
         d, B, S, H, Kh, hd = (shape[k] for k in ("dtype", "B", "S", "H", "K", "hd"))
         return [randn(B, H, hd, dtype=d), randn(B, S, Kh, hd, dtype=d),
                 randn(B, S, Kh, hd, dtype=d),
-                torch.tensor(shape["lens"], dtype=torch.int32, device=dev)]
+                torch.tensor(shape["lens"], dtype=torch.int32, device=dev), True]
     B, S, H, hd, chunk = (shape[k] for k in ("B", "S", "H", "hd", "chunk"))
     q, k, v = (randn(B, S, H, hd) for _ in range(3))
     log_f, i_gate = F.logsigmoid(randn(B, S, H) + 2.0), torch.sigmoid(randn(B, S, H))
@@ -2545,8 +2581,22 @@ def dryrun_records(proc: subprocess.Popen, t0: float) -> tuple[dict, dict]:
         print(f"dryrun {arch} {shape}: args/device GB {by_mesh} | traced peak "
               f"{_gb(host['peak_bytes']):.3f} GB fits_one_h100={host['fits_one_h100']} "
               f"flops {host['flops']:.4e}", flush=True)
+    per_device = {}
+    for mesh in DRYRUN_MESHES:
+        for arch, shape in cells:
+            r = recs[arch, shape, mesh]
+            coll = r["collective_bytes"]
+            assert set(coll) == {*DRYRUN_COLLECTIVES, *(f"{k}_count" for k in DRYRUN_COLLECTIVES),
+                                 "total"}, (arch, shape, mesh, coll)
+            print(f"dryrun {arch} {shape} {mesh}/device: peak {_gb(r['peak_bytes']):.3f} GB "
+                  f"fits={r['fits_per_device']} flops {r['flops']:.4e} collectives "
+                  f"{_gb(coll['total']):.3f} GB in "
+                  f"{sum(coll[f'{k}_count'] for k in DRYRUN_COLLECTIVES)}", flush=True)
+        per_device[mesh] = sorted(f"{a} {sh}" for a, sh in cells
+                                  if recs[a, sh, mesh]["fits_per_device"])
     fits = [f"{a} {sh}" for a, sh in cells if recs[a, sh, "1x1"]["fits_one_h100"]]
-    return recs, {"seconds": seconds, "cells": len(cells), "fit_one_h100": fits}
+    return recs, {"seconds": seconds, "cells": len(cells), "fit_one_h100": fits,
+                  "fit_one_device_of": per_device}
 
 
 def trace_on_card_route(D, get_config, arch: str, shape: str, variant) -> dict:
@@ -2632,6 +2682,64 @@ def run_dryrun_cell(D, ops, get_config, arch: str, shape: str, variant, traced: 
     return rec
 
 
+def run_sharded_card_cell(D, ops, get_config, dev, smi) -> dict:
+    """Phase 19 (d): smollm's train cell (DRYRUN_CARD_CELLS[2], at
+    SHARDED_CARD_MICROBATCHES) stepped twice on the same arguments: as plain
+    tensors, then as DTensors placed by the dry run's rules on the card's
+    world-of-one NCCL 1x1 mesh (``launch.mesh.make_host_mesh``), the kernels
+    reached through their sharded entries (``runtime.sharding.run_local``).
+    Every output (new parameters, AdamW state, metrics) must equal the plain
+    step's to the bit: the same kernels in the same order, and no collective
+    on a mesh of one device. Launch counts are set to 0 before each run."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.tree import leaves
+
+    arch, shape = DRYRUN_CARD_CELLS[2]
+    n = SHARDED_CARD_MICROBATCHES
+    cell = D.build_cell(get_config(arch), shape,
+                        D.Variant(n_microbatches=n, tag=f"n_microbatches={n}"))
+    free_memory()
+    args = D.materialize(cell, dev)
+    reset(ops)
+    t0 = time.perf_counter()
+    out = cell.step()(args)
+    torch.cuda.synchronize()
+    plain_s, plain_launches = time.perf_counter() - t0, counts(ops)
+    want = [t.cpu() for t in leaves(out)]
+    del out
+    free_memory()
+    mesh = mesh_lib.make_host_mesh("cuda")
+    try:
+        sargs = D.shard_args(cell, mesh, args)
+        reset(ops)
+        t0 = time.perf_counter()
+        with implicit_replication(), D.CollectiveCounter() as cc:
+            out = cell.step(D.placements(cell, mesh))(sargs)
+        torch.cuda.synchronize()
+        sharded_s, launches = time.perf_counter() - t0, counts(ops)
+        got = [t.to_local() if hasattr(t, "to_local") else t for t in leaves(out)]
+        equal = [torch.equal(a, b.cpu()) for a, b in zip(want, got, strict=True)]
+        del out, sargs, got
+    finally:
+        dist.destroy_process_group()
+    del args
+    free_memory()
+    rec = {"phase": "dryrun_sharded_card_cell", "arch": arch, "shape": shape,
+           "n_microbatches": n, "mesh": "1x1 (NCCL, world of one)", "leaves": len(want),
+           "bitwise_equal_leaves": sum(equal), "plain_launches": plain_launches,
+           "launches": launches, "collectives": cc.tally.record(), "plain_step_s": plain_s,
+           "sharded_step_s": sharded_s, "card": smi}
+    emit(rec)
+    assert all(equal), [i for i, e in enumerate(equal) if not e]
+    assert launches == plain_launches and launches["flash_attention"] > 0, (launches,
+                                                                            plain_launches)
+    assert cc.tally.record()["total"] == 0, cc.tally.record()
+    return launches
+
+
 def run_dryrun(ops, get_config, dev, smi) -> dict:
     """Phase 19: the dry run (a) over every cell in a process of its own;
     meanwhile (b) each fake kernel held to its kernel, and the cells that fit
@@ -2661,12 +2769,15 @@ def run_dryrun(ops, get_config, dev, smi) -> dict:
     metas = [recs[a, sh, "1x1"] for a, sh in DRYRUN_CARD_CELLS[:2]] + [smollm_meta]
     cells = [run_dryrun_cell(D, ops, get_config, a, sh, v, t, m, dev)
              for (a, sh), v, t, m in zip(DRYRUN_CARD_CELLS, variants, traced, metas)]
+    sharded = run_sharded_card_cell(D, ops, get_config, dev, smi)
     phase_s = time.perf_counter() - t_phase
     emit({"phase": "dryrun_summary", "card": smi, "phase_s": phase_s,
           "microbatch_search_s": search_s, "n_microbatches": n,
           "cells_on_card": [f"{c['arch']} {c['shape']} {c['variant']}" for c in cells]})
     return {"flash_attention": cells[2]["launches"]["flash_attention"],
-            "flash_attention_bwd": cells[2]["launches"]["flash_attention_bwd"]}
+            "flash_attention_bwd": cells[2]["launches"]["flash_attention_bwd"],
+            "sharded_flash_attention": sharded["flash_attention"],
+            "sharded_flash_attention_bwd": sharded["flash_attention_bwd"]}
 
 
 def free_memory() -> None:

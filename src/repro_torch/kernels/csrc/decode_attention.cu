@@ -47,6 +47,10 @@
 //   rings and the merge area together would pass the 227 KB a block may
 //   use in f32 (12 + 192 + 50 KB), and in bf16 (12 + 96 + 50 KB) they would
 //   leave room for one block an SM instead of two.
+// Asked for it, the kernel also writes each row's log-sum-exp (the merge
+// already holds the row's max and sum): a decode over one range of a
+// sequence-sharded cache merges with the other ranges' by it. A row that
+// sees no key (kv_len 0) writes -inf.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -158,12 +162,19 @@ __device__ __forceinline__ float dot_q(const float* qrow, int vec, const float (
   return a + c;
 }
 
+// A row's natural log-sum-exp from its running max M (log2 units, the
+// scores scaled by log2 e) and its sum L of exp2(score - M): -inf when the
+// row saw no key (L = 0).
+__device__ __forceinline__ float row_lse(float M, float L) {
+  return L > 0.f ? (M + log2f(L)) * 0.6931471805599453f : -INFINITY;
+}
+
 template <typename T, int HD, int GMAX>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ kv_len,
-                    T* __restrict__ o, float* __restrict__ part, int S, int K, int G,
-                    int split_len, float scale_log2) {
+                    T* __restrict__ o, float* __restrict__ part, float* __restrict__ lse,
+                    int S, int K, int G, int split_len, float scale_log2) {
   using C = Cfg<T, HD, GMAX>;
   constexpr int E = C::E, LPK = C::LPK, R = C::R, NSTAGE = C::NSTAGE, P = C::P;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -346,6 +357,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
     if (n_split == 1) {
       o[(bk * G + g) * HD + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+      if (lse != nullptr && d == 0) lse[bk * G + g] = row_lse(M, L);
     } else {
       // partial (b, kh, split): m and l for each head, then acc (G × HD)
       float* pp = part + (bk * n_split + split) * G * (HD + 2);
@@ -364,8 +376,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 // output elements over the splits, whose loads are independent.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o, int K, int G,
-                      int n_split) {
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
+                      float* __restrict__ lse, int K, int G, int n_split) {
   extern __shared__ float wsm[];  // G × n_split weights, then G sums
   float* Ls = wsm + G * n_split;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -385,7 +397,10 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o, int K, 
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
-    if (lane == 0) Ls[g] = L;
+    if (lane == 0) {
+      Ls[g] = L;
+      if (lse != nullptr) lse[bk * G + g] = row_lse(M, L);
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < G * HD; e += THREADS) {
@@ -401,7 +416,7 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o, int K, 
 
 template <typename T, int HD, int GMAX>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* kv_len, void* o,
-                   float* part, int B, int S, int K, int G, int n_split, int split_len,
+                   float* part, float* lse, int B, int S, int K, int G, int n_split, int split_len,
                    float sm_scale, cudaStream_t stream) {
   using C = Cfg<T, HD, GMAX>;
   if constexpr (C::SMEM > 48 * 1024) {  // set once: it costs host time on every call
@@ -411,39 +426,39 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* kv_
   }
   decode_split_kernel<T, HD, GMAX><<<dim3(n_split, K, B), THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), kv_len,
-      static_cast<T*>(o), part, S, K, G, split_len, sm_scale * kLog2e);
+      static_cast<T*>(o), part, lse, S, K, G, split_len, sm_scale * kLog2e);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const int merge_smem = G * (n_split + 1) * (int)sizeof(float);
   if (merge_smem > 48 * 1024) return cudaErrorInvalidValue;  // n_split > 750: not planned
   decode_combine_kernel<T, HD><<<dim3(K, B), THREADS, merge_smem, stream>>>(
-      part, static_cast<T*>(o), K, G, n_split);
+      part, static_cast<T*>(o), lse, K, G, n_split);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t dispatch_g(const void* q, const void* kc, const void* vc, const int* kv_len,
-                       void* o, float* part, int B, int S, int K, int G, int n_split,
+                       void* o, float* part, float* lse, int B, int S, int K, int G, int n_split,
                        int split_len, float sm_scale, cudaStream_t st) {
   if (G <= 4)
-    return launch<T, HD, 4>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    return launch<T, HD, 4>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
   if (G <= 8)
-    return launch<T, HD, 8>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    return launch<T, HD, 8>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
   if (G <= 12)  // nemotron-4-340b: 96 heads over 8
-    return launch<T, HD, 12>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
-  return launch<T, HD, 16>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    return launch<T, HD, 12>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
+  return launch<T, HD, 16>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* kc, const void* vc, const int* kv_len,
-                        void* o, float* part, int B, int S, int K, int G, int hd,
+                        void* o, float* part, float* lse, int B, int S, int K, int G, int hd,
                         int n_split, int split_len, float sm_scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return dispatch_g<T, 16>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
-    case 32: return dispatch_g<T, 32>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
-    case 64: return dispatch_g<T, 64>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
-    case 128: return dispatch_g<T, 128>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
-    case 192: return dispatch_g<T, 192>(q, kc, vc, kv_len, o, part, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 16: return dispatch_g<T, 16>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 32: return dispatch_g<T, 32>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 64: return dispatch_g<T, 64>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 128: return dispatch_g<T, 128>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
+    case 192: return dispatch_g<T, 192>(q, kc, vc, kv_len, o, part, lse, B, S, K, G, n_split, split_len, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -454,9 +469,12 @@ cudaError_t dispatch_hd(const void* q, const void* kc, const void* vc, const int
 // contiguous; q, caches and o of one dtype. The kv axis is cut into
 // n_split ranges of split_len keys (a multiple of 64, n_split·split_len >= S);
 // with n_split > 1, `part` is fp32 scratch of B·K·n_split·G·(hd+2) floats,
-// otherwise it is not read. Returns cudaGetLastError().
+// otherwise it is not read. Unless `lse` is null it receives each row's
+// log-sum-exp of its scaled scores, fp32 (B,H), -inf for a row that sees no
+// key. Returns cudaGetLastError().
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
-                                    const void* kv_len, void* o, void* part, int dtype, int B,
+                                    const void* kv_len, void* o, void* part, void* lse,
+                                    int dtype, int B,
                                     int S, int H, int K, int hd, int n_split, int split_len,
                                     float sm_scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || H / K > MAX_G || n_split <= 0 ||
@@ -466,13 +484,14 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const vo
   const int G = H / K;
   const int* len = static_cast<const int*>(kv_len);
   float* scratch = static_cast<float*>(part);
+  float* row_sums = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return dispatch_hd<float>(q, k_cache, v_cache, len, o, scratch, B, S, K, G, hd, n_split,
-                              split_len, sm_scale, st);
+    return dispatch_hd<float>(q, k_cache, v_cache, len, o, scratch, row_sums, B, S, K, G, hd,
+                              n_split, split_len, sm_scale, st);
   if (dtype == repro::kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k_cache, v_cache, len, o, scratch, B, S, K, G, hd,
-                                      n_split, split_len, sm_scale, st);
+    return dispatch_hd<__nv_bfloat16>(q, k_cache, v_cache, len, o, scratch, row_sums, B, S, K,
+                                      G, hd, n_split, split_len, sm_scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -30,7 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _fn():
     fn = _build.library("decode_attention").decode_attention_fwd
-    fn.argtypes = [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -74,8 +74,10 @@ def check_args(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           kv_len: torch.Tensor) -> torch.Tensor:
-    """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32, on one CUDA device."""
+           kv_len: torch.Tensor, lse: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32, on one CUDA device.
+    With ``lse`` (fp32 (B,H), contiguous) the kernel also writes each row's
+    log-sum-exp of its scaled scores there, -inf where no key is visible."""
     B, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     dev = q.get_device()
@@ -86,6 +88,10 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
     check_args(q, k_cache, v_cache, kv_len)
+    if lse is not None and (lse.shape != (B, H) or lse.dtype != torch.float32
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"decode_attention: lse {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}: need contiguous float32 ({B}, {H}) on {q.device}")
     n_split, split_len = split_plan(B, K, S)
     o = torch.empty_like(q)
     part = (torch.empty(B * K * n_split * (H // K) * (hd + 2), dtype=torch.float32,
@@ -94,6 +100,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                     kv_len.data_ptr(), o.data_ptr(), None if part is None else part.data_ptr(),
-                    DTYPES[q.dtype], B, S, H, K, hd, n_split, split_len, hd ** -0.5, stream)
+                    None if lse is None else lse.data_ptr(), DTYPES[q.dtype], B, S, H, K, hd,
+                    n_split, split_len, hd ** -0.5, stream)
     _build.check(err, "decode_attention_fwd")
     return o

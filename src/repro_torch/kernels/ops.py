@@ -35,7 +35,22 @@ backward kernel (counted in ``mlstm_chunk.bwd_launches``); on the CPU the
 forward is ``mlstm_chunk_ref`` and the backward ``mlstm_chunk_bwd_ref``.
 Under ``torch.no_grad()`` the kernel saves nothing. ``decode_attention``
 has no backward: on the card it raises under grad rather than return a
-tensor that silently carries no gradient.
+tensor that silently carries no gradient; with ``with_lse`` it also returns
+each row's log-sum-exp (-inf for a row that sees no key).
+
+On DTensors (a sharded step: the dry run's trace on a production mesh, or a
+real run over a process group) each entry states its placements once, at
+the function here, and runs itself on each device's shards through
+``runtime.sharding.run_local`` (the port's ``local_map``): flash over the
+batch and the query heads, with the kv heads those heads read (sliced by
+the device's coordinate where the kv heads do not divide the axis); decode
+over the batch and either the heads or, where the cache's sequence is
+sharded, a range of the cache whose partial results merge by their
+log-sum-exp; ``mlstm_chunk`` over the batch and the heads. The local call
+takes the route its shards' device picks, so a real CPU run and a trace
+shard alike. ``register_sharding`` on the custom ops was not taken: the
+plain route never reaches them and would need the same rule again, and a
+sharding rule cannot slice kv heads by a device's coordinate.
 """
 from __future__ import annotations
 
@@ -55,6 +70,7 @@ from repro_torch.kernels.ref import (
     mlstm_chunk_bwd_ref,
     mlstm_chunk_ref,
 )
+from repro_torch.runtime import sharding as sh
 
 _count_lock = threading.Lock()  # engine tasks may call from several threads
 
@@ -126,16 +142,19 @@ def _(q, k, v, out, dout, lse, causal, window):
 
 
 @torch.library.custom_op(_op("decode_attention"), mutates_args=())
-def _decode(q: Tensor, k_cache: Tensor, v_cache: Tensor, kv_len: Tensor) -> Tensor:
-    out = _dec.launch(q, k_cache, v_cache, kv_len)
+def _decode(q: Tensor, k_cache: Tensor, v_cache: Tensor, kv_len: Tensor,
+            with_lse: bool) -> tuple[Tensor, list[Tensor]]:
+    """(out (B,H,hd), [lse fp32 (B,H)] if ``with_lse`` else [])."""
+    lse = q.new_empty(q.shape[:2], dtype=torch.float32) if with_lse else None
+    out = _dec.launch(q, k_cache, v_cache, kv_len, lse=lse)
     _count(decode_attention)
-    return out
+    return out, [] if lse is None else [lse]
 
 
 @_decode.register_fake
-def _(q, k_cache, v_cache, kv_len):
+def _(q, k_cache, v_cache, kv_len, with_lse):
     _dec.check_args(q, k_cache, v_cache, kv_len)
-    return torch.empty_like(q)
+    return torch.empty_like(q), [q.new_empty(q.shape[:2], dtype=torch.float32)] if with_lse else []
 
 
 @torch.library.custom_op(_op("mlstm_chunk_fwd"), mutates_args=())
@@ -232,7 +251,7 @@ def decode_keys(kv_len: Tensor, S: int) -> int:
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention, get_raw=True)
-def _decode_flops(q, k_cache, v_cache, kv_len, *, out_val=None, **kw) -> int:
+def _decode_flops(q, k_cache, v_cache, kv_len, with_lse=False, *, out_val=None, **kw) -> int:
     _, H, hd = q.shape
     return 4 * H * hd * decode_keys(kv_len, k_cache.shape[1])
 
@@ -256,10 +275,10 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _no_backward(name: str, roadmap: str) -> NotImplementedError:
+def _no_backward(name: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{name} has no backward kernel, so on the card its output would carry "
-        f"no gradient; call it under torch.no_grad() ({roadmap})")
+        f"no gradient; call it under torch.no_grad() ({why})")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -288,6 +307,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,Sq,H,hd), k/v (B,Skv,K,hd) -> (B,Sq,H,hd) in q.dtype;
     differentiable. Sq != Skv takes no causal or window mask."""
+    if sh.is_dtensor(q):
+        return _flash_sharded(q, k, v, causal, window)
     # grad mode is off inside Function.forward: whether a graph is recorded
     # is decided here
     return _FlashAttention.apply(q, k, v, causal, window, _needs_grad(q, k, v))
@@ -312,14 +333,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
-    """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32 -> (B,H,hd) in q.dtype."""
+                     kv_len: torch.Tensor, *, with_lse: bool = False):
+    """q (B,H,hd), caches (B,S,K,hd), kv_len (B,) int32 -> (B,H,hd) in q.dtype;
+    with ``with_lse`` also each row's log-sum-exp of its scaled scores, fp32
+    (B,H), -inf where no key is visible (kv_len 0). DTensor arguments run on
+    each device's shards (``_decode_sharded``)."""
+    if sh.is_dtensor(q):
+        return _decode_sharded(q, k_cache, v_cache, kv_len, with_lse)
     if _on_cpu(q, k_cache, v_cache, kv_len):
+        if with_lse:
+            return decode_attention_ref(q, k_cache, v_cache, kv_len, with_lse=True)
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
     if _needs_grad(q, k_cache, v_cache):
-        raise _no_backward("decode_attention", "it serves decoding only, ROADMAP.md "
-                           "queue 2; training runs flash_attention")
-    return _decode(q, k_cache, v_cache, kv_len)
+        raise _no_backward("decode_attention", "it serves decoding only; training runs "
+                           "flash_attention, whose backward is a kernel")
+    out, lse = _decode(q, k_cache, v_cache, kv_len, with_lse)
+    return (out, lse[0]) if with_lse else out
 
 
 class _MlstmChunk(torch.autograd.Function):
@@ -359,6 +388,8 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.
     differentiable in every input. The chunk is clamped to S, as in the
     reference wrapper."""
     chunk = min(chunk, q.shape[1])
+    if sh.is_dtensor(q):
+        return _mlstm_sharded(q, k, v, log_f, i_gate, chunk, state)
     C0, n0 = (None, None) if state is None else state
     # grad mode is off inside Function.forward: whether a graph is recorded is decided here
     recording = _needs_grad(q, k, v, log_f, i_gate, *(state or ()))
@@ -392,6 +423,156 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: to
                        None if dC is None else dC.contiguous(),
                        None if dn is None else dn.contiguous(), chunk, state is not None)
     return (*grads[:5], *(grads[5] or (None, None)))
+
+
+# ---------------------------------------------------------------------------
+# The entries on DTensors: each device runs the entry above on its shards
+# ---------------------------------------------------------------------------
+
+def _axis_roles(t: torch.Tensor, batch_dim: int, head_dim: int):
+    """Per mesh dimension of DTensor ``t``: "batch" where it shards
+    ``batch_dim``, "heads" where it shards ``head_dim``, else None (the
+    entry replicates ``t`` there; a Partial sum is reduced first)."""
+    return tuple("batch" if p.is_shard(batch_dim) else "heads" if p.is_shard(head_dim)
+                 else None for p in t.placements)
+
+
+def _place(roles, dims: dict[str, int]):
+    """Placements from roles: ``Shard(dims[role])``, or Replicate for a role
+    ``dims`` does not name (and for None)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(dims[r]) if r in dims else Replicate() for r in roles)
+
+
+def _kv_for_heads(t: torch.Tensor, first: int, h: int, G: int, dim: int) -> torch.Tensor:
+    """The kv heads (along ``dim``) that query heads ``first .. first + h - 1``
+    read, query head j reading kv head j // G: whole groups when ``h`` is a
+    multiple of G, the one kv head when G is a multiple of ``h``, else one
+    kv head per query head."""
+    if h % G == 0:
+        sel = t.narrow(dim, first // G, h // G)
+    elif G % h == 0:
+        sel = t.narrow(dim, first // G, 1)
+    else:
+        sel = t.index_select(dim, (first + torch.arange(h, device=t.device)) // G)
+    return sel.contiguous()
+
+
+def _grouped_kv(q, k, roles):
+    """(kv placements, kv gradient placements, (mesh dim, G) or None): where q
+    shards its heads over a mesh axis that does not divide the kv heads, each
+    device takes the kv heads whole and slices those its query heads read;
+    their gradient is then a Partial sum over that axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    H, K = q.shape[-2], k.shape[-2]
+    head_dim = k.ndim - 2
+    kv, grad, sliced = [], [], None
+    for i, (r, size) in enumerate(zip(roles, q.device_mesh.shape)):
+        if r == "batch":
+            kv.append(Shard(0))
+            grad.append(Shard(0))
+        elif r == "heads" and K % size == 0:
+            kv.append(Shard(head_dim))
+            grad.append(Shard(head_dim))
+        elif r == "heads":
+            assert sliced is None, "query heads sharded over two mesh axes"
+            sliced = (i, H // K)
+            kv.append(Replicate())
+            grad.append(Partial())
+        else:
+            kv.append(Replicate())
+            grad.append(Replicate())
+    return tuple(kv), tuple(grad), sliced
+
+
+def _flash_sharded(q, k, v, causal, window):
+    """``flash_attention`` on DTensors q (B,Sq,H,hd), k/v (B,Skv,K,hd): each
+    device runs it on its batch shard and its query heads (q's own
+    placements; its sequence and head dim replicated), with the kv heads
+    those heads read; the output is placed as q."""
+    roles = _axis_roles(q, 0, 2)
+    qp = _place(roles, {"batch": 0, "heads": 2})
+    kvp, kvg, sliced = _grouped_kv(q, k, roles)
+    mesh = q.device_mesh
+
+    def local(ql, kl, vl):
+        if sliced is not None:
+            first = mesh.get_local_rank(sliced[0]) * ql.shape[2]
+            kl, vl = (_kv_for_heads(t, first, ql.shape[2], sliced[1], 2) for t in (kl, vl))
+        return flash_attention(ql, kl, vl, causal=causal, window=window)
+
+    return sh.run_local(local, (q, k, v), (qp, kvp, kvp), qp, (qp, kvg, kvg))
+
+
+def _decode_sharded(q, k_cache, v_cache, kv_len, with_lse):
+    """``decode_attention`` on DTensors q (B,H,hd), caches (B,S,K,hd): batch
+    shards as the cache's; where the cache's sequence is sharded (``kv_seq``,
+    sequence parallelism) every device of that axis takes all the query
+    heads, attends over its own range of the cache (its kv_len clamped to
+    the range, 0 where the range starts past it) and the ranges' partial
+    results merge by their log-sum-exp: one all-reduce of the rows' maxima
+    and one of the weighted outputs with their weights. Elsewhere the query
+    heads shard as q's, with the kv heads they read."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = q.device_mesh
+    croles = tuple("batch" if p.is_shard(0) else "seq" if p.is_shard(1)
+                   else "heads" if p.is_shard(2) else None for p in k_cache.placements)
+    qroles = tuple("batch" if c == "batch" else "heads" if c == "heads" or (
+        c is None and p.is_shard(1)) else None for c, p in zip(croles, q.placements))
+    seq = [i for i, c in enumerate(croles) if c == "seq"]
+    assert len(seq) <= 1, "cache sequence sharded over two mesh axes"
+    seq_dim = seq[0] if seq else None
+    qp = _place(qroles, {"batch": 0, "heads": 1})
+    cp = _place(croles, {"batch": 0, "seq": 1, "heads": 2})
+    kvp, _, sliced = _grouped_kv(q, k_cache, qroles)
+    cp = tuple(kv if r == "heads" else c for c, kv, r in zip(cp, kvp, qroles))
+    lp = _place(croles, {"batch": 0})
+    lse_p = _place(qroles, {"batch": 0, "heads": 1})
+    merge = seq_dim is not None and mesh.shape[seq_dim] > 1
+
+    def local(ql, kl, vl, nl):
+        if sliced is not None:
+            first = mesh.get_local_rank(sliced[0]) * ql.shape[1]
+            kl, vl = (_kv_for_heads(t, first, ql.shape[1], sliced[1], 2) for t in (kl, vl))
+        if seq_dim is not None:
+            S = kl.shape[1]
+            nl = (nl - mesh.get_local_rank(seq_dim) * S).clamp(0, S).to(torch.int32)
+        if not merge:
+            return decode_attention(ql, kl, vl, nl, with_lse=with_lse)
+        out, lse = decode_attention(ql, kl, vl, nl, with_lse=True)
+        group = (mesh, seq_dim)
+        top = funcol.all_reduce(lse, "max", group)
+        w = torch.exp(lse - torch.where(torch.isfinite(top), top, 0.0))
+        acc = funcol.all_reduce(torch.cat([out.float() * w[..., None], w[..., None]], -1),
+                                "sum", group)
+        den = acc[..., -1]
+        out = (acc[..., :-1] / den[..., None]).to(ql.dtype)
+        return (out, top + torch.log(den)) if with_lse else out
+
+    outs = (qp, lse_p) if with_lse else qp
+    return sh.run_local(local, (q, k_cache, v_cache, kv_len), (qp, cp, cp, lp), outs)
+
+
+def _mlstm_sharded(q, k, v, log_f, i_gate, chunk, state):
+    """``mlstm_chunk`` on DTensors: each device runs it on its batch shard
+    and, where q shards its heads, on its heads; the rest replicated."""
+    roles = _axis_roles(q, 0, 2)
+    tp = _place(roles, {"batch": 0, "heads": 2})   # q, k, v and the gates alike
+    sp = _place(roles, {"batch": 0, "heads": 1})
+
+    def local(ql, kl, vl, lf, ig, C0, n0):
+        y, (C, n) = mlstm_chunk(ql, kl, vl, lf, ig, chunk=chunk,
+                                state=None if C0 is None else (C0, n0))
+        return y, C, n
+
+    C0, n0 = (None, None) if state is None else state
+    sp_in = None if state is None else sp
+    y, C, n = sh.run_local(local, (q, k, v, log_f, i_gate, C0, n0),
+                           (tp, tp, tp, tp, tp, sp_in, sp_in), (tp, sp, sp))
+    return y, (C, n)
 
 
 flash_attention.launches = 0

@@ -135,8 +135,13 @@ def decode_attention_ref(
     k_cache: torch.Tensor,      # (B, S, K, hd)
     v_cache: torch.Tensor,      # (B, S, K, hd)
     kv_len: torch.Tensor,       # (B,) int32: valid prefix length
-) -> torch.Tensor:
-    """Probabilities stay in fp32 through p·v, as in the reference."""
+    *,
+    with_lse: bool = False,
+):
+    """Probabilities stay in fp32 through p·v, as in the reference. With
+    ``with_lse`` also each row's log-sum-exp of its scaled scores over the
+    visible keys, fp32 (B, H): -inf where none is visible (kv_len <= 0),
+    the decode kernel's ``lse``."""
     B, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
@@ -146,7 +151,12 @@ def decode_attention_ref(
     logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.float())
-    return out.reshape(B, H, hd).to(q.dtype)
+    out = out.reshape(B, H, hd).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1).reshape(B, H)
+    empty = (kv_len.to(q.device) <= 0)[:, None]
+    return out, torch.where(empty, float("-inf"), lse)
 
 
 def mlstm_chunk_ref(

@@ -2,8 +2,8 @@
 
 Port of ``repro.launch.dryrun``. For each cell (``models.config.SHAPES``
 that ``applicable_shapes`` gives each of the ten archs) it answers whether
-the step builds, what each device holds on the reference's meshes, and
-whether the cell fits one H100:
+the step builds, whether the cell fits one H100, and what one device of
+each of the reference's meshes holds, does and communicates:
 
 1. **Arguments.** The parameters (``model.abstract_params``), the AdamW
    state, and the batch (train, prefill) or the decode cache and inputs,
@@ -51,12 +51,31 @@ whether the cell fits one H100:
    and their weights; ``trace_cell(..., full=True)`` traces the whole cell;
    ``--jobs`` runs the probes in parallel processes.
 
-The reference's ``collective_bytes`` are not ported: it reads them from
-XLA's post-SPMD HLO, and the port has no SPMD compiler; its collectives
-exist only when DTensor runs the model across a process group. Records
-carry ``"collective_bytes": null``. Variants keep the reference's knobs
-except ``unroll_layers`` (the port's layers are always a Python loop) and
-``shard_logits`` (an output placement: the record holds arguments only).
+4. **Sharded trace** (each production mesh: 16×16 and 2×16×16). The same
+   step runs once more on meta DTensors, each argument placed by the rules
+   (``shard_args``): DTensor runs every op on each device's shards and
+   issues the collectives its placements need, and the port's kernel
+   entries, its matmuls, the embedding, the loss, the decode cache and the
+   MoE dispatch state their own placements (``runtime.sharding.run_local``
+   and ``matmul``, ``kernels.ops``, ``models.layers``). The process is rank
+   0 of the fake world of 512 (``launch.mesh``); every split is even, so
+   its trace is every device's. ``StepTrace`` counts only the local ops
+   (an op on DTensors goes back to DTensor, which runs the local ops
+   through it; its shape propagation on fake global tensors is skipped),
+   so every number is one device's: ``flops``, ``bytes_accessed``,
+   ``peak_bytes`` (the local shards of the arguments included),
+   ``fits_per_device`` and ``kernel_calls``; and ``collective_bytes``,
+   the reference's record of ``parse_collective_bytes`` (the five kinds,
+   their counts and the total): each functional collective, DTensor's and
+   the port's own, counted at its result's size (``CollectiveTally``).
+   Probes extrapolate them as in 3, the collectives additive in depth as
+   in the reference's ``depth_probe``. A step that raises on a mesh makes
+   that record ``ok: false`` with the error; nothing falls back to the
+   unsharded trace.
+
+Variants keep the reference's knobs, ``shard_logits`` included (prefill's
+logits stay vocab-sharded), except ``unroll_layers``: the port's layers are
+always a Python loop.
 
 Records go to ``build/dryrun/<arch>__<shape>__<mesh>__<variant>.json``;
 the exit code is 1 if any cell fails. The production meshes live in the
@@ -75,6 +94,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import math
 import time
 import traceback
@@ -119,6 +139,7 @@ class Variant:
     window: int | None = None         # override the attention window
     moe_group: int | None = None      # MoE dispatch group size override
     grad_compress: str | None = None  # "bf16": gradients rounded to bf16
+    shard_logits: bool = False        # keep prefill logits vocab-sharded
     tag: str = "baseline"
 
 
@@ -128,7 +149,8 @@ def parse_variant(s: str) -> Variant:
     kw: dict[str, Any] = {"tag": s}
     for part in s.split(","):
         k, _, val = part.partition("=")
-        if k in ("fsdp", "shard_kv_seq", "expert_parallel", "remat", "tensor_parallel"):
+        if k in ("fsdp", "shard_kv_seq", "expert_parallel", "remat", "tensor_parallel",
+                 "shard_logits"):
             kw[k] = bool(int(val))
         elif k in ("n_microbatches", "window", "moe_group"):
             kw[k] = int(val)
@@ -160,8 +182,35 @@ class Cell:
             return {"params": ["params"], "optimizer": [], "batch_or_cache": ["batch"]}
         return {"params": ["params"], "optimizer": [], "batch_or_cache": ["cache", "inputs"]}
 
-    def step(self) -> Callable[[dict[str, Any]], Any]:
-        """The cell's step on a dict of arguments shaped like ``args``."""
+    def step(self, places: dict[str, Any] | None = None) -> Callable[[dict[str, Any]], Any]:
+        """The cell's step on a dict of arguments shaped like ``args``. Given
+        the arguments' placements on a mesh (``placements``), the step's
+        outputs are redistributed as the reference's ``out_shardings`` place
+        them: the new parameters and optimizer state as the old, the metrics
+        replicated, prefill's logits over the batch (vocab-sharded too under
+        ``shard_logits``), decode's logits over the batch (its cache is
+        written in place)."""
+        step = self._step()
+        if places is None:
+            return step
+        shape, variant = self.shape, self.variant
+
+        def placed(a):
+            out = step(a)
+            mesh = _mesh_of(a)
+            if shape.kind == "train":
+                params, opt, metrics = out
+                return (sh.redistribute_tree(params, places["params"]),
+                        sh.redistribute_tree(opt, places["opt"]),
+                        sh.redistribute_tree(metrics, sh.replicated(mesh)))
+            if shape.kind == "prefill":
+                return sh.redistribute_tree(out, logits_placements(mesh, shape, variant))
+            logits, cache = out
+            batch = sh.batch_sharding(mesh, 2, shape.global_batch)
+            return sh.redistribute_tree(logits, batch), cache
+        return placed
+
+    def _step(self) -> Callable[[dict[str, Any]], Any]:
         cfg = self.cfg
         if self.shape.kind == "train":
             train = train_lib.build_train_step(
@@ -180,6 +229,23 @@ class Cell:
             with torch.no_grad():
                 return serve(a["params"], a["cache"], a["inputs"])
         return decode
+
+
+def _mesh_of(args: dict[str, Any]):
+    """The mesh of a dict of DTensor arguments."""
+    return next(t for t in leaves(args["params"]) if sh.is_dtensor(t)).device_mesh
+
+
+def logits_placements(mesh: Any, shape: ShapeConfig, variant: Variant) -> tuple:
+    """Prefill's logits (B, S, vocab) on ``mesh``: over the batch axes where
+    they divide the batch, and with ``shard_logits`` over the model axis
+    along the vocab too, as the reference's ``out_shardings``."""
+    from torch.distributed.tensor import Shard
+
+    places = list(sh.batch_sharding(mesh, 3, shape.global_batch))
+    if variant.shard_logits:
+        places[mesh.mesh_dim_names.index("model")] = Shard(2)
+    return tuple(places)
 
 
 # An arch's cells share its parameters' meta tree (meta tensors hold no data): built once
@@ -239,6 +305,26 @@ def placements(cell: Cell, mesh: Any) -> dict[str, Any]:
     return out
 
 
+def shard_args(cell: Cell, mesh: Any, args: dict[str, Any] | None = None) -> dict[str, Any]:
+    """The cell's arguments as DTensors on ``mesh`` under ``placements``: by
+    default its meta trees, each device's shard an empty meta tensor; given
+    ``args`` (real tensors, the same on every rank, ``materialize``), each
+    rank's own shards of them. The decode step's ``pos`` stays an int."""
+    args = cell.args if args is None else args
+    places = placements(cell, mesh)
+    out = {}
+    for name, tree in args.items():
+        if name == "inputs":
+            tree, pos = {"token": tree["token"]}, tree["pos"]
+        if args is cell.args:
+            out[name] = sh.to_dtensors(tree, places[name], mesh)
+        else:
+            out[name] = sh.shard_tree(tree, places[name], mesh)
+        if name == "inputs":
+            out[name]["pos"] = pos
+    return out
+
+
 def argument_bytes(cell: Cell, mesh: Any) -> dict[str, int]:
     """Bytes one device of ``mesh`` holds of each part of the arguments."""
     places = placements(cell, mesh)
@@ -280,6 +366,84 @@ def _next_phase(phase: str, recorded: bool) -> str:
     return "forward" if recorded else phase
 
 
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+# torch's functional collectives (what DTensor issues, and the port's own) by the
+# reference's HLO kinds; their result is the size the reference counts: the gathered
+# output, the reduced buffer, the scattered output, the exchanged output
+_FUNCOL_KIND = {"all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+_FUNCOL_NOT_COMM = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def local_op(types) -> bool:
+    """False for an op on DTensors (DTensor itself runs it)."""
+    from torch.distributed.tensor import DTensor
+
+    return not any(issubclass(t, DTensor) for t in types)
+
+
+def shape_propagation() -> bool:
+    """True inside DTensor's sharding propagation, which runs each op once on
+    fake tensors of the global shapes (under a ``FakeTensorMode``) to learn
+    its output's shape: no device runs that op. A sharded trace runs on meta
+    tensors with no fake mode of its own."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+class CollectiveTally:
+    """Bytes and count of each kind of collective one device issues, the
+    reference's ``parse_collective_bytes`` record: the five kinds, their
+    ``*_count`` and ``total``. A collective is one functional-collective op
+    (``torch.distributed._functional_collectives``), whether DTensor issued
+    it while redistributing or the port's code did; its bytes are its
+    result's, as the reference counts them."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(COLLECTIVES, 0)
+        self.count = dict.fromkeys(COLLECTIVES, 0)
+
+    def add(self, func, out) -> None:
+        if func.namespace not in ("_c10d_functional", "c10d_functional"):
+            return
+        name = func._opname
+        if name in _FUNCOL_NOT_COMM:
+            return
+        if name not in _FUNCOL_KIND:
+            raise NotImplementedError(f"collective {func} has no kind in the reference's tally")
+        kind = _FUNCOL_KIND[name]
+        self.bytes[kind] += sum(t.numel() * t.element_size()
+                                for t in torch.utils._pytree.tree_leaves(out)
+                                if isinstance(t, torch.Tensor))
+        self.count[kind] += 1
+
+    def record(self) -> dict[str, int]:
+        out = dict(self.bytes)
+        out.update({f"{k}_count": v for k, v in self.count.items()})
+        out["total"] = sum(self.bytes.values())
+        return out
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """``CollectiveTally`` of a real run: every functional collective that
+    runs while the mode is on, DTensor's included."""
+
+    def __init__(self):
+        super().__init__()
+        self.tally = CollectiveTally()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not local_op(types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if not shape_propagation():
+            self.tally.add(func, out)
+        return out
+
+
 class StepTrace(TorchDispatchMode):
     """Live tensor storages through a step: their bytes (rounded as the CUDA
     caching allocator rounds them) from the op that makes each until its
@@ -290,8 +454,10 @@ class StepTrace(TorchDispatchMode):
     (``timeline``) and a checksum of the ops' names (``ops_crc``): two
     traces whose phase ran the same ops can be extrapolated op by op."""
 
-    def __init__(self, roots: list[torch.Tensor]):
+    def __init__(self, roots: list[torch.Tensor], sharded: bool = False):
         super().__init__()
+        self.sharded = sharded
+        self.collectives = CollectiveTally()
         self.live: dict[int, int] = {}
         self.now = 0
         self.phase = "other"
@@ -318,7 +484,14 @@ class StepTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.sharded:
+            if not local_op(types):
+                return NotImplemented  # DTensor runs it: its local ops come back here
+            if shape_propagation():
+                return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        if self.sharded:
+            self.collectives.add(func, out)
         outs = [t for t in torch.utils._pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
         ins = [t for t in torch.utils._pytree.tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
@@ -348,29 +521,49 @@ def flop_counter() -> FlopCounterMode:
                            custom_mapping={torch.ops.aten.silu_backward: lambda *a, **k: 0})
 
 
-def trace(cell: Cell, device: str = "meta") -> dict[str, Any]:
+def trace(cell: Cell, device: str = "meta", mesh: Any = None) -> dict[str, Any]:
     """Run the cell's step once on fake tensors on ``device`` and measure it
     (the module's docstring): flops, bytes_accessed, peak bytes per phase,
     kernel calls, seconds. ``device="meta"`` runs meta tensors as they are
     (the fastest); any other device fake tensors under ``FakeTensorMode``
-    (``"cuda"``: the card's, on a CUDA build)."""
+    (``"cuda"``: the card's, on a CUDA build). Given a production ``mesh``,
+    the step runs on meta DTensors placed as on that mesh (``shard_args``)
+    and everything is counted on this device's shards and local ops, with
+    its collectives (``collective_bytes``): what one device of the mesh
+    holds and does."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     t0 = time.perf_counter()  # lint: allow(REPRO001)
-    with FakeTensorMode() if device != "meta" else contextlib.nullcontext():
-        args = map_tree(lambda t: torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                                      device=device)
-                        if isinstance(t, torch.Tensor) else t, cell.args)
-        step = cell.step()
-        roots = [t for t in leaves(args) if isinstance(t, torch.Tensor)]
-        with StepTrace(roots) as mt:
+    if mesh is not None:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        assert device == "meta", "a sharded trace runs on meta tensors"
+        # DTensor warns of each reduction over several mesh axes it runs as one per axis
+        logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+        args = shard_args(cell, mesh)
+        step = cell.step(placements(cell, mesh))
+        roots = [t.to_local() for t in leaves(args) if isinstance(t, torch.Tensor)]
+        with implicit_replication(), StepTrace(roots, sharded=True) as mt:
             out = step(args)
             del out
-    return {"flops": int(mt.flops), "bytes_accessed": int(mt.bytes_accessed),
-            "peak_by_phase": {p: max(v) for p, v in mt.timeline.items()},
-            "timeline": dict(mt.timeline), "ops_crc": dict(mt.ops_crc),
-            "kernel_calls": dict(mt.kernel_calls),
-            "seconds": time.perf_counter() - t0}  # lint: allow(REPRO001)
+    else:
+        with FakeTensorMode() if device != "meta" else contextlib.nullcontext():
+            args = map_tree(lambda t: torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                          device=device)
+                            if isinstance(t, torch.Tensor) else t, cell.args)
+            step = cell.step()
+            roots = [t for t in leaves(args) if isinstance(t, torch.Tensor)]
+            with StepTrace(roots) as mt:
+                out = step(args)
+                del out
+    rec = {"flops": int(mt.flops), "bytes_accessed": int(mt.bytes_accessed),
+           "peak_by_phase": {p: max(v) for p, v in mt.timeline.items()},
+           "timeline": dict(mt.timeline), "ops_crc": dict(mt.ops_crc),
+           "kernel_calls": dict(mt.kernel_calls),
+           "seconds": time.perf_counter() - t0}  # lint: allow(REPRO001)
+    if mesh is not None:
+        rec["collective_bytes"] = mt.collectives.record()
+    return rec
 
 
 def _probe_cfg(cfg: ModelConfig, r: int, r_enc: int) -> ModelConfig:
@@ -429,10 +622,15 @@ def probe_plan(cfg: ModelConfig, shape: str | ShapeConfig, full: bool = False
 
 
 def trace_probe(cfg: ModelConfig, shape: str | ShapeConfig, variant: Variant,
-                probe: tuple[int, int, int], device: str = "meta") -> dict[str, Any]:
-    """``trace`` of the cell cut to one probe of ``probe_plan``."""
+                probe: tuple[int, int, int], device: str = "meta",
+                mesh: Any = None) -> dict[str, Any]:
+    """``trace`` of the cell cut to one probe of ``probe_plan``; with ``mesh``
+    (a production mesh's name, or a mesh) sharded on that mesh."""
     r, r_enc, seq = probe
-    return trace(build_cell(_probe_cfg(cfg, r, r_enc), shape, variant, seq), device)
+    if variant.fsdp is None:  # the whole cell's choice: a probe's few layers fall under 10 B
+        variant = dataclasses.replace(variant, fsdp=_fsdp_auto(cfg))
+    cell = build_cell(_probe_cfg(cfg, r, r_enc), shape, variant, seq)
+    return trace(cell, device, make_mesh(mesh) if isinstance(mesh, str) else mesh)
 
 
 def _phase_peak(results: list[dict], weights: list[Fraction], phase: str) -> int:
@@ -465,6 +663,9 @@ def combine(plan: list[tuple[tuple[int, int, int], Fraction, Fraction]], results
            "peak_bytes": max(peaks.values()), "peak_by_phase": peaks,
            "kernel_calls": {k: wsum(lambda m: m["kernel_calls"].get(k, 0)) for k in ops},
            "seconds": sum(m["seconds"] for m in results)}
+    if "collective_bytes" in results[0]:  # additive in depth, as the reference's depth_probe
+        out["collective_bytes"] = {k: wsum(lambda m: m["collective_bytes"][k])
+                                   for k in results[0]["collective_bytes"]}
     out["fits_one_h100"] = out["peak_bytes"] <= H100_BYTES
     out["trace"] = {"device": device, "probes": [
         {"repeats": r, "enc_layers": e, "seq_len": s, "weight": str(w), "peak_weight": str(wp)}
@@ -476,13 +677,14 @@ def combine(plan: list[tuple[tuple[int, int, int], Fraction, Fraction]], results
 
 
 def trace_cell(cfg: ModelConfig, shape: str | ShapeConfig, variant: Variant, *,
-               full: bool = False, device: str = "meta",
+               full: bool = False, device: str = "meta", mesh: Any = None,
                keep_probes: bool = False) -> dict[str, Any]:
     """The cell's trace metrics at full depth and sequence length:
     extrapolated from probes (``probe_plan``) unless ``full``; with
-    ``keep_probes`` the probes' own metrics go into ``trace.probes``."""
+    ``keep_probes`` the probes' own metrics go into ``trace.probes``; with
+    ``mesh`` one device's of that production mesh."""
     plan = probe_plan(cfg, shape, full)
-    results = [trace_probe(cfg, shape, variant, probe, device) for probe, _, _ in plan]
+    results = [trace_probe(cfg, shape, variant, probe, device, mesh) for probe, _, _ in plan]
     return combine(plan, results, device=device, keep_probes=keep_probes)
 
 
@@ -549,22 +751,35 @@ def cell_of(arch: str, shape_name: str, reduced: bool = False
 
 def run_cell(arch: str, shape_name: str, meshes: list[str], variant: Variant | None = None,
              *, reduced: bool = False, probe: bool = False,
-             traces: Callable[[], list[dict]] | None = None,
+             traces: Callable[[str | None], list[dict]] | None = None,
              out_dir: Path | None = RESULTS_DIR, verbose: bool = True) -> list[dict]:
-    """One record per mesh of ``meshes``; the host mesh's ("1x1") carries the
-    trace. ``traces`` returns the probes' traces where they were run
-    elsewhere (``--jobs``). Every record of a cell that fails carries the
-    error. Records are written to ``out_dir`` unless it is None."""
+    """One record per mesh of ``meshes``. The host mesh's ("1x1") carries the
+    unsharded trace; a production mesh's the trace of one of its devices
+    (``trace(..., mesh=)``), with its collectives. ``traces(mesh)`` returns
+    the probes' traces on a production mesh's name, or on None the host
+    trace's, where they were run elsewhere (``--jobs``). A record whose trace
+    fails carries the error (a failing host trace fails the whole cell).
+    Records are written to ``out_dir`` unless it is None."""
     variant = variant or Variant()
     records = []
     t0 = time.perf_counter()  # lint: allow(REPRO001)
+
+    def failed(name: str, exc: Exception) -> dict:
+        return {"arch": arch, "shape": shape_name, "mesh": name, "variant": variant.tag,
+                "reduced": reduced, "ok": False, "error": repr(exc),
+                "traceback": traceback.format_exc()}
+
     try:
         cfg, shape = cell_of(arch, shape_name, reduced)
         cell = build_cell(cfg, shape, variant)
         plan = probe_plan(cfg, shape)
-        results = (traces() if traces is not None else
-                   [trace_probe(cfg, shape, variant, p) for p, _, _ in plan])
-        metrics = combine(plan, results, keep_probes=probe)
+
+        def metrics(mesh_name: str | None) -> dict:
+            results = (traces(mesh_name) if traces is not None else
+                       [trace_probe(cfg, shape, variant, p, mesh=mesh_name) for p, _, _ in plan])
+            return combine(plan, results, keep_probes=probe)
+
+        host = metrics(None) if "1x1" in meshes else None
         for name in meshes:
             mesh = make_mesh(name)
             arg = argument_bytes(cell, mesh)
@@ -574,16 +789,25 @@ def run_cell(arch: str, shape_name: str, meshes: list[str], variant: Variant | N
                    "memory_analysis": {"argument_size_in_bytes": arg["total"]},
                    "collective_bytes": None}
             if name == "1x1":
-                rec.update({k: metrics[k] for k in (
+                rec.update({k: host[k] for k in (
                     "flops", "bytes_accessed", "peak_bytes", "peak_by_phase", "fits_one_h100",
                     "kernel_calls", "trace")})
-                rec["trace_s"] = metrics["seconds"]
+                rec["trace_s"] = host["seconds"]
                 rec["budget"] = {"bytes": H100_BYTES, "card": "NVIDIA H100 80GB HBM3, 700 W"}
+            else:
+                try:
+                    m = metrics(name)
+                except Exception as exc:  # a step that does not shard is the finding
+                    records.append(failed(name, exc))
+                    continue
+                rec.update({k: m[k] for k in ("flops", "bytes_accessed", "peak_bytes",
+                                              "peak_by_phase", "kernel_calls",
+                                              "collective_bytes", "trace")})
+                rec["fits_per_device"] = m["peak_bytes"] <= H100_BYTES
+                rec["trace_s"] = m["seconds"]
             records.append(rec)
     except Exception as exc:  # a cell that does not build is the finding
-        records = [{"arch": arch, "shape": shape_name, "mesh": name, "variant": variant.tag,
-                    "reduced": reduced, "ok": False, "error": repr(exc),
-                    "traceback": traceback.format_exc()} for name in meshes]
+        records = [failed(name, exc) for name in meshes]
     seconds = time.perf_counter() - t0  # lint: allow(REPRO001)
     if verbose:
         print(_summary(records, seconds), flush=True)
@@ -603,14 +827,19 @@ def _gb(n: float) -> str:
 def _summary(records: list[dict], seconds: float) -> str:
     r0 = records[0]
     head = f"{r0['arch']} {r0['shape']} {r0['variant']}"
-    if not r0["ok"]:
-        return f"[FAIL] {head}: {r0['error']}"
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        return f"[FAIL] {head} {' '.join(r['mesh'] for r in bad)}: {bad[0]['error']}"
     args = " ".join(f"{r['mesh']} {_gb(r['argument_bytes']['total'])}" for r in records)
     host = next((r for r in records if r["mesh"] == "1x1"), None)
     traced = ("" if host is None else
               f" | peak {_gb(host['peak_bytes'])} GB fits_one_h100={host['fits_one_h100']} "
               f"flops {host['flops']:.4e}")
-    return f"[OK] {head} | args/device GB: {args}{traced} | {seconds:.1f} s"
+    per_device = "".join(
+        f" | {r['mesh']}/device peak {_gb(r['peak_bytes'])} GB fits={r['fits_per_device']} "
+        f"flops {r['flops']:.4e} coll {_gb(r['collective_bytes']['total'])} GB"
+        for r in records if r["mesh"] != "1x1")
+    return f"[OK] {head} | args/device GB: {args}{traced}{per_device} | {seconds:.1f} s"
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -645,14 +874,15 @@ def main(argv: list[str] | None = None) -> int:
         import multiprocessing
 
         plans = {c: probe_plan(*cell_of(*c, args.reduced)) for c in cells}
-        tasks = sorted(((c, p) for c in cells for p, _, _ in plans[c]),
-                       key=lambda t: -t[1][0] * t[1][2])
+        on = [None] + [m for m in meshes if m != "1x1"]  # None: the host trace
+        tasks = sorted(((c, p, m) for c in cells for p, _, _ in plans[c] for m in on),
+                       key=lambda t: -t[1][0] * t[1][2] * (1 if t[2] is None else 3))
         with concurrent.futures.ProcessPoolExecutor(
                 args.jobs, mp_context=multiprocessing.get_context("spawn")) as pool:
-            futures = {t: pool.submit(trace_probe, *cell_of(*t[0], args.reduced), variant, t[1])
-                       for t in tasks}
-            results = [run_cell(*c, meshes, variant, **kw, traces=lambda c=c: [
-                futures[c, p].result() for p, _, _ in plans[c]]) for c in cells]
+            futures = {t: pool.submit(trace_probe, *cell_of(*t[0], args.reduced), variant, t[1],
+                                      mesh=t[2]) for t in tasks}
+            results = [run_cell(*c, meshes, variant, **kw, traces=lambda m, c=c: [
+                futures[c, p, m].result() for p, _, _ in plans[c]]) for c in cells]
     n_fail = sum(not all(r["ok"] for r in recs) for recs in results)
     seconds = time.perf_counter() - t0  # lint: allow(REPRO001)
     print(f"\ndry-run complete: {len(results) - n_fail} ok, {n_fail} failed, {seconds:.1f} s")

@@ -9,6 +9,9 @@ device would hold (``runtime.sharding``). The process group is global:
 such a process can hold no other group, so run it on its own
 (``launch/dryrun.py`` does).
 
+``make_fake_mesh`` builds any mesh that way (a test's 2×2 or 1×4 beside a
+real run of the same shape).
+
 ``make_host_mesh`` is a real 1×1 mesh over a world of one: one H100 with
 NCCL, or the CPU with gloo.
 
@@ -29,21 +32,30 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """The 16×16 ("data", "model") mesh, or with ``multi_pod`` the 2×16×16
     ("pod", "data", "model") one, over the fake backend; starts the fake
     world of 512 ranks unless it is already up."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"), device_type, WORLD)
+    return make_fake_mesh((16, 16), ("data", "model"), device_type, WORLD)
+
+
+def make_fake_mesh(shape: tuple[int, ...], names: tuple[str, ...], device_type: str = "cuda",
+                   world: int | None = None):
+    """A mesh of ``shape`` named ``names`` over the fake backend, this process
+    its rank 0; starts a fake world of ``world`` ranks (default the mesh's
+    size) unless a fake world that large is already up."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    if not dist.is_initialized():
-        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=WORLD)
-    elif dist.get_backend() != "fake" or dist.get_world_size() < WORLD:
-        raise RuntimeError(f"a {dist.get_backend()} process group of "
-                           f"{dist.get_world_size()} ranks is up: the production meshes "
-                           f"need the fake backend's {WORLD} (run them in their own process)")
     n = 1
     for s in shape:
         n *= s
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    world = world or n
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    elif dist.get_backend() != "fake" or dist.get_world_size() < n:
+        raise RuntimeError(f"a {dist.get_backend()} process group of "
+                           f"{dist.get_world_size()} ranks is up: a fake mesh of {n} needs "
+                           f"the fake backend (run it in its own process)")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
 
 
 def make_host_mesh(device_type: str = "cuda"):

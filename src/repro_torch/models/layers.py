@@ -15,6 +15,15 @@ says: ``attention`` calls ``ops.flash_attention`` and ``attention_decode``
 calls ``ops.decode_attention``, so the device of the tensors picks the
 CUDA kernel or its plain version. ``sdpa`` is the plain oracle the tests
 hold both against.
+
+On DTensors (a sharded step) the parts the reference leaves to XLA's
+partitioner state their own placements: the products are
+``runtime.sharding.matmul``; heads split and merge whole per device
+(``split_last``, ``merge_last``); the embedding lookup is vocab-parallel
+(``embed``); a decode step writes its new key and value only into
+the shard of a sequence-sharded cache that holds the slot (``write_slot``);
+the MoE MLP dispatches each device's tokens to its own experts or ff slice
+(``_moe_sharded``).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import sharding as sh
 
 Params = dict[str, Any]
 
@@ -53,6 +63,49 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def _init(gen: torch.Generator, shape: tuple[int, ...], scale: float,
           dtype: torch.dtype) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding lookup on DTensors
+# --------------------------------------------------------------------------
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. For a DTensor table (vocab, d) it is Megatron's
+    vocab-parallel lookup: where the vocab is sharded each device looks up
+    the tokens of its own rows, zeros the rest, and one all-reduce sums the
+    shards' rows; the batch shards as ``tokens``. The result is replicated
+    over every non-batch axis. Indexing a sharded table would gather it."""
+    if not sh.is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not sh.is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, sh.replicated(mesh), run_check=False)
+    tp, tg, kp, outp = [], [], [], []
+    vocab_dim = None
+    for i, (pt, pk) in enumerate(zip(table.placements, tokens.placements, strict=True)):
+        # a mesh axis of one device splits nothing: its lookup is the plain one
+        batch, vocab = pk.is_shard(0), pt.is_shard(0) and mesh.shape[i] > 1
+        if vocab:
+            vocab_dim = i
+        tp.append(Shard(0) if vocab else Replicate())
+        tg.append(Partial() if batch else tp[-1])
+        kp.append(Shard(0) if batch else Replicate())
+        outp.append(Shard(0) if batch else Partial() if vocab else Replicate())
+
+    def local(t, ids):
+        if vocab_dim is None:
+            return t[ids]
+        first = mesh.get_local_rank(vocab_dim) * t.shape[0]
+        mine = (ids >= first) & (ids < first + t.shape[0])
+        rows = t[torch.where(mine, ids - first, 0)]
+        return torch.where(mine[..., None], rows, 0)
+
+    out = sh.run_local(local, (table, tokens), (tuple(tp), tuple(kp)), tuple(outp),
+                       (tuple(tg), tuple(kp)))
+    done = tuple(Replicate() if p.is_partial() else p for p in out.placements)
+    return out.redistribute(mesh, done)
 
 
 # --------------------------------------------------------------------------
@@ -128,13 +181,12 @@ def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfi
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = xq @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
+    q = sh.matmul(xq, p["wq"])
+    k = sh.matmul(xkv, p["wk"])
+    v = sh.matmul(xkv, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, Sq, H, hd), k.reshape(B, Skv, K, hd),
-            v.reshape(B, Skv, K, hd))
+    return sh.split_last(q, (H, hd)), sh.split_last(k, (K, hd)), sh.split_last(v, (K, hd))
 
 
 def sdpa(
@@ -194,7 +246,7 @@ def attention(
         k = apply_rope(k, pos, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=causal and xkv is None,
                               window=cfg.sliding_window if xkv is None else None)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return sh.matmul(sh.merge_last(out), p["wo"])
 
 
 def attention_decode(
@@ -223,12 +275,37 @@ def attention_decode(
         k = apply_rope(k, posv, cfg.rope_theta)
     Smax = cache_k.shape[1]
     slot = pos % Smax if rotating else min(pos, Smax - 1)
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, slot, k[:, 0])
+    write_slot(cache_v, slot, v[:, 0])
     n = min(pos + 1, Smax) if rotating else pos + 1
     kv_len = torch.full((B,), n, dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len)
-    return out.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+    return sh.matmul(sh.merge_last(out[:, None]), p["wo"]), cache_k, cache_v
+
+
+def write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` (cache (B,S,K,hd), new (B,K,hd)), cast to the
+    cache's dtype. On a DTensor cache whose sequence is sharded only the
+    device whose range holds ``slot`` writes, into its own shard: indexing
+    the sharded axis would gather the whole cache."""
+    if not sh.is_dtensor(cache):
+        cache[:, slot] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    new_p = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate()
+                  for p in cache.placements)
+
+    def local(c, n):
+        at = slot
+        if seq:
+            at -= mesh.get_local_rank(seq[0]) * c.shape[1]
+        if 0 <= at < c.shape[1]:
+            c[:, at] = n.to(c.dtype)
+
+    sh.run_local(local, (cache, new), (tuple(cache.placements), new_p), None)
 
 
 def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
@@ -237,8 +314,8 @@ def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
     (B, F, d): ``enc_out @ wk`` and ``enc_out @ wv`` as (B, F, K, hd), what a
     decode step reads from the filled cross cache."""
     B, F, _ = enc_out.shape
-    return ((enc_out @ p["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd),
-            (enc_out @ p["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd))
+    return (sh.split_last(sh.matmul(enc_out, p["wk"]), (cfg.n_kv_heads, cfg.hd)),
+            sh.split_last(sh.matmul(enc_out, p["wv"]), (cfg.n_kv_heads, cfg.hd)))
 
 
 def attention_cross_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -247,10 +324,10 @@ def attention_cross_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     (B, F, K, hd) through the decode kernel, every one of the F encoder
     frames visible (``kv_len = F``); the cache is only read."""
     B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, cfg.n_heads, cfg.hd)
+    q = sh.split_last(sh.matmul(x[:, 0], p["wq"]), (cfg.n_heads, cfg.hd))
     kv_len = torch.full((B,), cache_k.shape[1], dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q, cache_k, cache_v, kv_len)
-    return out.reshape(B, 1, -1) @ p["wo"]
+    return sh.matmul(sh.merge_last(out[:, None]), p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -275,12 +352,12 @@ def specs_mlp(cfg: ModelConfig) -> Params:
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(sh.matmul(x, p["w_gate"])) * sh.matmul(x, p["w_up"])
     elif cfg.activation == "squared_relu":
-        h = torch.square(F.relu(x @ p["w_up"]))
+        h = torch.square(F.relu(sh.matmul(x, p["w_up"])))
     else:  # gelu, tanh approximation as jax.nn.gelu's default
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+        h = F.gelu(sh.matmul(x, p["w_up"]), approximate="tanh")
+    return sh.matmul(h, p["w_down"])
 
 
 # --------------------------------------------------------------------------
@@ -359,28 +436,92 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gathered back and added in slot order in fp32, weighted by the combine
     weights rounded to ``x.dtype``, and the sum rounded to ``x.dtype``: the
     reference's roundings (bf16 expert products, SiLU on their bf16
-    output). No atomics: two calls give the same bits."""
+    output). No atomics: two calls give the same bits. On DTensors each
+    device runs this on its own shards (``_moe_sharded``)."""
+    if sh.is_dtensor(x):
+        return _moe_sharded(p, x, cfg)
+    return _moe_local(p, x, cfg).to(x.dtype)
+
+
+def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> torch.Tensor:
+    """``moe_mlp`` before its last rounding, in fp32, with the experts
+    ``first .. first + E_l - 1`` that ``p``'s expert weights hold (E_l =
+    their leading size; all E by default): the routing is over all E, and
+    assignments to the other experts add nothing."""
     E, k = cfg.moe.n_experts, cfg.moe.top_k
+    E_l = p["w_gate"].shape[0]
     B, S, d = x.shape
     r = moe_route(p["router"], x, cfg)
     G, g, _ = r.expert.shape
     rows = G * r.cap                                                # per expert
     group = torch.arange(G, device=x.device).reshape(G, 1, 1)
-    dest = (r.expert * rows + group * r.cap + r.slot).reshape(-1)   # (token, slot) order
-    keep = r.keep.reshape(-1)
+    expert, keep, weights = r.expert, r.keep, r.weights
+    if E_l < E:  # expert parallelism: this device's experts only
+        mine = (expert >= first) & (expert < first + E_l)
+        expert, keep, weights = expert - first, keep & mine, weights * mine
+    dest = (expert * rows + group * r.cap + r.slot).reshape(-1)     # (token, slot) order
+    keep = keep.reshape(-1)
     # dropped assignments all write the spare entry past the end, never read
     token = torch.arange(G * g, device=x.device).repeat_interleave(k)
-    src = torch.full((E * rows + 1,), G * g, dtype=torch.long, device=x.device)
-    src.scatter_(0, torch.where(keep, dest, E * rows), token)
-    xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(E, rows, d)
+    src = torch.full((E_l * rows + 1,), G * g, dtype=torch.long, device=x.device)
+    src.scatter_(0, torch.where(keep, dest, E_l * rows), token)
+    xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(E_l, rows, d)
     if cfg.activation == "swiglu":
         h = F.silu(xe @ p["w_gate"]) * (xe @ p["w_up"])
     else:  # squared_relu, the reference's only other MoE activation
         h = torch.square(F.relu(xe @ p["w_up"]))
-    ye = (h @ p["w_down"]).reshape(E * rows, d)
+    ye = (h @ p["w_down"]).reshape(E_l * rows, d)
     y = ye[torch.where(keep, dest, 0)].reshape(G, g, k, d)
-    w = r.weights.to(x.dtype).float()
+    w = weights.to(x.dtype).float()
     out = w[..., 0, None] * y[..., 0, :].float()
     for j in range(1, k):
         out = out + w[..., j, None] * y[..., j, :].float()
-    return out.to(x.dtype).reshape(B, S, d)
+    return out.reshape(B, S, d)
+
+
+def _moe_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``moe_mlp`` on DTensors. Every device routes its batch shard's tokens
+    (the groups are consecutive tokens of one sequence, so a batch shard
+    holds whole groups) and dispatches them locally, with no token moving:
+    under expert parallelism (experts sharded over the model axis) to its
+    own experts, under tensor parallelism (ff sharded) to its ff slice of
+    every expert. Each device adds its share of a token's k outputs in
+    fp32; the shares are summed by one all-reduce in fp32 and the sum
+    rounded to ``x.dtype`` once, as the unsharded ``moe_mlp`` rounds it
+    (under expert parallelism and top-2 routing, the same bits: a token's
+    two shares are its two weighted outputs, or one of them and zero).
+    This is the reference's exchange: its
+    compiled step all-reduces the fp32 output of its combine, one buffer of
+    the tokens' size, where a token exchange (an all-gather of the expert
+    outputs) would move about k·capacity times as much. The drops and the
+    slot order are the reference's. Weights sharded elsewhere (FSDP's embed
+    dim) are gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    xp, xg, wp, wdp, wg, wdg, rg, outp = ([] for _ in range(8))
+    ep_dim = None
+    for i, (px, pw) in enumerate(zip(x.placements, p["w_gate"].placements, strict=True)):
+        batch, experts, ff = px.is_shard(0), pw.is_shard(0), pw.is_shard(2)
+        if experts:
+            ep_dim = i
+        split = experts or ff
+        xp.append(Shard(0) if batch else Replicate())
+        xg.append(Shard(0) if batch else Partial() if split else Replicate())
+        wp.append(Shard(0) if experts else Shard(2) if ff else Replicate())
+        wdp.append(Shard(0) if experts else Shard(1) if ff else Replicate())
+        wg.append(Partial() if batch else wp[-1])
+        wdg.append(Partial() if batch else wdp[-1])
+        rg.append(Partial() if batch or split else Replicate())
+        outp.append(Shard(0) if batch else Partial() if split else Replicate())
+    xp, xg, wp, wdp, wg, wdg, rg, outp = map(tuple, (xp, xg, wp, wdp, wg, wdg, rg, outp))
+    rp = sh.replicated(mesh)
+
+    def local(xl, router, w_gate, w_up, w_down):
+        first = 0 if ep_dim is None else mesh.get_local_rank(ep_dim) * w_gate.shape[0]
+        lp = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+        return _moe_local(lp, xl, cfg, first)
+
+    out = sh.run_local(local, (x, p["router"], p["w_gate"], p["w_up"], p["w_down"]),
+                       (xp, rp, wp, wp, wdp), outp, (xg, rg, wg, wg, wdg))
+    return sh.settle(out, x).to(x.dtype)

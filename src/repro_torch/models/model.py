@@ -55,6 +55,7 @@ from repro_torch.models.layers import (
     attention_decode,
     cross_kv,
     dtype_of,
+    embed,
     init_attention,
     init_mlp,
     init_moe,
@@ -68,6 +69,7 @@ from repro_torch.models.layers import (
     specs_moe,
     specs_rmsnorm,
 )
+from repro_torch.runtime import sharding as sh
 from repro_torch.tree import is_spec, map_tree
 
 _MIXERS = ("attn", "mamba", "mlstm", "slstm")
@@ -84,8 +86,8 @@ def check_supported(cfg: ModelConfig) -> None:
         for part, ported in ((mixer, _MIXERS), (mlp_kind, _MLPS)):
             if part not in ported:
                 raise NotImplementedError(
-                    f"{cfg.name}: block {entry!r} is not ported yet; ROADMAP.md queue 1 "
-                    f"brings {part!r}")
+                    f"{cfg.name}: block {entry!r} has a {part!r} part, which the port "
+                    f"does not build (mixers {_MIXERS}, MLPs {_MLPS})")
 
 
 # ---------------------------------------------------------------------------
@@ -231,10 +233,11 @@ def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig,
         y, _ = ssm.mlstm(bp["mixer"], h, cfg)
     else:
         y, _ = ssm.slstm(bp["mixer"], h, cfg)
-    x = x + y
+    x = x + sh.settle(y, x)
     if enc_out is not None:
         h = rmsnorm(bp["cross_norm"], x, cfg.norm_eps)
-        x = x + attention(bp["cross"], h, cfg, causal=False, xkv=enc_out, use_rope=False)
+        x = x + sh.settle(attention(bp["cross"], h, cfg, causal=False, xkv=enc_out,
+                                    use_rope=False), x)
     return _mlp_residual(bp, x, entry, cfg)
 
 
@@ -242,9 +245,9 @@ def _enc_block_fwd(bp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     """One encoder block: non-causal self-attention without RoPE, then the
     dense MLP, each a pre-norm residual."""
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    x = x + attention(bp["mixer"], h, cfg, causal=False, use_rope=False)
+    x = x + sh.settle(attention(bp["mixer"], h, cfg, causal=False, use_rope=False), x)
     h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg)
+    return x + sh.settle(mlp(bp["mlp"], h, cfg), x)
 
 
 def _mlp_residual(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> torch.Tensor:
@@ -253,7 +256,8 @@ def _mlp_residual(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig) -> 
     if mlp_kind is None:
         return x
     h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + (moe_mlp(bp["mlp"], h, cfg) if mlp_kind == "moe" else mlp(bp["mlp"], h, cfg))
+    y = moe_mlp(bp["mlp"], h, cfg) if mlp_kind == "moe" else mlp(bp["mlp"], h, cfg)
+    return x + sh.settle(y, x)
 
 
 def _superblock(x: torch.Tensor, bps: list[Params], cfg: ModelConfig,
@@ -294,11 +298,11 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     to the token embeddings. Under ``cfg.remat`` and autograd each
     superblock is recomputed in the backward (``torch.utils.checkpoint``,
     non-reentrant)."""
-    x = p["embed"][tokens].to(dtype_of(cfg))
+    x = embed(p["embed"], tokens).to(dtype_of(cfg))
     enc_out = None
     if cfg.enc_dec:
         enc_out = _encoded(p, cfg, enc_embeds)
-        x = x + p["dec_pos"][:tokens.shape[1]][None]
+        x = x + sh.reduced_grad(p["dec_pos"][:tokens.shape[1]])[None]
     layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
     remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.n_repeats):
@@ -308,7 +312,7 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             x = _superblock(x, bps, cfg, enc_out)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return (x @ _head(p, cfg)).float()
+    return sh.matmul(x, _head(p, cfg)).float()
 
 
 def loss_fn(p: Params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor,
@@ -319,11 +323,76 @@ def loss_fn(p: Params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Ten
     ``forward``."""
     check_supported(cfg)
     logits = forward(p, cfg, tokens, enc_embeds)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    if sh.is_dtensor(logits):
+        logz, gold = _sharded_logz_gold(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
     ce = (logz - gold).mean()
     zloss = 1e-4 * torch.square(logz).mean()   # logit drift regularizer
     return ce + zloss
+
+
+def _sharded_logz_gold(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp over the vocab, the label's logit) of DTensor logits
+    (B, S, vocab), each batch-sharded as the logits. Where the vocab is
+    sharded (over more than one device) it is Megatron's vocab-parallel
+    cross entropy: each device reduces its own slice (the max, the sum of
+    exponentials, the label's logit where it holds it) and the slices'
+    results are reduced across devices, so no device gathers the logits;
+    elsewhere each device takes the plain ``loss_fn`` terms of its rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    if not sh.is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, sh.replicated(mesh), run_check=False)
+    vocab_dim = next((i for i, p in enumerate(logits.placements)
+                      if p.is_shard(2) and mesh.shape[i] > 1), None)
+    lp = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in logits.placements)
+    if vocab_dim is None:
+        def plain(x, lab):
+            return (torch.logsumexp(x, dim=-1),
+                    torch.gather(x, -1, lab.long()[..., None]).squeeze(-1))
+        return sh.run_local(plain, (logits, labels), (lp, lp), (lp, lp))
+
+    xp = tuple(Shard(2) if i == vocab_dim else p for i, p in enumerate(lp))
+    outp = tuple(Partial() if i == vocab_dim else p for i, p in enumerate(lp))
+    logz = sh.run_local(lambda x: _VocabLogsumexp.apply(x, (mesh, vocab_dim)), (logits,),
+                        (xp,), lp)
+
+    def local(x, lab):
+        lab = lab.long()
+        first = mesh.get_local_rank(vocab_dim) * x.shape[-1]
+        mine = (lab >= first) & (lab < first + x.shape[-1])
+        got = torch.gather(x, -1, torch.where(mine, lab - first, 0)[..., None]).squeeze(-1)
+        return torch.where(mine, got, 0.0)
+
+    gold = sh.run_local(local, (logits, labels), (xp, lp), outp)
+    return logz, gold.redistribute(mesh, lp)
+
+
+class _VocabLogsumexp(torch.autograd.Function):
+    """logsumexp over the last dimension of a device's vocab slice (B, S, V/n)
+    whose other slices lie on the devices of ``group`` (a mesh and one of
+    its dimensions): the slices' maxima and sums of exponentials are
+    all-reduced in the forward; the backward, softmax times the gradient,
+    needs nothing from the other slices."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+
+        top = funcol.all_reduce(x.amax(dim=-1), "max", group)
+        total = funcol.all_reduce(torch.exp(x - top[..., None]).sum(dim=-1), "sum", group)
+        logz = top + torch.log(total)
+        ctx.save_for_backward(x, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - logz[..., None]), None
 
 
 # ---------------------------------------------------------------------------
@@ -434,10 +503,11 @@ def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tenso
         y, (cc, hh) = ssm.slstm(bp["mixer"], h, cfg, state=(c["c"][r], c["h"][r]))
         c["c"][r].copy_(cc)
         c["h"][r].copy_(hh)
-    x = x + y
+    x = x + sh.settle(y, x)
     if cfg.enc_dec:
         h = rmsnorm(bp["cross_norm"], x, cfg.norm_eps)
-        x = x + attention_cross_decode(bp["cross"], h, c["cross_k"][r], c["cross_v"][r], cfg)
+        x = x + sh.settle(attention_cross_decode(bp["cross"], h, c["cross_k"][r],
+                                                 c["cross_v"][r], cfg), x)
     return _mlp_residual(bp, x, entry, cfg)
 
 
@@ -454,7 +524,7 @@ def decode_step(
     mixers copy their new state over the old (the returned list is
     ``cache`` itself). The encoder-decoder adds ``dec_pos[pos]`` and reads
     the cross cache that ``prefill_cross`` filled."""
-    x = p["embed"][token][:, None, :].to(dtype_of(cfg))      # (B, 1, d)
+    x = embed(p["embed"], token)[:, None, :].to(dtype_of(cfg))   # (B, 1, d)
     if cfg.enc_dec:
         x = x + p["dec_pos"][pos][None, None, :]
     layers = [_layers(block, cfg.n_repeats) for block in p["blocks"]]
@@ -462,4 +532,4 @@ def decode_step(
         for stack, c, entry in zip(layers, cache, cfg.block_pattern):
             x = _block_decode(stack[r], c, r, x, pos, entry, cfg)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return (x[:, 0, :] @ _head(p, cfg)).float(), cache
+    return sh.matmul(x[:, 0, :], _head(p, cfg)).float(), cache

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import EMBED, HEADS, INNER, STATE, Params, _init, dtype_of
+from repro_torch.runtime import sharding as sh
 
 MAMBA_CHUNK = 256
 MLSTM_CHUNK = 256  # the reference's chunk, kept for its S % chunk assertion
@@ -116,40 +117,114 @@ def mamba(
     state: tuple[torch.Tensor, torch.Tensor] | None = None,
     # state = (conv_state (B, w-1, di) model dtype, ssm_state (B, di, N) fp32)
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    B, S, _ = x.shape
+    B = x.shape[0]
     di, n = cfg.d_inner, cfg.ssm_state_dim
     w = cfg.ssm_conv_width
     dt_rank = mamba_dt_rank(cfg)
 
-    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)         # (B, S, di) each
+    xz = sh.matmul(x, p["in_proj"])
+    if sh.is_dtensor(xz):
+        return _mamba_sharded(p, xz, cfg, state)
+    xin, z = xz.chunk(2, dim=-1)                         # (B, S, di) each
     if state is None:
         conv_state = torch.zeros((B, w - 1, di), dtype=xin.dtype, device=x.device)
         ssm_state = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
     else:
         conv_state, ssm_state = state
 
-    # causal depthwise conv, width w: the reference's sum of w products in
-    # the model dtype, in its order
-    xpad = torch.cat([conv_state, xin], dim=1)           # (B, S+w-1, di)
-    conv = xpad[:, :S] * p["conv_w"][0]
-    for i in range(1, w):
-        conv = conv + xpad[:, i:i + S] * p["conv_w"][i]
-    conv = conv + p["conv_b"]
-    new_conv_state = xpad[:, S:]                         # the last w-1 rows
-    u = F.silu(conv)                                     # (B, S, di)
-
+    u, new_conv_state = _conv(xin, conv_state, p["conv_w"], p["conv_b"])
     dt_in, Bm, Cm = (u @ p["x_proj"]).split([dt_rank, n, n], dim=-1)
-    delta = F.softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])                           # (di, N)
+    y, h_last = _scan(u, z, dt_in, Bm, Cm, p["dt_proj"], p["dt_bias"], p["A_log"], p["D"],
+                      ssm_state)
+    return y @ p["out_proj"], (new_conv_state, h_last)
+
+
+def _conv(xin: torch.Tensor, conv_state: torch.Tensor, conv_w: torch.Tensor,
+          conv_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mamba``'s causal depthwise conv of width w over the inner channels it
+    is given: the reference's sum of w products in the model dtype, in its
+    order. Returns (its silu (B, S, di), the last w-1 rows)."""
+    S, w = xin.shape[1], conv_w.shape[0]
+    xpad = torch.cat([conv_state, xin], dim=1)           # (B, S+w-1, di)
+    conv = xpad[:, :S] * conv_w[0]
+    for i in range(1, w):
+        conv = conv + xpad[:, i:i + S] * conv_w[i]
+    conv = conv + conv_b
+    return F.silu(conv), xpad[:, S:]
+
+
+def _scan(u, z, dt_in, Bm, Cm, dt_proj, dt_bias, A_log, D, ssm_state
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mamba``'s selective scan over the inner channels it is given, from the
+    conv's output ``u`` (B, S, di) and x_proj's parts (dt_in, B, C) to the
+    gated output (B, S, di) in ``z``'s dtype and the last state (B, di, N)."""
+    delta = F.softplus((dt_in @ dt_proj).float() + dt_bias)
+    A = -torch.exp(A_log)                                # (di, N)
     uf = u.float()
     deltaA = torch.exp(delta[..., None] * A)             # (B, S, di, N)
     deltaBu = (delta * uf)[..., None] * Bm.float()[:, :, None, :]
     hs, h_last = _mamba_scan_chunked(deltaA, deltaBu, ssm_state)
     del deltaA, deltaBu                                  # 2 x 4·B·S·di·N bytes
     y = torch.einsum("bsdn,bsn->bsd", hs, Cm.float())    # (B, S, di)
-    y = y + uf * p["D"]
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], (new_conv_state, h_last)
+    y = y + uf * D
+    return y.to(z.dtype) * F.silu(z), h_last
+
+
+def _mamba_sharded(p: Params, xz: torch.Tensor, cfg: ModelConfig,
+                   state: tuple[torch.Tensor, torch.Tensor] | None):
+    """``mamba`` on DTensors from in_proj's output ``xz`` (B, S, 2·di), its
+    inner channels split over the axis that shards them (``conv_b``'s): the
+    halves are gathered and cut apart (in_proj's column shards straddle
+    them), each device convolves and scans its own channels and batch
+    shard (``_conv``, ``_scan``, as the plain path does), and x_proj's
+    row-parallel product is reduced between the two. Each parameter's
+    gradient adds up over the batch axes; the inputs' over the channels'
+    axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = xz.device_mesh
+    n, w = cfg.ssm_state_dim, cfg.ssm_conv_width
+    roles = tuple("batch" if px.is_shard(0) else "inner" if pb.is_shard(0) else None
+                  for px, pb in zip(xz.placements, p["conv_b"].placements, strict=True))
+
+    def place(batch, inner, grad_batch=None, grad_inner=None):
+        return tuple(batch if r == "batch" else inner if r == "inner" else Replicate()
+                     for r in roles), tuple(
+            (grad_batch or batch) if r == "batch" else (grad_inner or inner)
+            if r == "inner" else Replicate() for r in roles)
+
+    act, _ = place(Shard(0), Shard(2))                   # (B, S, di) activations
+    rows, rows_g = place(Shard(0), Replicate(), grad_inner=Partial())   # x_proj's parts
+    state_p, _ = place(Shard(0), Shard(1))               # ssm state (B, di, N)
+    vec, vec_g = place(Replicate(), Shard(0), grad_batch=Partial())     # (di, ...) params
+    cols, cols_g = place(Replicate(), Shard(1), grad_batch=Partial())   # (., di) params
+    whole = tuple(Replicate() if p.is_shard(2) else p for p in xz.placements)
+    xin, z = (h.redistribute(mesh, act) for h in xz.redistribute(mesh, whole).chunk(2, -1))
+    conv_state, ssm_state = (None, None) if state is None else state
+
+    def conv(x, cs, cw, cb):
+        if cs is None:
+            cs = torch.zeros((x.shape[0], w - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        return _conv(x, cs, cw, cb)
+
+    u, new_conv_state = sh.run_local(
+        conv, (xin, conv_state, p["conv_w"], p["conv_b"]),
+        (act, None if state is None else act, cols, vec), (act, act),
+        (act, None if state is None else act, cols_g, vec_g))
+    parts = sh.matmul(u, p["x_proj"]).redistribute(mesh, rows)
+    dt_in, Bm, Cm = parts.split([mamba_dt_rank(cfg), n, n], dim=-1)
+
+    def scan(u, z, dt_in, Bm, Cm, dt_proj, dt_bias, A_log, D, h0):
+        if h0 is None:
+            h0 = torch.zeros((u.shape[0], u.shape[2], n), dtype=torch.float32, device=u.device)
+        return _scan(u, z, dt_in, Bm, Cm, dt_proj, dt_bias, A_log, D, h0)
+
+    h0_p = None if state is None else state_p
+    y, h_last = sh.run_local(
+        scan, (u, z, dt_in, Bm, Cm, p["dt_proj"], p["dt_bias"], p["A_log"], p["D"], ssm_state),
+        (act, act, rows, rows, rows, cols, vec, vec, vec, h0_p), (act, state_p),
+        (act, act, rows_g, rows_g, rows_g, cols_g, vec_g, vec_g, vec_g, h0_p))
+    return sh.matmul(y, p["out_proj"]), (new_conv_state, h_last)
 
 
 # ---------------------------------------------------------------------------
@@ -194,14 +269,14 @@ def mlstm(
     dk, H, hd = mlstm_dims(cfg)
     chunk = min(MLSTM_CHUNK, S)
     assert S % chunk == 0, (S, chunk)
-    q = (x @ p["wq"]).reshape(B, S, H, hd).float() * (hd ** -0.5)
-    k = (x @ p["wk"]).reshape(B, S, H, hd).float()
-    v = (x @ p["wv"]).reshape(B, S, H, hd).float()
+    q = sh.split_last(sh.matmul(x, p["wq"]), (H, hd)).float() * (hd ** -0.5)
+    k = sh.split_last(sh.matmul(x, p["wk"]), (H, hd)).float()
+    v = sh.split_last(sh.matmul(x, p["wv"]), (H, hd)).float()
     xf = x.float()
-    log_f = F.logsigmoid(xf @ p["wf"])                   # (B, S, H)
-    i_gate = torch.exp(F.logsigmoid(xf @ p["wi"]))
+    log_f = sh.pointwise(F.logsigmoid, sh.matmul(xf, p["wf"]))   # (B, S, H)
+    i_gate = torch.exp(sh.pointwise(F.logsigmoid, sh.matmul(xf, p["wi"])))
     y, new_state = ops.mlstm_chunk(q, k, v, log_f, i_gate, state=state)
-    return y.reshape(B, S, dk).to(x.dtype) @ p["wo"], new_state
+    return sh.matmul(sh.merge_last(y).to(x.dtype), p["wo"]), new_state
 
 
 def mlstm_decode_step(
@@ -213,18 +288,18 @@ def mlstm_decode_step(
     assert S == 1
     dk, H, hd = mlstm_dims(cfg)
     C, n = state
-    q = (x @ p["wq"]).reshape(B, H, hd).float() * (hd ** -0.5)
-    k = (x @ p["wk"]).reshape(B, H, hd).float()
-    v = (x @ p["wv"]).reshape(B, H, hd).float()
+    q = sh.split_last(sh.matmul(x[:, 0], p["wq"]), (H, hd)).float() * (hd ** -0.5)
+    k = sh.split_last(sh.matmul(x[:, 0], p["wk"]), (H, hd)).float()
+    v = sh.split_last(sh.matmul(x[:, 0], p["wv"]), (H, hd)).float()
     xf = x[:, 0].float()
-    f = torch.exp(F.logsigmoid(xf @ p["wf"]))            # (B, H)
-    i = torch.exp(F.logsigmoid(xf @ p["wi"]))
+    f = torch.exp(sh.pointwise(F.logsigmoid, sh.matmul(xf, p["wf"])))   # (B, H)
+    i = torch.exp(sh.pointwise(F.logsigmoid, sh.matmul(xf, p["wi"])))
     C = f[..., None, None] * C + i[..., None, None] * torch.einsum("bhk,bhv->bhkv", k, v)
     n = f[..., None] * n + i[..., None] * k
     y = torch.einsum("bhk,bhkv->bhv", q, C)
     nrm = torch.einsum("bhk,bhk->bh", q, n)
     y = y / torch.clamp(nrm.abs(), min=1.0)[..., None]
-    return y.reshape(B, 1, dk).to(x.dtype) @ p["wo"], (C, n)
+    return sh.matmul(sh.merge_last(y[:, None]).to(x.dtype), p["wo"]), (C, n)
 
 
 # ---------------------------------------------------------------------------
@@ -260,18 +335,18 @@ def slstm(
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
-    pre = (x @ p["w_gates"]).float() + p["b_gates"]      # (B, S, 4d)
+    pre = sh.matmul(x, p["w_gates"]).float() + p["b_gates"]      # (B, S, 4d)
     if state is None:
-        c = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-        h = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        c = sh.zeros_batched((B, d), pre)
+        h = sh.zeros_batched((B, d), pre)
     else:
         c, h = state
     hs = []
     for t in range(S):
         rec = torch.einsum("bhk,hkg->bhg", h.reshape(B, H, hd), p["r_gates"])
         i, f, z, o = (pre[:, t] + rec.reshape(B, 4 * d)).chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.exp(F.logsigmoid(i)) * torch.tanh(z)
+        c = torch.sigmoid(f) * c + torch.exp(sh.pointwise(F.logsigmoid, i)) * torch.tanh(z)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)               # (B, S, d)
-    return y @ p["w_out"], (c, h)
+    return sh.matmul(y, p["w_out"]), (c, h)

@@ -35,6 +35,18 @@ Parallelism layout, as the reference's:
 - experts → "model" when E divides the axis (expert parallelism), else
   tensor parallelism over ff;
 - kv_seq → "model" for decode caches (sequence parallelism), when asked.
+
+The rest runs a step on DTensors placed so (``launch/dryrun.py``'s sharded
+trace, a real run over a process group): ``to_dtensors`` and ``shard_tree``
+place a tree, ``run_local`` runs a function on each device's shards under
+stated placements (the kernels' entries, the embedding, the loss, the MoE
+dispatch), ``matmul`` is Megatron's column- and row-parallel product with
+FSDP's gather, ``settle`` the reduction that ends a row-parallel block, and
+``split_last`` / ``merge_last`` reshape heads where DTensor's own view rules
+would refuse. Each states its placements rather than leaving them to
+DTensor's search, whose choices depend on the shapes (a layer stack of one
+and of two would communicate differently) and cost minutes of planning on
+a three-axis mesh.
 """
 from __future__ import annotations
 
@@ -174,3 +186,215 @@ def tree_local_bytes(tree: Any, places: Any, mesh: Any) -> int:
     placements (``tree_shardings``)."""
     return sum(local_bytes(t, p, mesh) for t, p in zip(
         leaves(tree), leaves(places, is_leaf=is_placements), strict=True))
+
+
+# ---------------------------------------------------------------------------
+# Running on DTensors: what a sharded step needs beyond the placements
+# ---------------------------------------------------------------------------
+
+def is_dtensor(t: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _placed(tree: Any, places: Any, one) -> Any:
+    """``one(leaf, placements)`` of each tensor leaf of ``tree`` under the
+    parallel tree ``places`` (a single placements tuple for every leaf);
+    other leaves pass through."""
+    flat = leaves(tree)
+    flat_p = ([places] * len(flat) if is_placements(places)
+              else leaves(places, is_leaf=is_placements))
+    return unflatten(tree, [one(t, p) if isinstance(t, torch.Tensor) else t
+                            for t, p in zip(flat, flat_p, strict=True)])
+
+
+def to_dtensors(tree: Any, places: Any, mesh: Any) -> Any:
+    """A tree of global tensors as DTensors under a parallel tree of
+    placements, each device's shard an empty meta tensor: shapes only,
+    nothing allocated."""
+    from torch.distributed.tensor import DTensor
+
+    return _placed(tree, places, lambda t, p: DTensor.from_local(
+        torch.empty(local_shape(tuple(t.shape), p, mesh), dtype=t.dtype, device="meta"),
+        mesh, p, run_check=False))
+
+
+def shard_tree(tree: Any, places: Any, mesh: Any) -> Any:
+    """A tree of real global tensors (the same on every rank) as DTensors
+    under a parallel tree of placements: each rank keeps its own shard, cut
+    out where it stands (no communication, no copy where the shard is
+    contiguous; on a mesh of one device every leaf is its own shard)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t, p):
+        for i, pl in enumerate(p):
+            if pl.is_shard():
+                t = t.chunk(mesh.shape[i], dim=pl.dim)[mesh.get_local_rank(i)]
+        return DTensor.from_local(t.contiguous(), mesh, p, run_check=False)
+
+    return _placed(tree, places, one)
+
+
+def redistribute_tree(tree: Any, places: Any) -> Any:
+    """Each DTensor leaf of ``tree`` redistributed to its placements in the
+    parallel tree ``places`` (or to ``places`` itself, one placements tuple
+    for every leaf)."""
+    return _placed(tree, places, lambda t, p: t.redistribute(t.device_mesh, p)
+                   if is_dtensor(t) and tuple(t.placements) != tuple(p) else t)
+
+
+def settle(y: Any, like: Any) -> Any:
+    """``y`` redistributed to the placements of ``like`` where both are
+    DTensors (Megatron's reduction at the end of a row-parallel product:
+    a Partial sum becomes ``like``'s Replicate by one all-reduce); plain
+    tensors pass through."""
+    if not (is_dtensor(y) and is_dtensor(like)) or y.placements == like.placements:
+        return y
+    return y.redistribute(like.device_mesh, like.placements)
+
+
+def split_last(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``t.reshape(*t.shape[:-1], *shape)`` for a DTensor whose last dimension
+    may be sharded: a mesh axis that splits it but not ``shape[0]`` (heads
+    that do not divide the axis) is gathered first, so each device holds
+    whole heads. DTensor would refuse the reshape otherwise."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+
+        last = t.ndim - 1
+        n = shape[0]
+        sizes = t.device_mesh.shape
+        places = []
+        for p, size in zip(t.placements, sizes):
+            if p.is_shard(last):
+                if n % size:
+                    p = Replicate()
+                else:
+                    n //= size
+            places.append(p)
+        if tuple(places) != tuple(t.placements):
+            t = t.redistribute(t.device_mesh, places)
+    return t.reshape(*t.shape[:-1], *shape)
+
+
+def run_local(fn, args: tuple, in_places: tuple, out_places: Any,
+              grad_places: tuple | None = None) -> Any:
+    """``fn`` on each device's shards, the port's ``local_map``: each DTensor
+    argument redistributed to its entry of ``in_places`` (plain tensors are
+    taken as replicated; an entry None passes its argument as it is), ``fn``
+    called on the local tensors, and its result (a tensor or a tuple; None
+    entries pass through) wrapped under ``out_places``, parallel to it.
+    ``grad_places`` (default ``in_places``) says how each argument's local
+    gradient adds up across devices: ``Partial()`` on an axis where the
+    argument is replicated but each device uses only part of it."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    grad_places = grad_places or in_places
+    local = []
+    for a, p, g in zip(args, in_places, grad_places, strict=True):
+        if p is None or not isinstance(a, torch.Tensor):
+            local.append(a)
+            continue
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, replicated(mesh), run_check=False)
+        if tuple(a.placements) != tuple(p):
+            a = a.redistribute(mesh, p)
+        local.append(a.to_local(grad_placements=g))
+    out = fn(*local)
+
+    def wrap(o, p):
+        return o if o is None or p is None else DTensor.from_local(o, mesh, p, run_check=False)
+
+    if isinstance(out, tuple):
+        return tuple(wrap(o, p) for o, p in zip(out, out_places, strict=True))
+    return wrap(out, out_places)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for activations x (..., din) and a weight w (din, dout). On
+    DTensors it is Megatron's layout, stated per mesh axis rather than left
+    to DTensor's search: where x shards its batch (dim 0), w is gathered
+    (FSDP) and its gradient is a Partial sum; elsewhere a w sharded along
+    dout is column-parallel (x replicated, the output sharded along dout,
+    x's gradient a Partial sum), one sharded along din row-parallel (x
+    sharded along din, the output a Partial sum), and a replicated w leaves
+    x replicated."""
+    if not is_dtensor(w):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.device_mesh
+    last = x.ndim - 1
+    xp, xg, wp, wg, yp = [], [], [], [], []
+    x_places = x.placements if is_dtensor(x) else replicated(mesh)
+    for px, pw in zip(x_places, w.placements, strict=True):
+        if px.is_shard(0) and last > 0:
+            xp.append(Shard(0)), xg.append(Shard(0)), wp.append(Replicate())
+            wg.append(Partial()), yp.append(Shard(0))
+        elif pw.is_shard(1):
+            xp.append(Replicate()), xg.append(Partial()), wp.append(Shard(1))
+            wg.append(Shard(1)), yp.append(Shard(last))
+        elif pw.is_shard(0):
+            xp.append(Shard(last)), xg.append(Shard(last)), wp.append(Shard(0))
+            wg.append(Shard(0)), yp.append(Partial())
+        else:
+            xp.append(Replicate()), xg.append(Replicate()), wp.append(Replicate())
+            wg.append(Replicate()), yp.append(Replicate())
+    return run_local(torch.matmul, (x, w), (tuple(xp), tuple(wp)), tuple(yp),
+                     (tuple(xg), tuple(wg)))
+
+
+def merge_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last two dimensions merged (heads × head dim -> one).
+    On a DTensor each device merges its own shard, so a gradient that comes
+    back sharded along the merged dimension is first placed as ``t`` was,
+    whole heads per device: DTensor cannot split a merged dimension whose
+    shards cut across heads."""
+    if not is_dtensor(t):
+        return t.reshape(*t.shape[:-2], -1)
+    from torch.distributed.tensor import Shard
+
+    last = t.ndim - 1
+    assert not any(p.is_shard(last) for p in t.placements), ("head dim sharded", t.placements)
+    out = tuple(Shard(last - 1) if p.is_shard(last - 1) else p for p in t.placements)
+    return run_local(lambda x: x.reshape(*x.shape[:-2], -1), (t,), (tuple(t.placements),), out)
+
+
+def pointwise(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn(t)`` for an elementwise ``fn``: on a DTensor each device applies it
+    to its own shard (a Partial sum reduced first), for the elementwise ops
+    DTensor has no rule for (``log_sigmoid``'s backward)."""
+    if not is_dtensor(t):
+        return fn(t)
+    from torch.distributed.tensor import Replicate
+
+    places = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    return run_local(fn, (t,), (places,), places)
+
+
+def reduced_grad(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself; on a DTensor its gradient is reduced to ``t``'s placements
+    here, before it flows further back: a slice of a table whose gradient
+    would otherwise be reduced at the table's full size."""
+    if not is_dtensor(t):
+        return t
+    return run_local(lambda x: x, (t,), (tuple(t.placements),), tuple(t.placements))
+
+
+def zeros_batched(shape: tuple[int, ...], like: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros of ``shape`` (batch first) on ``like``'s device. For a
+    DTensor ``like`` they are a DTensor sharded over the batch axes as
+    ``like`` (replicated elsewhere), each device making its own shard: a
+    plain tensor of the global batch would be taken as replicated, and an
+    op that meets it may gather ``like``'s batch to match."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = like.device_mesh
+    places = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in like.placements)
+    local = torch.zeros(local_shape(shape, places, mesh), dtype=torch.float32,
+                        device=like.to_local().device)
+    return DTensor.from_local(local, mesh, places, run_check=False)

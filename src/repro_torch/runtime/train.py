@@ -22,6 +22,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, resolve_device
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.runtime import sharding as sh
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
@@ -38,7 +39,10 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1
             p = map_tree(lambda t: t.detach().requires_grad_(), params)
             loss = M.loss_fn(p, cfg, tokens, labels, enc)
             grads = torch.autograd.grad(loss, leaves(p))
-        return loss.detach(), unflatten(params, list(grads))
+        # on DTensors each gradient is placed as its parameter (a data-parallel
+        # Partial sum reduced, FSDP's reduce-scattered), as the reference's are
+        grads = [sh.settle(g, w) for g, w in zip(grads, leaves(params), strict=True)]
+        return loss.detach(), unflatten(params, grads)
 
     def train_step(params, opt_state, batch):
         tokens, labels = batch["tokens"], batch["labels"]

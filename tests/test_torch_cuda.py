@@ -237,6 +237,32 @@ def test_decode_split_kernel_on_card(cuda, dtype, B, S, H, K, hd, lens):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,hd,lens", [
+    (4, 2048, 15, 5, 64, [0, 300, 2048, 5000]),  # split: an empty row, kv_len > S
+    (4, 64, 15, 5, 64, [63, 0, 1, 64]),          # one split
+    (2, 2048, 96, 8, 192, [2047, 0]),            # hd 192, G = 12
+])
+def test_decode_kernel_writes_each_rows_logsumexp_on_card(cuda, dtype, B, S, H, K, hd, lens):
+    """The rows' log-sum-exp the sequence-parallel decode merges by: the
+    kernel's against its plain version's (TOL), -inf where a row sees no key
+    (kv_len 0); the output is the one the kernel gives without it."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+               for s in [(B, H, hd), (B, S, K, hd), (B, S, K, hd)])
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n = ops.decode_attention.launches
+    out, lse = ops.decode_attention(q, k, v, kv_len, with_lse=True)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == n + 1
+    assert torch.equal(out, ops.decode_attention(q, k, v, kv_len))
+    _, want = decode_attention_ref(q.float(), k.float(), v.float(), kv_len, with_lse=True)
+    empty = kv_len <= 0
+    assert torch.equal(torch.isneginf(lse), empty[:, None].expand(B, H))
+    torch.testing.assert_close(lse[~empty], want[~empty], atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,hd,chunk,with_state", [
     (2, 128, 2, 32, 64, False), (1, 256, 4, 64, 64, True),
     (2, 100, 3, 64, 32, False),       # ragged S, smaller chunk
@@ -913,8 +939,10 @@ def test_fake_kernels_match_the_kernels_on_card(cuda, dtype):
     real, fake, quiet = _fake_and_real(K.flash_attention_bwd, [q, k, v, out, q, lse, True, 32])
     assert quiet and _layout(fake) == _layout(real)
     lens = torch.tensor([1, 100], dtype=torch.int32, device=cuda)
-    real, fake, quiet = _fake_and_real(K.decode_attention, [q[:, 0].contiguous(), k, v, lens])
-    assert quiet and _layout(fake) == _layout(real)
+    for with_lse in (False, True):
+        real, fake, quiet = _fake_and_real(K.decode_attention,
+                                           [q[:, 0].contiguous(), k, v, lens, with_lse])
+        assert quiet and _layout(fake) == _layout(real)
     x = torch.randn((2, 100, 4, 64), generator=g, device=cuda)
     gate = torch.sigmoid(torch.randn((2, 100, 4), generator=g, device=cuda))
     real, fake, quiet = _fake_and_real(K.mlstm_chunk_fwd, [x, x, x, gate.log(), gate, None, None,

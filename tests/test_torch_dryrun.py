@@ -3,8 +3,11 @@
 - The command line, as its own process, over every arch's cells cut to a
   smoke test's size (``--reduced``) on the 1×1, 16×16 and 2×16×16 meshes,
   and over full-width smollm-360m, mixtral-8x7b and whisper-large-v3: every
-  cell ``ok``, its records' argument bytes those of its meta trees, no
-  ``collective_bytes``, and nothing of JAX or ``repro`` imported.
+  cell ``ok``, its records' argument bytes those of its meta trees, the 1×1
+  record the unsharded trace's (no ``collective_bytes``), each production
+  mesh's record one device's trace (per-device FLOPs, bytes, peak, fit,
+  kernel calls, the reference's eleven collective keys), and nothing of JAX
+  or ``repro`` imported.
 - The argument bytes equal a real CPU allocation of the same trees.
 - A trace's FLOPs equal ``FlopCounterMode`` over a real CPU run of the same
   step (reduced configs), where the plain versions run on the CPU and are
@@ -66,8 +69,8 @@ def cli(tmp_path_factory):
     cells, and the full-width ones through its pool of probe processes. Per
     run: (exit code, output, records by (arch, shape, mesh), the modules of
     JAX or ``repro`` it imported)."""
-    argvs = {"reduced": ["--all", "--reduced", "--both-meshes"],
-             "full": ["--arch", ",".join(FULL_WIDTH), "--both-meshes", "--jobs", "2"]}
+    argvs = {"reduced": ["--all", "--reduced", "--both-meshes"],  # in process, --jobs 1
+             "full": ["--arch", ",".join(FULL_WIDTH), "--both-meshes", "--jobs", "3"]}
     runs = {}
     for k, argv in argvs.items():
         out_dir = tmp_path_factory.mktemp(k)
@@ -96,11 +99,23 @@ def _check_records(records, archs, reduce):
             assert host["flops"] > 0 and host["bytes_accessed"] > 0
             assert host["peak_bytes"] >= host["argument_bytes"]["total"]
             assert host["fits_one_h100"] == (host["peak_bytes"] <= D.H100_BYTES)
+            assert host["collective_bytes"] is None and "fits_per_device" not in host
             for name in ("16x16", "2x16x16"):
                 rec = records[arch, shape, name]
-                assert rec["ok"] and rec["chips"] == (256 if name == "16x16" else 512)
-                assert rec["collective_bytes"] is None and "flops" not in rec
+                assert rec["ok"], rec.get("traceback")
+                assert rec["chips"] == (256 if name == "16x16" else 512)
                 assert 0 < rec["argument_bytes"]["total"] <= host["argument_bytes"]["total"]
+                # one device's share of the step, and what it communicates
+                assert 0 < rec["flops"] <= host["flops"]
+                assert 0 < rec["bytes_accessed"] and rec["argument_bytes"]["total"] <= rec[
+                    "peak_bytes"] <= host["peak_bytes"]
+                assert rec["fits_per_device"] == (rec["peak_bytes"] <= D.H100_BYTES)
+                assert sum(rec["kernel_calls"].values()) == sum(host["kernel_calls"].values())
+                coll = rec["collective_bytes"]
+                assert set(coll) == {*D.COLLECTIVES, *(f"{k}_count" for k in D.COLLECTIVES),
+                                     "total"}
+                assert coll["total"] == sum(coll[k] for k in D.COLLECTIVES) > 0
+                assert all(coll[f"{k}_count"] >= (coll[k] > 0) for k in D.COLLECTIVES)
 
 
 def test_cli_over_reduced_cells_of_every_arch(cli):
@@ -122,6 +137,36 @@ def test_cli_over_full_width_cells(cli):
     assert not train["fits_one_h100"] and train["kernel_calls"] == {
         "flash_attention_bwd": 32, "flash_attention_fwd": 64}  # remat replays each forward
     assert train["argument_bytes"]["optimizer"] == 2 * 4 * 361821120 + 4
+
+
+FAILING = """import sys
+from repro_torch.launch import dryrun
+
+def refuse(cell, mesh, args=None):
+    raise ValueError("planted: this step does not shard")
+
+dryrun.shard_args = refuse
+sys.exit(dryrun.main(sys.argv[1:]))
+"""
+
+
+def test_cli_records_a_step_that_does_not_shard_as_failed(tmp_path):
+    """In process (``--jobs 1``): a production mesh whose sharded step raises
+    gets an ``ok: false`` record with the error and no trace in its place;
+    the 1×1 record is the unsharded trace as ever, and the run exits 1."""
+    proc = subprocess.run([sys.executable, "-c", FAILING, "--arch", "smollm_360m", "--shape",
+                           "decode_32k", "--reduced", "--both-meshes", "--out", str(tmp_path)],
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(SRC)})
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 1, out
+    assert "dry-run complete: 0 ok, 1 failed" in out
+    records = {r["mesh"]: r for r in (json.loads(f.read_text()) for f in tmp_path.glob("*.json"))}
+    assert records["1x1"]["ok"] and records["1x1"]["flops"] > 0
+    for name in ("16x16", "2x16x16"):
+        rec = records[name]
+        assert not rec["ok"] and "planted: this step does not shard" in rec["error"]
+        assert not {"flops", "peak_bytes", "collective_bytes"} & set(rec)
 
 
 @pytest.fixture
