@@ -37,6 +37,9 @@ script started; any failure raises and exits non-zero:
    these also within ``WHISPER_RMS_TOL`` of the reference's rms; the
    decoder's causal self-attention (G = 1) at B=2 S=512 (bf16) and S=64
    (f32), decode over a cache of 32 (bf16, kv_len 31) and of 64 (f32);
+   llama3-405b's (128 heads over 8, G = 16, hd 128, bf16): flash at B=1
+   S=2048 causal and decode at phase 12's last serving step (B=2, a cache
+   of 48, kv_len 47);
    timed with CUDA events (median of 30, L2 flushed before each run)
    beside the plain version,
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
@@ -93,13 +96,25 @@ script started; any failure raises and exits non-zero:
     the peak device memory above the state it starts from of one step and
     of its loss and gradients alone (before AdamW), with and without
     ``remat``;
-12. nemotron: nemotron-4-340b at full width (d_model 18432, 96 heads over
-    8, hd 192, d_ff 73728, vocab 256000, squared ReLU, untied embeddings),
-    its depth cut to 2 layers in bf16 (32.7 GB of weights, made on the card
-    from a seed): the forward at B=1, S=512 with one flash launch per layer;
-    decode against forward over 64 positions (rel < 5e-2, as smollm's); the
-    same in f32 at 1 layer (rel < 1e-3); serving through the engine, 2
-    requests x batch 2, prompt 32, gen 16; host seconds and tokens/s.
+12. the wide configs (``WIDE_CONFIGS``, ``run_wide``), each at full width
+    with its depth cut, weights made on the card from a seed: nemotron-4-340b
+    (d_model 18432, 96 heads over 8, hd 192, d_ff 73728, vocab 256000,
+    squared ReLU, untied embeddings; 2 layers bf16 = 32.7 GB, 1 in f32),
+    llama3-405b (d_model 16384, 128 heads over 8: G = 16, d_ff 53248, vocab
+    128256; 2 layers = 21.2 GB, 1 in f32), qwen2-72b (d_model 8192, 64 heads
+    over 8, d_ff 29568, vocab 152064, the only attention with q/k/v biases;
+    4 layers = 12.0 GB, 1 in f32), chameleon-34b (d_model 8192, 64 over 8,
+    d_ff 22016, vocab 65536; 4 layers = 7.7 GB) and mixtral-8x22b (d_model
+    6144, 48 heads over 8, 8 experts top 2 of d_ff 16384, window 4096; 2
+    layers = 10.8 GB): ``<prefix>_forward`` at B=1, S=512 with one flash
+    launch per layer; ``<prefix>_decode_vs_forward`` over 64 positions (rel
+    < 5e-2, as smollm's; mixtral-8x22b at its drop-free capacity over the
+    positions whose routing agrees, ``MIXTRAL_BF16_FLIP_SHARE`` flipped at
+    most), and in f32 at 1 layer (rel < 1e-3: qwen2's bias and llama3's G =
+    16 on the 3xTF32 route at the tight limit); ``<prefix>_serve`` through
+    the engine, 2 requests x batch 2, prompt 32, gen 16 (``launch.serve``;
+    mixtral-8x22b ``launch.serve_lm.run`` with its injected failures); host
+    seconds and tokens/s, the weights' GB and the card on every record.
 13. apps: the paper's workloads as DAGs of the copied engine (default
     ``EngineConfig``: virtual clock, no simulated compute) through
     ``repro_torch.launch.apps``: first each app at ``tests/test_apps.py``'s
@@ -223,6 +238,24 @@ script started; any failure raises and exits non-zero:
     (``dryrun_sharded_card_cell``): every output equal to the bit, the same
     kernel launches through the sharded entries (``sharded_launches`` in the
     kernels line), no collective.
+20. mixtral training: mixtral-8x7b at full width, 1 of its 32 layers
+    (1.713 B parameters; a state of 17.13 GB with AdamW's fp32 moments), bf16
+    under ``remat``, B=4 S=512, on a card that holds nothing else:
+    ``mixtral_train``, the workflow's peak reckoned from the config's shapes
+    first (``train_peak_reckoning``), then 3 AdamW steps through the engine
+    if the reckoning leaves ``TRAIN_PEAK_MARGIN_GIB`` of the card, else 2, no
+    injected failure; the loss finite and falling, 2 flash forward launches
+    and 1 backward per step run, the measured peak within 5 % of the
+    reckoning, the dropped share of the forward's assignments, and no routing
+    that differs between the forward and its recomputation;
+    ``mixtral_train_bitwise``, one step run twice on one state: parameters,
+    moments and loss equal to the bit and the state left as it was;
+    ``mixtral_train_reference``, reduced f32 mixtral 3 steps on the card and
+    the CPU (loss 1e-4, params 2e-3); ``mixtral_train_step_profile``, as
+    phase 11's, with the expert products' forward and backward taken apart
+    (``expert_gemms``) and the step's bound: the operations of the kept
+    assignments, attention and the head (``moe_train_flops``; the layers once
+    more for ``remat``), and the state read and written once.
 
 Phase 3 also checks the flash backward (bf16 at hd 64/128/192 on
 ``csrc/flash_attention_bwd_wgmma.cu``, the rest on
@@ -233,6 +266,8 @@ mixtral-8x7b's (bf16 at S=8192 with the window of 4096) and whisper's
 training shapes (B=4, 20 heads over 20, hd 64): the encoder's non-causal
 S=1500 and cross-attention at Sq=448 over Skv=1500 in bf16 and f32,
 cross-attention at Sq=37 and the decoder's causal S=448 (G = 1) in bf16,
+llama3-405b's width (B=1 S=2048, G = 16, bf16) and phase 20's training
+shape (mixtral-8x7b, B=4 S=512, the 4096 window, bf16),
 per gradient, twice: elementwise against its fp32 formulas on the same
 inputs with D from the same forward output (the kernel's arithmetic),
 |err| <= tol·(|ref| + rms(ref)) with tol bf16 1e-2 (about one bf16 ulp) and
@@ -263,8 +298,8 @@ the profiler's device time of the backward of
 ``scaled_dot_product_attention(..., enable_gqa=True)``.
 
 Kernel launch counts are set to 0 before each forward, decode-vs-forward,
-serve and train phase (smollm's, xLSTM's, nemotron's, mixtral's,
-jamba's and whisper's, its training too, and each cell phase 19 runs) and
+serve and train phase (smollm's, xLSTM's, each wide config's, mixtral's,
+jamba's and whisper's, their training too, and each cell phase 19 runs) and
 read after it, and before
 each full-size app run of phase 13, which must launch none. The line before the last is ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
@@ -1030,6 +1065,19 @@ def main() -> int:
     bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, 1, 2 * MIXTRAL_WINDOW,
                                      True, MIXTRAL_WINDOW, H=MIXTRAL_H, K=MIXTRAL_K, hd=128))
     bwd_cases += whisper_bwd_checks(ops, ref, timer, dev)
+    # llama3-405b's attention per layer (128 heads over 8, G = 16, hd 128): flash and its
+    # backward at S=2048, decode at phase 12's last serving step (a cache of 48, kv_len 47);
+    # the flash backward at phase 20's training shape (mixtral-8x7b, B=4 S=512, window 4096)
+    llama3 = {"H": LLAMA3_H, "K": LLAMA3_K, "hd": 128}
+    flash_cases.append(check_flash(ops, ref, timer, dev, torch.bfloat16, 1, 2048, True, None,
+                                   **llama3))
+    bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, 1, 2048, True, None,
+                                     **llama3))
+    serve_cache = WIDE_SERVE["prompt_len"] + WIDE_SERVE["gen_len"]
+    decode_cases.append(check_decode(ops, ref, timer, dev, torch.bfloat16, 2, serve_cache,
+                                     [serve_cache - 1] * 2, **llama3))
+    bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, MIXTRAL_TRAIN_B,
+                                     MIXTRAL_TRAIN_S, True, MIXTRAL_WINDOW, **mixtral))
     for rec in decode_cases + flash_cases + mlstm_cases + mlstm_bwd_cases + bwd_cases:
         emit({"phase": "kernel_check", **rec})
     del timer
@@ -1088,8 +1136,11 @@ def main() -> int:
     emit({"phase": "train_step_profile", "card": smi, **profile_train(M, cfg, dev)})
     free_memory()
 
-    # 12. nemotron-4-340b at full width, cut in depth
-    nemotron_launches = run_nemotron(get_config, ops, serve_mod, M, dev, smi)
+    # 12. nemotron-4-340b, llama3-405b, qwen2-72b, chameleon-34b and mixtral-8x22b at full
+    # width, cut in depth
+    wide = {prefix: run_wide(get_config, ops, serve_mod, M, dev, smi, arch, prefix, layers,
+                             f32_layers)
+            for arch, prefix, layers, f32_layers in WIDE_CONFIGS}
     free_memory()
 
     # 13. the paper's workloads through the engine, at paper scale
@@ -1142,15 +1193,22 @@ def main() -> int:
     dryrun_launches = run_dryrun(ops, get_config, dev, smi)
     free_memory()
 
+    # 20. mixtral-8x7b training at full width, one layer: the MoE backward through the
+    # engine, one step twice to the bit, card against CPU, profile
+    mixtral_train = run_mixtral_train(get_config, reduced, ops, M, dev, smi)
+    free_memory()
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
          "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention.py:97",
          "launches": fwd_counts["flash_attention"], **_headline(flash_cases[0]),
-         "nemotron_launches": nemotron_launches, "mixtral_launches": mixtral_flash,
+         **{f"{p}_launches": w["flash_attention"] for p, w in wide.items()},
+         "mixtral_launches": mixtral_flash,
          "jamba_launches": jamba_flash, "whisper_launches": whisper_flash,
          "whisper_train_launches": whisper_train["flash_attention"],
+         "mixtral_train_launches": mixtral_train["flash_attention"],
          "dryrun_launches": dryrun_launches["flash_attention"],
          "sharded_launches": dryrun_launches["sharded_flash_attention"], "cases": flash_cases},
         {"name": "decode_attention", "route": "cuda",
@@ -1158,7 +1216,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attention.py:77",
          "launches": serve_counts["decode_attention"], **_headline(decode_cases[0]),
          "mixtral_launches": mixtral_decode, "jamba_launches": jamba_decode,
-         "whisper_launches": whisper_decode, "cases": decode_cases},
+         "whisper_launches": whisper_decode,
+         **{f"{p}_launches": w["decode_attention"] for p, w in wide.items()},
+         "cases": decode_cases},
         {"name": "mlstm_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/linear_attention.py:83",
@@ -1178,6 +1238,7 @@ def main() -> int:
                  "differentiates layers.sdpa through XLA",
          "launches": train["launches"]["flash_attention_bwd"], **_headline(bwd_cases[0]),
          "whisper_train_launches": whisper_train["flash_attention_bwd"],
+         "mixtral_train_launches": mixtral_train["flash_attention_bwd"],
          "dryrun_launches": dryrun_launches["flash_attention_bwd"],
          "sharded_launches": dryrun_launches["sharded_flash_attention_bwd"], "cases": bwd_cases},
     ]
@@ -1322,6 +1383,7 @@ def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
 NEMOTRON_H, NEMOTRON_K = 96, 8  # nemotron-4-340b: 96 heads over 8, hd 18432 / 96 = 192
+LLAMA3_H, LLAMA3_K = 128, 8     # llama3-405b: 128 heads over 8 (G = 16), hd 16384 / 128 = 128
 # mixtral-8x7b: 32 heads over 8, hd 4096 / 32 = 128, window 4096; 8x22b: 48 over 8
 MIXTRAL_H, MIXTRAL_22B_H, MIXTRAL_K, MIXTRAL_WINDOW = 32, 48, 8, 4096
 MIXTRAL_LAYERS, MIXTRAL_F32_LAYERS = 4, 2        # of 32
@@ -1358,63 +1420,123 @@ WHISPER_BF16_TOL = 5e-2
 WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 4, 448, 3
 
 
-def run_nemotron(get_config, ops, serve_mod, M, dev, smi) -> int:
-    """Phase 12: nemotron-4-340b at full width, its depth cut to 2 layers in
-    bf16 (32.7 GB of weights) and to 1 in f32 (51.6 GB), one after the
-    other. Forward at B=1 S=512, decode against forward over 64 positions,
-    serving through the engine (bf16). Returns the forward's flash launches."""
+# Phase 12's configs at full width, their depth cut: (arch, record prefix, bf16 layers,
+# f32 layers or None). Their bf16 weights, reckoned from the configs' shapes: nemotron-4-340b
+# 32.7 GB (f32 at 1 layer 51.6 GB), llama3-405b 21.2 GB (f32 at 1 layer 29.6 GB),
+# qwen2-72b 12.0 GB (f32 at 1 layer 13.5 GB), chameleon-34b 7.7 GB, mixtral-8x22b 10.8 GB.
+# The f32 passes hold qwen2's attention bias and llama3's G = 16 on the 3xTF32 route at 1e-3.
+WIDE_CONFIGS = (("nemotron_4_340b", "nemotron", 2, 1), ("llama3_405b", "llama3", 2, 1),
+                ("qwen2_72b", "qwen2", 4, 1), ("chameleon_34b", "chameleon", 4, None),
+                ("mixtral_8x22b", "mixtral_8x22b", 2, None))
+# serving in phase 12: 2 requests x batch 2, prompt 32, gen 16
+WIDE_SERVE = {"requests": 2, "batch": 2, "prompt_len": 32, "gen_len": 16}
+
+
+def run_wide(get_config, ops, serve_mod, M, dev, smi, arch, prefix, layers,
+             f32_layers) -> dict:
+    """Phase 12: ``arch`` at full width, its depth cut to ``layers`` in bf16,
+    weights made on the card from a seed. The forward at B=1 S=512 with one
+    flash launch per layer; decode against forward over 64 positions (rel <
+    5e-2; an MoE config at its drop-free capacity over the positions whose
+    routing agrees, with at most ``MIXTRAL_BF16_FLIP_SHARE`` of routings
+    flipped); serving through the engine, ``WIDE_SERVE`` (``launch.serve``;
+    an MoE config ``launch.serve_lm.run``, with its injected failures); then,
+    given ``f32_layers``, decode against forward in f32 at that depth (rel <
+    1e-3). Each record is ``<prefix>_forward``, ``_decode_vs_forward`` or
+    ``_serve``. Returns the forward's flash launches and the serving run's
+    decode launches."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import layers as L
     from repro_torch.tree import leaves
 
-    full = get_config("nemotron_4_340b")
-    assert full.hd == 192 and full.n_heads == NEMOTRON_H
-    cfg = dataclasses.replace(full, n_layers=2)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    moe = cfg.moe is not None
+    none = {"decode_attention": 0, "mlstm_chunk": 0, "flash_attention_bwd": 0,
+            "mlstm_chunk_bwd": 0}
+    shape = {"arch": cfg.name, "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+             "hd": cfg.hd, "G": cfg.n_heads // cfg.n_kv_heads, "d_ff": cfg.d_ff,
+             "vocab": cfg.vocab, "qkv_bias": cfg.qkv_bias,
+             "cuts": {"n_layers": f"{layers} of {full.n_layers} (bf16)"
+                                   + (f", {f32_layers} (f32)" if f32_layers else "")}}
+
+    def gb(params):
+        return sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+
     free_memory()
     rng = np.random.default_rng(0)
-    params = M.init_model(cfg, seed=0, device=dev)  # made on the card: no 33 GB host copy
+    params = M.init_model(cfg, seed=0, device=dev)  # made on the card: no host copy
+    weights_gb = gb(params)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 512)), device=dev)
+    M.forward(params, cfg, tokens[:, :64])           # first call: set-up costs
     fwd_s, fwd_counts = timed_forward(M, ops, cfg, params, tokens)
-    assert fwd_counts == {"flash_attention": 2, "decode_attention": 0, "mlstm_chunk": 0,
-                          "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, fwd_counts
-    emit({"phase": "nemotron_forward", "layers": 2, "shape": [1, 512], "dtype": "bf16",
-          "seconds": fwd_s, "tokens_per_s": 512 / fwd_s, "launches": fwd_counts,
-          "weights_gb": sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9,
+    assert fwd_counts == {"flash_attention": layers, **none}, fwd_counts
+    emit({"phase": f"{prefix}_forward", **shape, "layers": layers, "shape": [1, 512],
+          "dtype": "bf16", "seconds": fwd_s, "tokens_per_s": 512 / fwd_s,
+          "launches": fwd_counts, "weights_gb": weights_gb,
           "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9, "card": smi})
     dec_tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)), device=dev)
-    err, c, _ = decode_vs_forward(M, ops, cfg, dec_tokens, dev, params=params, truth=False)
-    emit({"phase": "nemotron_decode_vs_forward", "layers": 2, "dtype": "bf16",
-          "positions": 64, "rel_err": err, "tol": 5e-2, "launches": c})
-    assert err < 5e-2, err
-    assert c == {"flash_attention": 2, "decode_attention": 64 * 2, "mlstm_chunk": 0,
-                 "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, c
+    want = {"flash_attention": layers, **none, "decode_attention": 64 * layers}
+    if moe:
+        drop_free = {"moe_capacity_factor": cfg.moe.n_experts / cfg.moe.top_k}
+        rec = moe_decode_vs_forward(M, L, ops, dataclasses.replace(cfg, **drop_free),
+                                    dec_tokens, params)
+        rec = {**rec, "tol": 5e-2, "flip_share_tol": MIXTRAL_BF16_FLIP_SHARE, **drop_free}
+        assert rec["rel_err_agreeing"] < 5e-2, rec
+        assert rec["flip_share"] <= MIXTRAL_BF16_FLIP_SHARE, rec
+    else:
+        err, c, _ = decode_vs_forward(M, ops, cfg, dec_tokens, dev, params=params, truth=False)
+        rec = {"rel_err": err, "tol": 5e-2, "launches": c}
+        assert err < 5e-2, err
+    assert rec["launches"] == want, rec["launches"]
+    emit({"phase": f"{prefix}_decode_vs_forward", **shape, "layers": layers, "dtype": "bf16",
+          "positions": 64, **rec, "weights_gb": weights_gb, "card": smi})
     reset(ops)
     t0 = time.perf_counter()
-    rep = serve_mod.serve(cfg, params, requests=2, batch=2, prompt_len=32, gen_len=16, seed=0,
-                          device=dev)
+    if moe:
+        rep, lines = serve_lm.run(cfg, params, seed=0, device=dev, **WIDE_SERVE)
+        for line in lines:
+            print(f"{line} ({smi})", flush=True)
+    else:
+        rep = serve_mod.serve(cfg, params, seed=0, device=dev, **WIDE_SERVE)
     serve_s = time.perf_counter() - t0
     serve_counts = counts(ops)
     summary = rep.results["summary"]
-    assert len(summary["tokens"]) == 2
+    n, B = WIDE_SERVE["requests"], WIDE_SERVE["batch"]
+    steps = WIDE_SERVE["prompt_len"] + WIDE_SERVE["gen_len"] - 1
+    assert len(summary["tokens"]) == n
     for toks in summary["tokens"]:
-        assert toks.shape == (2, 16) and toks.min() >= 0 and toks.max() < cfg.vocab
-    assert serve_counts["decode_attention"] == 2 * cfg.n_layers * (32 + 16 - 1), serve_counts
-    emit({"phase": "nemotron_serve", "layers": 2, "requests": 2, "batch": 2, "prompt_len": 32,
-          "gen_len": 16, "seconds": serve_s, "mean_tokens_per_s": summary["mean_tps"],
+        assert toks.shape == (B, WIDE_SERVE["gen_len"]) and toks.min() >= 0
+        assert toks.max() < cfg.vocab
+    # a request re-run after an injected failure decodes again
+    assert serve_counts["decode_attention"] >= n * layers * steps, serve_counts
+    assert moe or serve_counts["decode_attention"] == n * layers * steps, serve_counts
+    emit({"phase": f"{prefix}_serve", **shape, "layers": layers, **WIDE_SERVE,
+          "seconds": serve_s, "mean_tokens_per_s": summary["mean_tps"],
           "p99_latency_s": summary["p99_latency_s"], "charged_ms": rep.charged_ms,
-          "launches": serve_counts, "card": smi})
+          "fault_stats": rep.fault_stats, "launches": serve_counts, "weights_gb": weights_gb,
+          "card": smi})
     del params, rep
     free_memory()  # the engine's job graph holds the weights in a reference cycle
-    torch.cuda.reset_peak_memory_stats(dev)
-    f32 = dataclasses.replace(full, n_layers=1, dtype="float32")
-    err, c, _ = decode_vs_forward(M, ops, f32, dec_tokens, dev, truth=False)
-    emit({"phase": "nemotron_decode_vs_forward", "layers": 1, "dtype": "f32", "positions": 64,
-          "rel_err": err, "tol": 1e-3, "launches": c,
-          "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
-    assert err < 1e-3, err
-    assert c == {"flash_attention": 1, "decode_attention": 64, "mlstm_chunk": 0,
-                 "flash_attention_bwd": 0, "mlstm_chunk_bwd": 0}, c
-    print(f"nemotron (2 layers, bf16): forward {fwd_s:.3f} s, serving "
-          f"{summary['mean_tps']:.1f} tokens/s ({smi})", flush=True)
-    return fwd_counts["flash_attention"]
+    if f32_layers:
+        torch.cuda.reset_peak_memory_stats(dev)
+        f32 = dataclasses.replace(full, n_layers=f32_layers, dtype="float32")
+        params = M.init_model(f32, seed=0, device=dev)
+        f32_gb = gb(params)
+        err, c, _ = decode_vs_forward(M, ops, f32, dec_tokens, dev, params=params, truth=False)
+        del params
+        emit({"phase": f"{prefix}_decode_vs_forward", **shape, "layers": f32_layers,
+              "dtype": "f32", "positions": 64, "rel_err": err, "tol": 1e-3, "launches": c,
+              "weights_gb": f32_gb,
+              "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": smi})
+        assert err < 1e-3, err
+        assert c == {"flash_attention": f32_layers, **none,
+                     "decode_attention": 64 * f32_layers}, c
+        free_memory()
+    print(f"{cfg.name} ({layers} layers, bf16, {weights_gb:.1f} GB): forward {fwd_s:.3f} s, "
+          f"serving {summary['mean_tps']:.1f} tokens/s ({smi})", flush=True)
+    return {"flash_attention": fwd_counts["flash_attention"],
+            "decode_attention": serve_counts["decode_attention"]}
 
 
 def run_mixtral(get_config, reduced, ops, serve_mod, M, dev, smi) -> tuple[int, int]:
@@ -1882,6 +2004,222 @@ def run_whisper_train(get_config, reduced, ops, M, dev, smi) -> dict:
     return wtrain["launches"]
 
 
+# phase 20's training shape: mixtral-8x7b at full width, 1 of its 32 layers, B=4 S=512 in
+# bf16 under remat (1.713 B parameters: 17.13 GB of state with AdamW's fp32 moments). The
+# engine keeps every step run's state: 3 steps when train_peak_reckoning leaves this much of
+# the card free, else 2.
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_S = 1, 4, 512
+TRAIN_PEAK_MARGIN_GIB = 2.0
+
+
+def train_peak_reckoning(M, cfg, steps: int) -> dict:
+    """The training workflow's peak device memory, reckoned from the config's
+    shapes (``model.abstract_params``) before it runs. The engine keeps every
+    step run's state (the parameters and AdamW's fp32 moments), so the last
+    of ``steps`` runs starts with ``steps`` states held; one step then peaks
+    inside ``adamw_update``'s update of one leaf, holding the new moments,
+    the gradients in the parameters' dtype and their clipped fp32 copies,
+    the new parameters of the leaves before it, and six fp32 temporaries the
+    size of that leaf (m̂, v̂, the step, p in fp32, lr·step, their
+    difference; five for an fp32 leaf, whose ``float()`` copies nothing).
+    The loss's activations are freed by then. (Whisper's step, 32 + 32
+    layers: 28.577 GiB reckoned against 28.58 measured, PERF.md.)"""
+    from repro_torch.tree import leaves
+
+    shapes = leaves(M.abstract_params(cfg))
+    n = [t.numel() for t in shapes]
+    size = [t.numel() * t.element_size() for t in shapes]
+    params_b, moments_b = sum(size), 8 * sum(n)
+    state_b = params_b + moments_b + 4                       # and the int32 step count
+    leaf_b = max(sum(size[:i]) + (6 if t.element_size() < 4 else 5) * 4 * n[i]
+                 for i, t in enumerate(shapes))
+    step_b = moments_b + params_b + 4 * sum(n) + leaf_b
+    return {"steps": steps, "state_gb": state_b / 1e9, "step_above_state_gib": step_b / 2**30,
+            "peak_gib": (steps * state_b + step_b) / 2**30}
+
+
+def moe_train_flops(cfg, B, S, kept: int) -> dict:
+    """The operations of one training step of an ``attn+moe`` decoder at (B,
+    S): per layer the attention projections, attention's 4·hd per visible
+    (query, key) pair and head, and the router; the three expert products of
+    each of the ``kept`` assignments (every layer's); the head. The step is
+    three forwards (the backward at twice the forward's operations); under
+    ``remat`` the layers' forward once more."""
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window = cfg.sliding_window or S
+    pairs = sum(min(t + 1, window) for t in range(S))
+    attn = 2 * B * S * d * (2 * H * hd + 2 * K * hd) + 4 * B * H * hd * pairs
+    layers = cfg.n_layers * (attn + 2 * B * S * d * cfg.moe.n_experts) + kept * 3 * 2 * d * cfg.d_ff
+    head = 2 * B * S * d * cfg.vocab
+    return {"forward": layers + head, "step": 3 * (layers + head),
+            "remat_recompute": layers if cfg.remat else 0}
+
+
+def expert_gemms(cfg, rows: int, dev) -> dict:
+    """The expert products of one MoE layer at a train step's dispatch shape
+    (E experts x ``rows`` rows x d_model, bf16), taken apart from the step,
+    each timed between CUDA events (``Timer``): the forward's three products
+    (x·w_gate, x·w_up, h·w_down) alone and with the SwiGLU between, and the
+    backward's six (dh = dy·w_downᵀ, dw_down = hᵀ·dy, dx from dg·w_gateᵀ and
+    du·w_upᵀ, dw_gate = xᵀ·dg, dw_up = xᵀ·du) alone and as autograd runs them
+    with the SwiGLU's gradient."""
+    E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=dev).manual_seed(11)
+    xe = torch.randn((E, rows, d), generator=g, device=dev).bfloat16().requires_grad_()
+    wg, wu = ((torch.randn((E, d, f), generator=g, device=dev) * d ** -0.5).bfloat16()
+              .requires_grad_() for _ in range(2))
+    wd = (torch.randn((E, f, d), generator=g, device=dev) * f ** -0.5).bfloat16().requires_grad_()
+    dy = torch.randn((E, rows, d), generator=g, device=dev).bfloat16()
+
+    def forward():
+        return (F.silu(xe @ wg) * (xe @ wu)) @ wd
+
+    ye = forward()
+    timer = Timer(dev)
+    with torch.no_grad():
+        h = F.silu(xe @ wg) * (xe @ wu)
+        dg, du = torch.randn_like(h), torch.randn_like(h)   # the SwiGLU's gradients' shape
+        fwd_gemm = timer(lambda: (xe @ wg, xe @ wu, h @ wd))
+        bwd_gemm = timer(lambda: (dy @ wd.mT, h.mT @ dy, dg @ wg.mT, du @ wu.mT, xe.mT @ dg,
+                                  xe.mT @ du))
+        fwd = timer(forward)
+    bwd = timer(lambda: torch.autograd.grad(ye, (xe, wg, wu, wd), dy, retain_graph=True))
+    del timer
+    return {"forward": {"ms": fwd, "gemm_ms": fwd_gemm},
+            "backward": {"ms": bwd, "gemm_ms": bwd_gemm},
+            "flops": {"forward": 3 * 2 * E * rows * d * f, "backward": 6 * 2 * E * rows * d * f}}
+
+
+def run_mixtral_train(get_config, reduced, ops, M, dev, smi) -> dict:
+    """Phase 20: mixtral-8x7b training at full width, its depth cut to
+    ``MIXTRAL_TRAIN_LAYERS`` (bf16, ``remat`` on, B=4 S=512), on a card that
+    holds nothing else. ``mixtral_train``: the workflow's peak reckoned
+    first (``train_peak_reckoning``: 3 steps if that leaves
+    ``TRAIN_PEAK_MARGIN_GIB`` of the card, else 2), then that many AdamW
+    steps on one fixed ``synthetic_batch`` through the engine with no
+    injected failure; the loss finite and falling, per step run 2 flash
+    forward launches and 1 backward a layer, the dropped share of the
+    forward's assignments and the routings that differ between the forward
+    and its recomputation under ``remat`` (none: the route has no atomics);
+    the peak against the reckoning. ``mixtral_train_bitwise``: one step run
+    twice on one state, parameters, moments and loss equal to the bit, the
+    state left as it was (its bits kept on the host). ``mixtral_train_reference``:
+    reduced f32 mixtral, 3 steps on the card and the CPU (loss 1e-4, params
+    2e-3). ``mixtral_train_step_profile``: ``profile_train`` at the same
+    shape, the expert products' forward and backward taken apart
+    (``expert_gemms``), the step's bound from the operations of its kept
+    assignments and attention (``moe_train_flops``) and from the state read and
+    written once. Returns the train phase's launches."""
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.train import build_train_step, synthetic_batch
+    from repro_torch.tree import leaves
+
+    full = get_config("mixtral_8x7b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_TRAIN_LAYERS)
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    B, S = MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_S
+    cut = {"n_layers": f"{MIXTRAL_TRAIN_LAYERS} of {full.n_layers}"}
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    reckoning = train_peak_reckoning(M, cfg, 3)
+    if card_gib - reckoning["peak_gib"] < TRAIN_PEAK_MARGIN_GIB:
+        reckoning = train_peak_reckoning(M, cfg, 2)
+    steps = reckoning["steps"]
+    allocated = torch.cuda.memory_allocated(dev) / 1e9
+    assert allocated < EMPTY_CARD_GB, allocated
+    t_phase = time.perf_counter()
+    with routes_recorded(L) as routes:
+        mtrain = run_train(M, ops, cfg, dev, batch=B, seq=S, steps=steps, faults=None)
+    per_run = train_launches(cfg, 1)
+    assert per_run["flash_attention"] == 2 * cfg.n_layers, per_run
+    # per step run each MoE layer routes in the forward, then again in the recomputation,
+    # the layers in reverse
+    n = cfg.n_layers
+    assert len(routes) == 2 * n * mtrain["step_runs"], len(routes)
+    fwd = [r for i in range(mtrain["step_runs"]) for r in routes[2 * n * i:2 * n * i + n]]
+    again = [r for i in range(mtrain["step_runs"])
+             for r in reversed(routes[2 * n * i + n:2 * n * (i + 1)])]
+    flips = sum(int((a.expert != b.expert).any(dim=-1).sum()) for a, b in zip(fwd, again))
+    same = all(torch.equal(a.slot, b.slot) and torch.equal(a.keep, b.keep)
+               for a, b in zip(fwd, again))
+    dropped = [int((~r.keep).sum()) / r.keep.numel() for r in fwd]
+    del routes, fwd, again
+    peak_gib = mtrain["peak_device_gb"]
+    emit({"phase": "mixtral_train", "card": smi, "layers": n, "cuts": cut, **mtrain,
+          "reckoning": reckoning, "card_gib": card_gib,
+          "peak_over_reckoning": peak_gib / reckoning["peak_gib"],
+          "moe": {"capacity_factor": cfg.moe_capacity_factor,
+                  "dropped_share_by_step_run": dropped,
+                  "routing_flips_forward_vs_recompute": flips,
+                  "slots_and_drops_equal": same},
+          "phase_s": time.perf_counter() - t_phase})
+    assert flips == 0 and same, (flips, same)
+    assert abs(peak_gib / reckoning["peak_gib"] - 1) <= 0.05, (peak_gib, reckoning)
+    print(f"mixtral train (1 layer, bf16, B={B} S={S}): {mtrain['host_s_per_step']:.3f} s per "
+          f"step, loss {mtrain['losses'][0]:.4f} -> {mtrain['losses'][-1]:.4f}, peak "
+          f"{peak_gib:.2f} GiB against {reckoning['peak_gib']:.2f} reckoned ({smi})", flush=True)
+    free_memory()
+
+    # one step run twice on one state: the engine's re-run of a step task
+    t_phase = time.perf_counter()
+    params = M.init_model(cfg, seed=0, device=dev)
+    state = (params, adamw_init(params))
+    data = synthetic_batch(cfg, B, S, seed=7, device=dev)
+    kept = [t.cpu() for t in leaves(state)]          # the state's bits, on the host
+    step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
+    first = step(*state, data)
+    second = step(*state, data)
+    pairs = list(zip(leaves(first), leaves(second), strict=True))
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    loss = (first[2]["loss"].item(), second[2]["loss"].item())
+    del first, second, pairs
+    unchanged = sum(torch.equal(t, k.to(dev)) for t, k in zip(leaves(state), kept, strict=True))
+    emit({"phase": "mixtral_train_bitwise", "card": smi, "layers": n, "shape": [B, S],
+          "leaves": len(kept) + 3, "equal_leaves": equal, "losses": loss,
+          "state_leaves": len(kept), "state_leaves_unchanged": unchanged,
+          "phase_s": time.perf_counter() - t_phase})
+    assert equal == len(kept) + 3 and loss[0] == loss[1], (equal, loss)  # + the metrics
+    assert unchanged == len(kept), unchanged
+    del params, state, data, kept
+    free_memory()
+
+    t_phase = time.perf_counter()
+    emit({"phase": "mixtral_train_reference", "config": "reduced mixtral f32",
+          **train_reference(M, ops, reduced(full), dev), "phase_s": time.perf_counter() - t_phase})
+    allocated = torch.cuda.memory_allocated(dev) / 1e9
+    assert allocated < EMPTY_CARD_GB, allocated
+    t_phase = time.perf_counter()
+    g = min(cfg.moe_group, S)
+    cap = max(1, int(cfg.moe.top_k * g * cfg.moe_capacity_factor / cfg.moe.n_experts))
+    rows = B * (S // g) * cap                         # moe_route's queue places per expert
+    experts = expert_gemms(cfg, rows, dev)
+    free_memory()
+    with routes_recorded(L) as routes:
+        prof = profile_train(M, cfg, dev, batch=B, seq=S, warm=1, steps=2)
+    traced = routes[-2 * n:-n]                        # the traced step's forward
+    assert traced[0].cap == cap, (traced[0].cap, cap)
+    kept_assignments = sum(int(r.keep.sum()) for r in traced)
+    del routes, traced
+    flops = moe_train_flops(cfg, B, S, kept_assignments)
+    nbytes = 2 * prof["state_gb"] * 1e9
+    bound_ms, bound_by = bound(nbytes, flops["step"] + flops["remat_recompute"], torch.bfloat16)
+    step_experts_ms = n * (2 * experts["forward"]["ms"] + experts["backward"]["ms"])
+    step_gemms_ms = n * (2 * experts["forward"]["gemm_ms"] + experts["backward"]["gemm_ms"])
+    emit({"phase": "mixtral_train_step_profile", "card": smi, "layers": n, "cuts": cut, **prof,
+          "kept_assignments": kept_assignments, "dispatch_rows_per_expert": rows,
+          "expert_products": experts,
+          "expert_ms_per_step": step_experts_ms, "expert_gemm_ms_per_step": step_gemms_ms,
+          "expert_gemm_tflop_per_s": {k: experts["flops"][k] / experts[k]["gemm_ms"] / 1e9
+                                      for k in ("forward", "backward")},
+          "expert_share": step_experts_ms / prof["device_ms_per_step"],
+          "expert_gemm_share": step_gemms_ms / prof["device_ms_per_step"],
+          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+          "device_ms_over_bound": prof["device_ms_per_step"] / bound_ms,
+          "step_ms_over_bound": prof["step_ms"] / bound_ms,
+          "phase_s": time.perf_counter() - t_phase})
+    return mtrain["launches"]
+
+
 def profiled(fn) -> tuple[list, float]:
     """The CUDA kernels of one call of ``fn`` (``torch.profiler``'s
     ``key_averages`` rows, the step's own range left out) and the call's
@@ -2197,10 +2535,10 @@ def train_reference(M, ops, small, dev, steps=3) -> dict:
 
 
 def profile_train(M, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, warm=2, steps=3) -> dict:
-    """Phases 11 and 14: host ms of a full-width training step without the
-    profiler, then a ``torch.profiler`` trace of one step for device time,
-    kernel launches, the top kernels and the kernels' shares; for xLSTM also
-    the sLSTM loop's share of the step."""
+    """Phases 11, 14, 18 and 20: host ms of a full-width training step
+    without the profiler, then a ``torch.profiler`` trace of one step for
+    device time, kernel launches, the top kernels and the kernels' shares;
+    for xLSTM also the sLSTM loop's share of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import ssm

@@ -18,14 +18,17 @@ and f32 1e-4; and max abs error <= tol x max(1, max|ref|), tol f32 1e-4 and
 bf16 3e-2, against autograd of the plain version; two runs on the same
 inputs give the same bits. The 3xTF32 route (f32 at every head dim, bf16 at
 hd 16/32) is also held at the 16-row tile edges (S = 1, 7, 37, 200, 1000),
-at G = 1 and 12, forward and backward, and its forward twice to the bit. The mLSTM backward, per gradient, elementwise against its plain
-version ``mlstm_chunk_bwd_ref`` on the same inputs and forward output,
-|err| <= 1e-4·(|ref| + rms(ref)) (the f32 flash backward's rule), against
-the plain version in float64 (the truth) and in fp32 (the plain version as
-the port runs it), also at a chunk of 40 (no multiple of the 16-row mma
-tile) and with the gates where d log f's terms cancel most (log f near 0, i
-near 1); two runs give the same bits, and saving the states for it leaves
-the forward's output as it was, to the bit. A reduced f32
+at G = 1 and 12, forward and backward, and its forward twice to the bit.
+Both routes hold llama3-405b's G = 16 (32 heads over 2), forward, lse and
+backward, bf16 and f32. The mLSTM backward, per gradient, elementwise
+against its plain version ``mlstm_chunk_bwd_ref`` on the same inputs and
+forward output, |err| <= 1e-4·(|ref| + rms(ref)) (the f32 flash
+backward's rule), against the plain version in float64 (the truth) and in
+fp32 (the plain version as the port runs it), also at a chunk of 40 (no
+multiple of the 16-row mma tile) and with the gates where d log f's terms
+cancel most (log f near 0, i near 1); two runs give the same bits, and
+saving the states for it leaves the forward's output as it was, to the
+bit. A reduced f32
 model's train step on the card (smollm, xLSTM with and without ``remat``,
 and whisper with and without it): loss 1e-4, params 2e-3 against the same
 step on the CPU. The
@@ -150,6 +153,29 @@ def test_flash_3xtf32_backward_on_card(cuda, dtype, hd, S, causal, window, H, K)
     g = torch.Generator(device=cuda).manual_seed(16)
     q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
                    for s in [(2, S, H, hd), (2, S, K, hd), (2, S, K, hd), (2, S, H, hd)])
+    _hold_flash_bwd(q, k, v, do, causal, window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,causal,window", [(200, True, None), (37, True, 24),
+                                             (200, False, None)])
+def test_flash_at_g16_on_card(cuda, dtype, hd, S, causal, window):
+    """llama3-405b's grouping, G = 16 (128 heads over 8; here 32 over 2):
+    the forward and its rows' log-sum-exp against the plain version, and the
+    backward held as ``test_flash_bwd_kernel_on_card`` holds it, on both
+    routes (bf16 ``wgmma``, f32 3xTF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(TORCH_DT[dtype])
+                   for s in [(2, S, 32, hd), (2, S, 2, hd), (2, S, 2, hd), (2, S, 32, hd)])
+    out, lse = _forward_with_lse(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, causal=causal, window=window),
+                               atol=LSE_TOL, rtol=0)
     _hold_flash_bwd(q, k, v, do, causal, window, dtype)
 
 
@@ -419,7 +445,7 @@ def test_kernels_without_a_backward_raise_under_grad_on_card(cuda):
     q = torch.randn((2, 4, 16), device=cuda, requires_grad=True)
     cache = torch.randn((2, 8, 2, 16), device=cuda)
     lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="decode_attention has no backward kernel"):
         ops.decode_attention(q, cache, cache, lens)
     with torch.no_grad():
         ops.decode_attention(q, cache, cache, lens)

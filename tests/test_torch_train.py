@@ -69,8 +69,9 @@ from repro_torch.tree import leaves, map_tree, paths
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192", "xlstm_350m", "mixtral_8x7b",
-         "jamba_1_5_large_398b_8layers", "whisper_large_v3"]
+ARCHS = ["smollm_360m", "qwen2_72b", "nemotron_4_340b_hd192", "llama3_405b", "chameleon_34b",
+         "xlstm_350m", "mixtral_8x7b", "mixtral_8x22b", "jamba_1_5_large_398b_8layers",
+         "whisper_large_v3"]
 B, S = 4, 16
 SEQ = {"xlstm_350m": 64}     # S by arch, where not S
 OPT = dict(lr=1e-3, warmup=3)
@@ -332,6 +333,11 @@ def test_xlstm_step_twice_is_identical_and_leaves_the_state_unchanged():
 
 def test_whisper_step_twice_is_identical_and_leaves_the_state_unchanged():
     step_twice("whisper_large_v3")
+
+
+def test_mixtral_step_twice_is_identical_and_leaves_the_state_unchanged():
+    """The MoE MLP's gather dispatch and its backward repeat to the bit."""
+    step_twice("mixtral_8x7b")
 
 
 def test_whisper_step_without_frames_raises():
