@@ -468,9 +468,8 @@ class Timer:
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and "fill" not in e.key.lower())
+        total = sum(e.self_device_time_total for e in kernel_rows(prof)
+                    if "fill" not in e.key.lower())
         return total / 1e3 / reps if total > 0 else None
 
     def kernels_by_name(self, fn, reps: int = 10) -> dict:
@@ -484,8 +483,8 @@ class Timer:
                 fn()
             torch.cuda.synchronize()
         out: dict[str, float] = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        for e in kernel_rows(prof):
+            if e.self_device_time_total > 0:
                 name = re.search(r"(\w+_kernel)\b", e.key)
                 key = name.group(1) if name else e.key[:60]
                 out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / reps
@@ -2233,9 +2232,7 @@ def profiled(fn) -> tuple[list, float]:
     kernels, host_ms = [], []
 
     def read(prof):
-        kernels.extend(e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not e.key.startswith("ProfilerStep"))
+        kernels.extend(kernel_rows(prof))
 
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=read) as prof:
@@ -2247,6 +2244,34 @@ def profiled(fn) -> tuple[list, float]:
             prof.step()
     assert kernels, "the profiler gave no trace"
     return kernels, host_ms[-1]
+
+
+def kernel_rows(prof) -> list:
+    """The card's rows of ``prof.key_averages()``: its CUDA rows but the
+    ranges that reach the card's timeline as annotations, the profiler's
+    steps and the program's ``tracing`` spans (``repro_torch: …``). Then
+    forgets the spans the profile recorded (``tracing.reset``, which also
+    removes the collection hook), so no profile keeps the last one's."""
+    from repro_torch import tracing
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("ProfilerStep", tracing.PREFIX))]
+    tracing.reset()
+    return rows
+
+
+def outermost_torch_call(e) -> bool:
+    """Whether a host event is a torch call inside none but the program's
+    ``tracing`` spans (``engine.job``, ``engine.task``, …)."""
+    from repro_torch import tracing
+
+    if e.name.startswith(tracing.PREFIX):
+        return False
+    p = e.cpu_parent
+    while p is not None and p.name.startswith(tracing.PREFIX):
+        p = p.cpu_parent
+    return p is None
 
 
 def kernel_summary(kernels, calls: int = 1) -> dict:
@@ -2423,12 +2448,11 @@ def profile_app(apps_mod, app, ideal) -> dict:
         t0 = time.perf_counter()
         run()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = kernel_rows(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     calls: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None:
+        if e.device_type == torch.autograd.DeviceType.CPU and outermost_torch_call(e):
             c = calls.setdefault(e.name, [0.0, 0])
             c[0] += e.cpu_time_total / 1e3
             c[1] += 1
@@ -2592,8 +2616,7 @@ def profile_train(M, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, warm=2, steps=3) -> d
         t0 = time.perf_counter()
         run(1)
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = kernel_rows(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
 
     def share(pred):

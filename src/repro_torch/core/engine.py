@@ -35,6 +35,7 @@ import queue
 import threading
 from typing import TYPE_CHECKING, Any
 
+from repro_torch import tracing
 from repro_torch.core.dag import DAG, DynamicDAG, TaskRef
 from repro_torch.core.executor import (
     RESULTS_CHANNEL,
@@ -287,6 +288,7 @@ class WukongEngine:
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
 
+    @tracing.traced("engine.job")
     def compute(self, dag: DAG,
                 substrate: JobSubstrate | None = None) -> JobReport:
         """Run the job to completion on the engine clock.

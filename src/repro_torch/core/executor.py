@@ -38,6 +38,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable
 
+from repro_torch import tracing
 from repro_torch.core.cache import CacheStats, ExecutorCache
 from repro_torch.core.dag import DAG, Expansion, TaskRef
 from repro_torch.core.faults import (
@@ -492,7 +493,8 @@ class TaskExecutor:
                 # function so workload-declared compute (simulated_compute /
                 # per-flop costs) is charged as simulated time.
                 t0 = clock.now_ms()
-                with task_clock(self.ctx.compute_clock):
+                with (task_clock(self.ctx.compute_clock),
+                      tracing.span("engine.task", key=current)):
                     out = dag.tasks[current].fn(*args, **kwargs)
                 # Event substrate: compute charged inside the task function
                 # is deferred (the function cannot yield); flush it onto the

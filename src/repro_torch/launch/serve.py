@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import EngineConfig, FaultConfig, GraphBuilder, WukongEngine
 from repro_torch.models import model as M
@@ -57,35 +58,46 @@ def handle_request(cfg: ModelConfig, params: Params, rid: int, *, batch: int,
     the cross cache (``prefill_s``), then prompt ingestion on the decode
     path and greedy decode. Returns the generated tokens (batch, gen), the
     decode rate and the latency of the decode loop, and ``prefill_s`` (0.0
-    without an encoder)."""
-    serve_step = build_serve_step(cfg)
-    prompt = torch.as_tensor(request_prompts(seed, rid, batch, prompt_len, cfg.vocab),
-                             device=device)
-    max_len = prompt_len + gen_len
-    cache = M.init_cache(cfg, batch, max_len, device=device)
-    prefill_s = 0.0
-    if cfg.enc_dec:
-        frames = torch.as_tensor(
-            request_frames(seed, rid, batch, cfg.enc_frames, cfg.d_model), device=device)
+    without an encoder).
+
+    Under a profiler it records ``tracing`` spans: ``serve.request`` around it,
+    ``serve.cache_init``, ``serve.prompt`` (the ``prompt_len - 1`` steps whose
+    logits are discarded) and ``serve.generate`` (the ``gen_len`` steps that
+    give tokens), these two also on the device's timeline, and
+    ``serve.readback``."""
+    with tracing.span("serve.request", rid=rid):
+        serve_step = build_serve_step(cfg)
+        prompt = torch.as_tensor(request_prompts(seed, rid, batch, prompt_len, cfg.vocab),
+                                 device=device)
+        max_len = prompt_len + gen_len
+        with tracing.span("serve.cache_init"):
+            cache = M.init_cache(cfg, batch, max_len, device=device)
+        prefill_s = 0.0
+        if cfg.enc_dec:
+            frames = torch.as_tensor(
+                request_frames(seed, rid, batch, cfg.enc_frames, cfg.d_model), device=device)
+            _sync(device)
+            t0 = time.perf_counter()  # lint: allow(REPRO001)
+            M.prefill_cross(params, cfg, cache, frames)
+            _sync(device)
+            prefill_s = time.perf_counter() - t0  # lint: allow(REPRO001)
+        tok = prompt[:, 0]
+        generated = []
         _sync(device)
         t0 = time.perf_counter()  # lint: allow(REPRO001)
-        M.prefill_cross(params, cfg, cache, frames)
+        with tracing.span("serve.prompt", device=device):
+            for pos in range(prompt_len - 1):
+                logits, cache = serve_step(params, cache, {"token": tok, "pos": pos})
+                tok = prompt[:, pos + 1]
+        with tracing.span("serve.generate", device=device):
+            for pos in range(prompt_len - 1, max_len - 1):
+                logits, cache = serve_step(params, cache, {"token": tok, "pos": pos})
+                tok = logits.argmax(dim=-1)
+                generated.append(tok)
+        with tracing.span("serve.readback"):
+            tokens = torch.stack(generated, dim=1).cpu().numpy()
         _sync(device)
-        prefill_s = time.perf_counter() - t0  # lint: allow(REPRO001)
-    tok = prompt[:, 0]
-    generated = []
-    _sync(device)
-    t0 = time.perf_counter()  # lint: allow(REPRO001)
-    for pos in range(max_len - 1):
-        logits, cache = serve_step(params, cache, {"token": tok, "pos": pos})
-        if pos + 1 < prompt_len:
-            tok = prompt[:, pos + 1]
-        else:
-            tok = logits.argmax(dim=-1)
-            generated.append(tok)
-    tokens = torch.stack(generated, dim=1).cpu().numpy()
-    _sync(device)
-    dt = time.perf_counter() - t0  # lint: allow(REPRO001)
+        dt = time.perf_counter() - t0  # lint: allow(REPRO001)
     return {"rid": rid, "tokens": tokens, "decode_tps": batch * tokens.shape[1] / dt,
             "latency_s": dt, "prefill_s": prefill_s}
 

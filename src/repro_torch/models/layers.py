@@ -32,6 +32,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import sharding as sh
@@ -447,25 +448,34 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> 
     """``moe_mlp`` before its last rounding, in fp32, with the experts
     ``first .. first + E_l - 1`` that ``p``'s expert weights hold (E_l =
     their leading size; all E by default): the routing is over all E, and
-    assignments to the other experts add nothing."""
+    assignments to the other experts add nothing.
+
+    Under a profiler the routing and dispatch are a ``moe.dispatch`` span
+    counting the assignments ``kept`` and routed to a held expert (their
+    mask, summed when the spans are read) and the E_l·G·cap expert ``rows``
+    the batched matmul computes."""
     E, k = cfg.moe.n_experts, cfg.moe.top_k
     E_l = p["w_gate"].shape[0]
     B, S, d = x.shape
-    r = moe_route(p["router"], x, cfg)
-    G, g, _ = r.expert.shape
-    rows = G * r.cap                                                # per expert
-    group = torch.arange(G, device=x.device).reshape(G, 1, 1)
-    expert, keep, weights = r.expert, r.keep, r.weights
-    if E_l < E:  # expert parallelism: this device's experts only
-        mine = (expert >= first) & (expert < first + E_l)
-        expert, keep, weights = expert - first, keep & mine, weights * mine
-    dest = (expert * rows + group * r.cap + r.slot).reshape(-1)     # (token, slot) order
-    keep = keep.reshape(-1)
-    # dropped assignments all write the spare entry past the end, never read
-    token = torch.arange(G * g, device=x.device).repeat_interleave(k)
-    src = torch.full((E_l * rows + 1,), G * g, dtype=torch.long, device=x.device)
-    src.scatter_(0, torch.where(keep, dest, E_l * rows), token)
-    xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(E_l, rows, d)
+    with tracing.span("moe.dispatch") as sp:
+        r = moe_route(p["router"], x, cfg)
+        G, g, _ = r.expert.shape
+        rows = G * r.cap                                            # per expert
+        group = torch.arange(G, device=x.device).reshape(G, 1, 1)
+        expert, keep, weights = r.expert, r.keep, r.weights
+        if E_l < E:  # expert parallelism: this device's experts only
+            mine = (expert >= first) & (expert < first + E_l)
+            expert, keep, weights = expert - first, keep & mine, weights * mine
+        if sp.recording and tracing.countable(x):
+            sp.set(kept=keep, rows=E_l * rows)   # summed when the spans are read
+        dest = (expert * rows + group * r.cap + r.slot).reshape(-1)  # (token, slot) order
+        keep = keep.reshape(-1)
+        # dropped assignments all write the spare entry past the end, never read
+        token = torch.arange(G * g, device=x.device).repeat_interleave(k)
+        src = torch.full((E_l * rows + 1,), G * g, dtype=torch.long, device=x.device)
+        src.scatter_(0, torch.where(keep, dest, E_l * rows), token)
+        xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(
+            E_l, rows, d)
     if cfg.activation == "swiglu":
         h = F.silu(xe @ p["w_gate"]) * (xe @ p["w_up"])
     else:  # squared_relu, the reference's only other MoE activation

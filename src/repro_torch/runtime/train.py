@@ -10,6 +10,13 @@ and leaves that state as it was. Microbatches (the reference's
 microbatch's activations are alive at a time. The encoder-decoder's batch
 also carries its frames, ``enc_embeds``, split into microbatches with the
 tokens.
+
+Under a profiler the step records ``tracing`` spans: ``train.step`` around
+it, per microbatch ``train.forward`` (the loss), ``train.backward``
+(``autograd.grad``) and, with microbatches, ``train.grad_accum`` (the fp32
+cast and sum, the last one also the ``/ n``), then ``train.optimizer`` (the
+schedule and ``adamw_update``); the step, the accumulation and the optimizer
+also on the device's timeline.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, resolve_device
@@ -37,8 +45,10 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1
     def value_and_grad(params, tokens, labels, enc):
         with torch.enable_grad():
             p = map_tree(lambda t: t.detach().requires_grad_(), params)
-            loss = M.loss_fn(p, cfg, tokens, labels, enc)
-            grads = torch.autograd.grad(loss, leaves(p))
+            with tracing.span("train.forward"):
+                loss = M.loss_fn(p, cfg, tokens, labels, enc)
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves(p))
         # on DTensors each gradient is placed as its parameter (a data-parallel
         # Partial sum reduced, FSDP's reduce-scattered), as the reference's are
         grads = [sh.settle(g, w) for g, w in zip(grads, leaves(params), strict=True)]
@@ -46,7 +56,11 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1
 
     def train_step(params, opt_state, batch):
         tokens, labels = batch["tokens"], batch["labels"]
-        enc = batch.get("enc_embeds")
+        with tracing.span("train.step", device=tokens.device):
+            return _train_step(params, opt_state, tokens, labels, batch.get("enc_embeds"))
+
+    def _train_step(params, opt_state, tokens, labels, enc):
+        dev = tokens.device
         if n_microbatches == 1:
             loss, grads = value_and_grad(params, tokens, labels, enc)
         else:
@@ -56,16 +70,19 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1
             split = [x.chunk(n_microbatches) for x in (tokens, labels)]
             split.append([None] * n_microbatches if enc is None else enc.chunk(n_microbatches))
             loss, grads = 0.0, None
-            for t, lab, e in zip(*split):
+            for i, (t, lab, e) in enumerate(zip(*split)):
                 mloss, g = value_and_grad(params, t, lab, e)
-                g = map_tree(lambda x: x.float(), g)
-                grads = g if grads is None else map_tree(torch.add, grads, g)
-                loss = loss + mloss
-            loss = loss / n_microbatches
-            grads = map_tree(lambda g: g / n_microbatches, grads)
+                with tracing.span("train.grad_accum", device=dev):
+                    g = map_tree(lambda x: x.float(), g)
+                    grads = g if grads is None else map_tree(torch.add, grads, g)
+                    loss = loss + mloss
+                    if i == n_microbatches - 1:
+                        loss = loss / n_microbatches
+                        grads = map_tree(lambda g: g / n_microbatches, grads)
 
-        lr_scale = cosine_schedule(opt_state["count"], warmup=opt.warmup)
-        params, opt_state, om = adamw_update(grads, opt_state, params, opt, lr_scale)
+        with tracing.span("train.optimizer", device=dev):
+            lr_scale = cosine_schedule(opt_state["count"], warmup=opt.warmup)
+            params, opt_state, om = adamw_update(grads, opt_state, params, opt, lr_scale)
         metrics = {"loss": loss, "grad_norm": om["grad_norm"], "lr_scale": lr_scale}
         return params, opt_state, metrics
 

@@ -7,7 +7,8 @@
   ``kv_stats`` through ``repro.core`` and ``repro_torch.core``.
 - Every copied file (engine, orchestrator, analysis, the numpy apps,
   configs, data pipeline, training workflow) equals its original after
-  the import rewrite.
+  the import rewrite and the listed substitutions (the engine's two copies
+  add the port's tracing spans).
 - ``repro_torch`` imports neither JAX nor anything of ``repro``.
 """
 import ast
@@ -36,9 +37,8 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
-COPIED = ([f"core/{n}.py" for n in ("__init__", "api", "cache", "dag", "engine", "executor",
-                                     "faults", "invoker", "kvstore", "optimize",
-                                     "schedule", "simclock")]
+COPIED = ([f"core/{n}.py" for n in ("__init__", "api", "cache", "dag", "faults", "invoker",
+                                     "kvstore", "optimize", "schedule", "simclock")]
           + [f"analysis/{n}.py" for n in ("__init__", "dagcheck", "divergence", "effects",
                                          "findings")]
           + [f"apps/{n}.py" for n in ("__init__", "costing", "dynamic", "tree_reduction")]
@@ -50,10 +50,25 @@ _RENAME = re.compile(r"\brepro\.(core|analysis|platform|models|configs|data|apps
 # The lint CLI's default root is the package it belongs to: its copy names
 # the port (two substitutions beyond the import rewrite). The control-plane
 # copies describe their neighbours by role, not by the history of the
-# original (docstring and comment substitutions only).
+# original (docstring and comment substitutions only). The engine's copies
+# open the port's tracing spans: an import and one line each.
 SUBSTITUTED = {
     "analysis/__main__.py": (("        import repro\n", "        import repro_torch\n"),
                              ("repro.__file__", "repro_torch.__file__")),
+    "core/engine.py": (
+        ("from repro_torch.core.dag import DAG, DynamicDAG, TaskRef\n",
+         "from repro_torch import tracing\n"
+         "from repro_torch.core.dag import DAG, DynamicDAG, TaskRef\n"),
+        ("        self.config = config or EngineConfig()\n\n    def compute(",
+         "        self.config = config or EngineConfig()\n\n"
+         "    @tracing.traced(\"engine.job\")\n    def compute(")),
+    "core/executor.py": (
+        ("from repro_torch.core.cache import CacheStats, ExecutorCache\n",
+         "from repro_torch import tracing\n"
+         "from repro_torch.core.cache import CacheStats, ExecutorCache\n"),
+        ("                with task_clock(self.ctx.compute_clock):\n",
+         "                with (task_clock(self.ctx.compute_clock),\n"
+         "                      tracing.span(\"engine.task\", key=current)):\n")),
     "core/orchestrator.py": (
         (re.compile(r"fall back to the\n {30}\S+ \d+ policy \(fair"),
          "fall back to the\n                              tenant policy (fair"),
