@@ -39,7 +39,13 @@ script started; any failure raises and exits non-zero:
    (f32), decode over a cache of 32 (bf16, kv_len 31) and of 64 (f32);
    llama3-405b's (128 heads over 8, G = 16, hd 128, bf16): flash at B=1
    S=2048 causal and decode at phase 12's last serving step (B=2, a cache
-   of 48, kv_len 47);
+   of 48, kv_len 47); AdamW (``csrc/adamw.cu``) over phase 20's mixtral-8x7b
+   leaves (1 layer, bf16 parameters) with bf16 and with fp32 gradients: the
+   expert stack alone against its plain version (the norm within 1e-6,
+   fp32 outputs within ``ADAMW_F32_ULPS`` ulps, bf16 parameters within one
+   ulp; ``torch._fused_adamw_`` in fp32 as the yardstick), and all 13
+   leaves, the kernels alone, each beside its byte bound, two calls equal to
+   the bit;
    timed with CUDA events (median of 30, L2 flushed before each run)
    beside the plain version,
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick
@@ -937,6 +943,7 @@ def reset(ops) -> None:
         getattr(ops, name).launches = 0
     ops.flash_attention.bwd_launches = 0
     ops.mlstm_chunk.bwd_launches = 0
+    ops.adamw_update.launches = 0
 
 
 def counts(ops) -> dict:
@@ -1051,6 +1058,7 @@ def main() -> int:
     flash_cases += whisper_flash
     decode_cases += whisper_decode
     mlstm_cases, mlstm_bwd_cases = mlstm_checks(ops, ref, timer, dev)
+    adamw_cases = adamw_checks(ops, ref, timer, dev, get_config)
     # the flash backward at smollm's training shapes and qwen2-72b's width
     bwd_cases = [check_flash_bwd(ops, ref, timer, dev, dtype, B, S, True, window)
                  for dtype in (torch.bfloat16, torch.float32)
@@ -1077,7 +1085,8 @@ def main() -> int:
                                      [serve_cache - 1] * 2, **llama3))
     bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, MIXTRAL_TRAIN_B,
                                      MIXTRAL_TRAIN_S, True, MIXTRAL_WINDOW, **mixtral))
-    for rec in decode_cases + flash_cases + mlstm_cases + mlstm_bwd_cases + bwd_cases:
+    for rec in (decode_cases + flash_cases + mlstm_cases + mlstm_bwd_cases + bwd_cases
+                + adamw_cases):
         emit({"phase": "kernel_check", **rec})
     del timer
     free_memory()
@@ -1240,6 +1249,16 @@ def main() -> int:
          "mixtral_train_launches": mixtral_train["flash_attention_bwd"],
          "dryrun_launches": dryrun_launches["flash_attention_bwd"],
          "sharded_launches": dryrun_launches["sharded_flash_attention_bwd"], "cases": bwd_cases},
+        {"name": "adamw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+         "replaces": None,
+         "note": "no TPU kernel: XLA fuses the JAX package's AdamW; this replaces the port's "
+                 "unfused fp32 passes (kernels/ref.py adamw_update_ref)",
+         "launches": train["adamw_launches"], **_headline(adamw_cases[0]),
+         "xlstm_train_launches": xtrain["adamw_launches"],
+         "whisper_train_launches": whisper_train["adamw"],
+         "mixtral_train_launches": mixtral_train["adamw"],
+         "dryrun_launches": dryrun_launches["adamw"],
+         "sharded_launches": dryrun_launches["sharded_adamw"], "cases": adamw_cases},
     ]
     for kr in kernels:
         assert kr["launches"] > 0, kr["name"]
@@ -1321,6 +1340,142 @@ def mlstm_checks(ops, ref, timer, dev):
            check_mlstm_bwd(ops, ref, timer, dev, 1, 256, 4, 64, False, True),
            check_mlstm_bwd(ops, ref, timer, dev, 2, 200, 4, 32, True, True)]
     return fwd, bwd
+
+
+# phase 3's AdamW rows: mixtral-8x7b's leaves at phase 20's depth (1 of 32 layers, bf16),
+# against the plain version within these units in the last place (the clip scale carries
+# the norm's last bit, the second moment's square doubles it), the norm within 1e-6
+ADAMW_F32_ULPS, ADAMW_BF16_ULPS = 8, 1
+
+
+def adamw_bytes(params, grads) -> int:
+    """What one AdamW step over these leaves must move: p, g, mu and nu read and
+    p, mu and nu written once, and g read once more for the global norm."""
+    from repro_torch.tree import leaves
+
+    return sum(2 * p.nbytes + 2 * g.nbytes + 16 * p.numel()
+               for p, g in zip(leaves(params), leaves(grads), strict=True))
+
+
+def adamw_inputs(shapes, g_dtype, dev, seed=29):
+    """(params bf16, grads, state) of these shapes, drawn on the card: weights
+    ~N(0, 1/32), gradients ~N(0, 1e-3), moments of a few steps' size."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(scale, dtype, positive=False):
+        out = {}
+        for i, shape in enumerate(shapes):
+            t = torch.randn(shape, generator=gen, device=dev).mul_(scale)
+            out[f"l{i}"] = (t.abs_() if positive else t).to(dtype)
+            del t
+        return out
+
+    params, grads = draw(1 / 32, torch.bfloat16), draw(1e-3, g_dtype)
+    state = {"mu": draw(1e-4, torch.float32), "nu": draw(1e-8, torch.float32, positive=True),
+             "count": torch.tensor(3, dtype=torch.int32, device=dev)}
+    return params, grads, state
+
+
+def fused_adamw_ms(timer, shape, dev) -> float:
+    """``torch._fused_adamw_`` on one leaf, timed as a yardstick (the port
+    never calls it): its lists share one dtype, so p, g, mu and nu are fp32
+    (28 bytes a parameter), and it has no global-norm clip."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    p, g, m = (torch.randn(shape, generator=gen, device=dev) * s for s in (1 / 32, 1e-3, 1e-4))
+    v = torch.full(shape, 1e-8, device=dev)
+    step = torch.tensor(3.0, device=dev)
+    ms = timer(lambda: torch._fused_adamw_([p], [g], [m], [v], [], [step], lr=3e-4, beta1=0.9,
+                                           beta2=0.95, weight_decay=0.1, eps=1e-8,
+                                           amsgrad=False, maximize=False))
+    del p, g, m, v
+    return ms
+
+
+def check_adamw(ops, ref, timer, dev, shapes, g_dtype, case: str, plain: bool) -> dict:
+    """One AdamW row of phase 3: ``ops.adamw_update`` (the kernels: a sum of
+    squares a leaf, the finalize, an update a leaf) over bf16 parameters of
+    ``shapes`` with ``g_dtype`` gradients, timed as the attention rows are,
+    beside its byte bound (``adamw_bytes``); two calls equal to the bit and 2
+    op calls a leaf and 1 a step. With ``plain``, also the plain version
+    (``ref.adamw_update_ref``) on the same inputs, timed and held to it, and
+    ``torch._fused_adamw_`` on the largest leaf as the library yardstick."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import leaves
+
+    params, grads, state = adamw_inputs(shapes, g_dtype, dev)
+    cfg = AdamWConfig()
+    lr_scale = torch.tensor(0.5, device=dev)
+
+    def run():
+        return ops.adamw_update(grads, state, params, cfg, lr_scale)
+
+    ops.adamw_update.launches = 0
+    first = run()
+    launches = ops.adamw_update.launches
+    assert launches == 2 * len(shapes) + 1, launches
+    again = run()
+    repeatable = all(torch.equal(a, b) for a, b in zip(leaves(first), leaves(again),
+                                                       strict=True))
+    del again
+    assert repeatable, case
+    nbytes = adamw_bytes(params, grads)
+    bound_ms, bound_by = bound(nbytes, 0, torch.float32)
+    rec = {"kernel": "adamw", "case": case, "grad_dtype": DT_NAME[g_dtype],
+           "param_dtype": "bf16", "shapes": [list(s) for s in shapes],
+           "parameters": sum(math.prod(s) for s in shapes), "bytes": nbytes,
+           "launches_per_step": launches, "repeatable": repeatable,
+           "grad_norm": first[2]["grad_norm"].item()}
+    if plain:
+        want = ref.adamw_update_ref(grads, state, params, cfg, lr_scale)
+        gn, gn_ref = first[2]["grad_norm"].item(), want[2]["grad_norm"].item()
+        assert abs(gn - gn_ref) <= 1e-6 * gn_ref, (gn, gn_ref)
+        errs = {}
+        for name, got_t, want_t in (("params", first[0], want[0]), ("mu", first[1]["mu"],
+                                                                       want[1]["mu"]),
+                                    ("nu", first[1]["nu"], want[1]["nu"])):
+            for a, b in zip(leaves(got_t), leaves(want_t), strict=True):
+                ulps = ADAMW_BF16_ULPS if b.dtype == torch.bfloat16 else ADAMW_F32_ULPS
+                rel = ulps * torch.finfo(b.dtype).eps
+                torch.testing.assert_close(a.float(), b.float(), rtol=rel, atol=0)
+                errs[name] = max(errs.get(name, 0.0), (a.float() - b.float()).abs().max().item())
+        del want
+        rec.update({"max_abs_err": errs["params"], "max_abs_err_moments": errs,
+                    "grad_norm_rel_err": abs(gn - gn_ref) / gn_ref,
+                    "plain_ms": timer(lambda: ref.adamw_update_ref(grads, state, params, cfg,
+                                                                   lr_scale))})
+    del first
+    free_memory()
+    rec["ms"] = timer(run)
+    rec["kernel_ms"] = timer.kernels_ms(run)
+    rec.update({"bound_ms": bound_ms, "bound_by": bound_by,
+                "kernel_ms_over_bound": rec["kernel_ms"] / bound_ms})
+    del params, grads, state
+    free_memory()
+    if plain:
+        rec["library_ms"] = fused_adamw_ms(timer, max(shapes, key=math.prod), dev)
+        rec["library_note"] = "torch._fused_adamw_, fp32 p/g/mu/nu, no clip"
+    return rec
+
+
+def adamw_checks(ops, ref, timer, dev, get_config) -> list:
+    """Phase 3's AdamW rows at mixtral-8x7b's leaves, bf16 parameters with bf16
+    and with fp32 gradients (b4s512's and accum8's): its expert stack (8 x
+    4096 x 14336) alone, against the plain version; and the whole tree of one
+    layer (13 leaves, 1.713 B parameters), the kernels alone (the plain
+    version's fp32 passes would not fit beside it)."""
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), n_layers=MIXTRAL_TRAIN_LAYERS)
+    shapes = [tuple(t.shape) for t in leaves(M.abstract_params(cfg))]
+    expert = next(s for s in shapes if s[1:] == (cfg.moe.n_experts, cfg.d_model, cfg.d_ff))
+    cases = []
+    for g_dtype in (torch.bfloat16, torch.float32):
+        cases.append(check_adamw(ops, ref, timer, dev, [expert], g_dtype,
+                                 "mixtral-8x7b expert stack", True))
+        cases.append(check_adamw(ops, ref, timer, dev, shapes, g_dtype,
+                                 "mixtral-8x7b, 1 layer, every leaf", False))
+    return cases
 
 
 def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
@@ -2000,7 +2155,7 @@ def run_whisper_train(get_config, reduced, ops, M, dev, smi) -> dict:
           "device_ms_over_bound": prof["device_ms_per_step"] / bound_ms,
           "step_ms_over_bound": prof["step_ms"] / bound_ms,
           "phase_s": time.perf_counter() - t_phase})
-    return wtrain["launches"]
+    return {**wtrain["launches"], "adamw": wtrain["adamw_launches"]}
 
 
 # phase 20's training shape: mixtral-8x7b at full width, 1 of its 32 layers, B=4 S=512 in
@@ -2016,23 +2171,19 @@ def train_peak_reckoning(M, cfg, steps: int) -> dict:
     shapes (``model.abstract_params``) before it runs. The engine keeps every
     step run's state (the parameters and AdamW's fp32 moments), so the last
     of ``steps`` runs starts with ``steps`` states held; one step then peaks
-    inside ``adamw_update``'s update of one leaf, holding the new moments,
-    the gradients in the parameters' dtype and their clipped fp32 copies,
-    the new parameters of the leaves before it, and six fp32 temporaries the
-    size of that leaf (m̂, v̂, the step, p in fp32, lr·step, their
-    difference; five for an fp32 leaf, whose ``float()`` copies nothing).
-    The loss's activations are freed by then. (Whisper's step, 32 + 32
-    layers: 28.577 GiB reckoned against 28.58 measured, PERF.md.)"""
+    at the end of ``adamw_update``, holding the gradients in the parameters'
+    dtype and the new parameters and moments: the AdamW kernels write each
+    leaf's into fresh tensors and hold no temporary of a leaf's size, only
+    the norm's partial sums (``SLOTS`` fp32 a leaf). The loss's activations
+    are freed by then."""
+    from repro_torch.kernels.adamw import SLOTS
     from repro_torch.tree import leaves
 
     shapes = leaves(M.abstract_params(cfg))
-    n = [t.numel() for t in shapes]
-    size = [t.numel() * t.element_size() for t in shapes]
-    params_b, moments_b = sum(size), 8 * sum(n)
+    params_b = sum(t.numel() * t.element_size() for t in shapes)
+    moments_b = 8 * sum(t.numel() for t in shapes)
     state_b = params_b + moments_b + 4                       # and the int32 step count
-    leaf_b = max(sum(size[:i]) + (6 if t.element_size() < 4 else 5) * 4 * n[i]
-                 for i, t in enumerate(shapes))
-    step_b = moments_b + params_b + 4 * sum(n) + leaf_b
+    step_b = params_b + (params_b + moments_b + 4) + 4 * SLOTS * len(shapes)
     return {"steps": steps, "state_gb": state_b / 1e9, "step_above_state_gib": step_b / 2**30,
             "peak_gib": (steps * state_b + step_b) / 2**30}
 
@@ -2216,7 +2367,7 @@ def run_mixtral_train(get_config, reduced, ops, M, dev, smi) -> dict:
           "device_ms_over_bound": prof["device_ms_per_step"] / bound_ms,
           "step_ms_over_bound": prof["step_ms"] / bound_ms,
           "phase_s": time.perf_counter() - t_phase})
-    return mtrain["launches"]
+    return {**mtrain["launches"], "adamw": mtrain["adamw_launches"]}
 
 
 def profiled(fn) -> tuple[list, float]:
@@ -2476,11 +2627,13 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
     (the encoder-decoder's with its frames) as tasks of the copied engine,
     with injected failures unless ``faults`` is None; the loss must be
     finite and fall, and each step run must launch each layer's kernels as
-    ``train_launches`` says (under ``remat`` the forward twice)."""
+    ``train_launches`` says (under ``remat`` the forward twice) and AdamW's
+    a sum of squares and an update a leaf and one finalize."""
     from repro_torch.core import EngineConfig, FaultConfig
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.orchestrator import build_training_workflow, run_training_workflow
     from repro_torch.runtime.train import build_train_step, synthetic_batch
+    from repro_torch.tree import leaves
 
     params = M.init_model(cfg, seed=0, device=dev)
     data = synthetic_batch(cfg, batch, seq, seed=7, device=dev)
@@ -2505,6 +2658,7 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
         faults=FaultConfig(**(faults or {})), job_timeout_s=3600.0))
     seconds = time.perf_counter() - t0
     launches = counts(ops)
+    adamw_launches = ops.adamw_update.launches
     losses = [res.report.results[k]["loss"] for k in mk]
     _, final_opt = res.report.results[final_key]
     runs = len(step_s)
@@ -2514,12 +2668,14 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
         res.report.fault_stats
     assert runs >= steps
     assert launches == train_launches(cfg, runs), (launches, runs)
+    # AdamW's kernels: a sum of squares and an update a leaf, one finalize a step run
+    assert adamw_launches == runs * (2 * len(leaves(params)) + 1), (adamw_launches, runs)
     per_step = statistics.median(step_s[1:])
     return {"arch": cfg.name, "shape": [batch, seq], "dtype": "bf16", "remat": cfg.remat,
             "steps": steps,
             "step_runs": runs, "losses": losses, "fault_stats": res.report.fault_stats,
             "injected_failures": res.report.fault_stats["injected_failures"],
-            "launches": launches,
+            "launches": launches, "adamw_launches": adamw_launches,
             "launches_per_step_run": {k: v / runs for k, v in launches.items()},
             "workflow_seconds": seconds, "step_run_seconds": step_s,
             "host_s_per_step": per_step, "tokens_per_s": batch * seq / per_step,
@@ -3018,7 +3174,7 @@ def run_dryrun_cell(D, ops, get_config, arch: str, shape: str, variant, traced: 
         torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
-    launches = counts(ops)
+    launches = {**counts(ops), "adamw": ops.adamw_update.launches}
     del out, args
     free_memory()
     flops = fc.get_total_flops()
@@ -3035,7 +3191,11 @@ def run_dryrun_cell(D, ops, get_config, arch: str, shape: str, variant, traced: 
            "step_s": step_s}
     emit({"phase": "dryrun_card_cell", **rec})
     assert flops == traced["flops"], (arch, shape, flops, traced["flops"])
-    for name, n in traced["kernel_calls"].items():
+    calls = dict(traced["kernel_calls"])
+    # AdamW's ops share one counter: its sum of squares and update a leaf, its finalize
+    adamw = sum(calls.pop(k, 0) for k in ("adamw_sumsq", "adamw_finalize", "adamw_update"))
+    assert launches["adamw"] == adamw, (arch, shape, launches, traced["kernel_calls"])
+    for name, n in calls.items():
         key = {"flash_attention_fwd": "flash_attention", "mlstm_chunk_fwd": "mlstm_chunk"}.get(
             name, name)
         assert launches[key] == n, (arch, shape, name, launches, traced["kernel_calls"])
@@ -3068,7 +3228,8 @@ def run_sharded_card_cell(D, ops, get_config, dev, smi) -> dict:
     t0 = time.perf_counter()
     out = cell.step()(args)
     torch.cuda.synchronize()
-    plain_s, plain_launches = time.perf_counter() - t0, counts(ops)
+    plain_s = time.perf_counter() - t0
+    plain_launches = {**counts(ops), "adamw": ops.adamw_update.launches}
     want = [t.cpu() for t in leaves(out)]
     del out
     free_memory()
@@ -3080,7 +3241,8 @@ def run_sharded_card_cell(D, ops, get_config, dev, smi) -> dict:
         with implicit_replication(), D.CollectiveCounter() as cc:
             out = cell.step(D.placements(cell, mesh))(sargs)
         torch.cuda.synchronize()
-        sharded_s, launches = time.perf_counter() - t0, counts(ops)
+        sharded_s = time.perf_counter() - t0
+        launches = {**counts(ops), "adamw": ops.adamw_update.launches}
         got = [t.to_local() if hasattr(t, "to_local") else t for t in leaves(out)]
         equal = [torch.equal(a, b.cpu()) for a, b in zip(want, got, strict=True)]
         del out, sargs, got
@@ -3138,7 +3300,8 @@ def run_dryrun(ops, get_config, dev, smi) -> dict:
     return {"flash_attention": cells[2]["launches"]["flash_attention"],
             "flash_attention_bwd": cells[2]["launches"]["flash_attention_bwd"],
             "sharded_flash_attention": sharded["flash_attention"],
-            "sharded_flash_attention_bwd": sharded["flash_attention_bwd"]}
+            "sharded_flash_attention_bwd": sharded["flash_attention_bwd"],
+            "adamw": cells[2]["launches"]["adamw"], "sharded_adamw": sharded["adamw"]}
 
 
 def free_memory() -> None:

@@ -6,18 +6,21 @@ kernel, or raises (no fallback). Each wrapper counts its kernel launches in
 a plain integer attribute, ``<wrapper>.launches``, so a run can show that
 its path went through the kernel.
 
-Each of the five kernel entry points (flash forward with its log-sum-exp,
+Each of the kernel entry points (flash forward with its log-sum-exp,
 flash backward, decode, ``mlstm_chunk`` forward with its saved states, its
-backward) is a ``torch.library`` custom op, ``torch.ops.repro_torch.*``.
+backward, and AdamW's sum of squares, per-shard sum, finalize and update)
+is a ``torch.library`` custom op, ``torch.ops.repro_torch.*``.
 On real CUDA tensors the op launches the kernel and counts the launch. On
 a ``FakeTensor`` (``FakeTensorMode``) or a meta tensor it runs the op's
 fake implementation instead: the kernel's argument checks, then outputs
 with the shapes, dtypes and strides the kernel allocates, computing
 nothing and counting nothing. That is how a dry run
-(``launch/dryrun.py``) traces the card's route without a card. Each op
-also has a FLOP formula (``torch.utils.flop_counter``), the operations
-``chip_smoke.py`` reckons for the kernel's bound, so ``FlopCounterMode``
-counts the kernels on the card and in a trace alike.
+(``launch/dryrun.py``) traces the card's route without a card. Each attention
+and mLSTM op also has a FLOP formula (``torch.utils.flop_counter``), the
+operations ``chip_smoke.py`` reckons for the kernel's bound, so
+``FlopCounterMode`` counts the kernels on the card and in a trace alike;
+AdamW's ops are bound by bytes and count none, as its plain version's
+elementwise ops count none.
 
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward is
 ``flash_attention_bwd`` (the backward kernels on the card, counted in
@@ -48,7 +51,10 @@ over the batch and either the heads or, where the cache's sequence is
 sharded, a range of the cache whose partial results merge by their
 log-sum-exp; ``mlstm_chunk`` over the batch and the heads. The local call
 takes the route its shards' device picks, so a real CPU run and a trace
-shard alike. ``register_sharding`` on the custom ops was not taken: the
+shard alike. ``adamw_update`` sums each gradient's squares on its shards
+into a Partial scalar, adds them and reduces them as the plain version's
+DTensor norm does, then finalizes and updates each leaf on its shards.
+``register_sharding`` on the custom ops was not taken: the
 plain route never reaches them and would need the same rule again, and a
 sharding rule cannot slice kv heads by a device's coordinate.
 """
@@ -60,10 +66,12 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm_chunk as _ml
 from repro_torch.kernels.ref import (
+    adamw_update_ref,
     decode_attention_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
@@ -71,6 +79,7 @@ from repro_torch.kernels.ref import (
     mlstm_chunk_ref,
 )
 from repro_torch.runtime import sharding as sh
+from repro_torch.tree import leaves, unflatten
 
 _count_lock = threading.Lock()  # engine tasks may call from several threads
 
@@ -203,6 +212,65 @@ def _(q, k, v, log_f, i_gate, y, dy, C_states, n_states, nrm, dC, dn, chunk, sta
     B, _, H, hd = q.shape
     state = [q.new_empty((B, H, hd, hd)), q.new_empty((B, H, hd))] if state_grads else []
     return (*(torch.empty_like(t) for t in (q, k, v, log_f, i_gate)), state)
+
+
+@torch.library.custom_op(_op("adamw_sumsq"), mutates_args=("partials",))
+def _adamw_sumsq(g: Tensor, round_bf16: bool, partials: Tensor, slot: int) -> None:
+    """g's partial sums of squares into leaf ``slot``'s slots of ``partials``."""
+    _aw.sumsq(g, round_bf16, partials, slot)
+    _count(adamw_update)
+
+
+@_adamw_sumsq.register_fake
+def _(g, round_bf16, partials, slot):
+    _aw.check_sumsq(g, partials, slot)
+
+
+@torch.library.custom_op(_op("adamw_leaf_sumsq"), mutates_args=())
+def _adamw_leaf_sumsq(g: Tensor, round_bf16: bool) -> Tensor:
+    """g's sum of squares, 0-d fp32: the sum kernel and a leaf's total."""
+    out = _aw.leaf_sumsq(g, round_bf16)
+    _count(adamw_update)
+    return out
+
+
+@_adamw_leaf_sumsq.register_fake
+def _(g, round_bf16):
+    _aw.check_grad(g)
+    return g.new_empty((), dtype=torch.float32)
+
+
+@torch.library.custom_op(_op("adamw_finalize"), mutates_args=())
+def _adamw_finalize(partials: Tensor, n_leaves: int, count: Tensor, lr_scale: Tensor | None,
+                    lr_mul: float, b1: float, b2: float, clip_norm: float
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    """(grad norm, coefficients (clip scale, 1 - b1^t, 1 - b2^t, lr), count + 1)."""
+    out = _aw.finalize(partials, n_leaves, count, lr_scale, lr_mul, b1, b2, clip_norm)
+    _count(adamw_update)
+    return out
+
+
+@_adamw_finalize.register_fake
+def _(partials, n_leaves, count, lr_scale, lr_mul, b1, b2, clip_norm):
+    _aw.check_finalize(partials, n_leaves, count, lr_scale)
+    new = lambda *shape: partials.new_empty(shape)  # noqa: E731
+    return new(), new(_aw.N_COEF), count.new_empty(())
+
+
+@torch.library.custom_op(_op("adamw_update"), mutates_args=())
+def _adamw_update(p: Tensor, g: Tensor, mu: Tensor, nu: Tensor, coef: Tensor, round_bf16: bool,
+                  decay: bool, b1: float, b2: float, eps: float, weight_decay: float
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """(new p, new mu, new nu) of one leaf."""
+    out = _aw.update(p, g, mu, nu, coef, round_bf16, decay, b1, b2, eps, weight_decay)
+    _count(adamw_update)
+    return out
+
+
+@_adamw_update.register_fake
+def _(p, g, mu, nu, coef, round_bf16, decay, b1, b2, eps, weight_decay):
+    _aw.check_leaf(p, g, mu, nu)
+    return torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +493,88 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: to
     return (*grads[:5], *(grads[5] or (None, None)))
 
 
+def adamw_update(grads, state: dict, params, cfg, lr_scale: Tensor | float = 1.0):
+    """(new params, {"mu", "nu", "count"}, {"grad_norm"}): the AdamW step of
+    ``optim.adamw.adamw_update`` (``cfg`` an ``AdamWConfig``). CPU leaves take
+    ``adamw_update_ref``; any other tree the kernels, in new tensors: each
+    gradient's sum of squares into one scratch buffer, one finalize and one
+    update a leaf (a leaf that is not contiguous is copied first: the
+    kernels read memory in order). On DTensors ``_adamw_sharded``. Counts
+    its ops' calls in ``adamw_update.launches``: 2 a leaf and 1 a step."""
+    ps, gs = leaves(params), leaves(grads)
+    ms, vs, count = leaves(state["mu"]), leaves(state["nu"]), state["count"]
+    if _on_cpu(*ps, *gs, *ms, *vs, count):
+        return adamw_update_ref(grads, state, params, cfg, lr_scale)
+    route = _adamw_sharded if sh.is_dtensor(ps[0]) else _adamw_fused
+    new_p, mu, nu, count, gnorm = route(ps, gs, ms, vs, count, lr_scale, cfg)
+    return (unflatten(params, new_p),
+            {"mu": unflatten(state["mu"], mu), "nu": unflatten(state["nu"], nu), "count": count},
+            {"grad_norm": gnorm})
+
+
+def _lr(lr_scale: Tensor | float, lr: float, dev: torch.device) -> tuple[Tensor | None, float]:
+    """The finalize's (lr_scale, lr_mul): a 0-d ``lr_scale`` on ``dev`` is read
+    there (lr = lr_scale·lr); a Python number or a CPU tensor gives the
+    learning rate itself, its product with ``lr`` taken here as the plain
+    version takes it."""
+    if isinstance(lr_scale, Tensor) and lr_scale.device == dev:
+        return lr_scale, lr
+    if isinstance(lr_scale, Tensor) and lr_scale.device.type != "cpu":
+        raise ValueError(f"adamw_update: lr_scale on {lr_scale.device}, the leaves on {dev}")
+    return None, float(lr * lr_scale)
+
+
+def _adamw_fused(ps, gs, ms, vs, count, lr_scale, cfg):
+    compress = cfg.grad_compress == "bf16"
+    ps, gs, ms, vs = ([t.contiguous() for t in ts] for ts in (ps, gs, ms, vs))
+    partials = torch.empty(len(gs) * _aw.SLOTS, dtype=torch.float32, device=gs[0].device)
+    for i, g in enumerate(gs):
+        _adamw_sumsq(g, compress, partials, i)
+    gnorm, coef, count = _adamw_finalize(partials, len(gs), count,
+                                         *_lr(lr_scale, cfg.lr, partials.device), cfg.b1,
+                                         cfg.b2, cfg.clip_norm)
+    new = [_adamw_update(p, g, m, v, coef, compress, p.ndim >= 2, cfg.b1, cfg.b2, cfg.eps,
+                         cfg.weight_decay) for p, g, m, v in zip(ps, gs, ms, vs, strict=True)]
+    return *(list(t) for t in zip(*new)), count, gnorm
+
+
+def _adamw_sharded(ps, gs, ms, vs, count, lr_scale, cfg):
+    """``adamw_update`` on DTensors: each gradient's sum of squares on each
+    device's shards, a Partial sum over the mesh axes that shard it; their
+    sum over the leaves reduced as the plain version's DTensor norm is (the
+    same collectives); the finalize on the replicated total; each leaf's
+    update on its shards, placed as its parameter. On a mesh of one device
+    the bits are the unsharded route's."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    compress = cfg.grad_compress == "bf16"
+    rep = sh.replicated(ps[0].device_mesh)
+
+    def shard_sum(g):
+        places = tuple(g.placements) if sh.is_dtensor(g) else rep
+        return sh.run_local(lambda gl: _adamw_leaf_sumsq(gl.contiguous(), compress), (g,),
+                            (places,),
+                            tuple(Partial() if p.is_shard() else Replicate() for p in places))
+
+    def finalize(total, c, scale):
+        return _adamw_finalize(total.reshape(1), 1, c, *_lr(scale, cfg.lr, total.device), cfg.b1,
+                               cfg.b2, cfg.clip_norm)
+
+    total = sum(shard_sum(g) for g in gs)
+    gnorm, coef, count = sh.run_local(finalize, (total, count, lr_scale), (rep, rep, rep),
+                                      (rep, rep, rep))
+
+    def leaf(p, g, m, v):
+        places = tuple(p.placements)
+        return sh.run_local(
+            lambda *a: _adamw_update(*(t.contiguous() for t in a), compress, p.ndim >= 2,
+                                     cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay),
+            (p, g, m, v, coef), (places,) * 4 + (rep,), (places,) * 3)
+
+    new = [leaf(p, g, m, v) for p, g, m, v in zip(ps, gs, ms, vs, strict=True)]
+    return *(list(t) for t in zip(*new)), count, gnorm
+
+
 # ---------------------------------------------------------------------------
 # The entries on DTensors: each device runs the entry above on its shards
 # ---------------------------------------------------------------------------
@@ -580,3 +730,4 @@ flash_attention.bwd_launches = 0
 decode_attention.launches = 0
 mlstm_chunk.launches = 0
 mlstm_chunk.bwd_launches = 0
+adamw_update.launches = 0

@@ -14,10 +14,16 @@ formulas in fp32 from the forward's output as given, the arithmetic of the
 backward kernel, so a bf16 kernel can be held to it elementwise; given the
 rows' log-sum-exp (``flash_attention_lse_ref``, or the forward kernel's),
 it takes p = exp(s − lse) from it, as the kernels do.
+``adamw_update_ref`` is the AdamW step of ``optim.adamw`` written out in
+fp32 passes over each leaf, the function ``csrc/adamw.cu`` computes.
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+
+from repro_torch.tree import leaves, map_tree
 
 NEG_INF = -1e30
 
@@ -330,3 +336,38 @@ def mlstm_chunk_bwd_ref(
         dnn = torch.exp(ftot)[..., None] * dnn + torch.einsum("bsh,bshk->bhk", a * dnrm, qc)
     out = [torch.cat(parts[::-1], dim=1)[:, :S] for parts in zip(*grads)]
     return (*out, dCn, dnn)
+
+
+@torch.no_grad()
+def adamw_update_ref(
+    grads: Any, state: dict[str, Any], params: Any, cfg: Any,
+    lr_scale: torch.Tensor | float = 1.0,
+) -> tuple[Any, dict[str, Any], dict[str, torch.Tensor]]:
+    """(new params, new state, {"grad_norm"}): the clipped, bias-corrected
+    AdamW step of ``optim.adamw.adamw_update`` (``cfg`` an ``AdamWConfig``),
+    in fp32, each new leaf cast back to its parameter's dtype."""
+    if cfg.grad_compress == "bf16":
+        grads = map_tree(lambda g: g.to(torch.bfloat16), grads)
+    grads = map_tree(lambda g: g.float(), grads)
+
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves(grads)))
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    grads = map_tree(lambda g: g * scale, grads)
+
+    count = state["count"] + 1
+    b1c = 1.0 - torch.pow(cfg.b1, count.float())
+    b2c = 1.0 - torch.pow(cfg.b2, count.float())
+    mu = map_tree(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state["mu"], grads)
+    nu = map_tree(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, state["nu"], grads)
+    lr = cfg.lr * lr_scale
+
+    def upd(p, m, v):
+        mhat = m / b1c
+        vhat = v / b2c
+        step = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if p.ndim >= 2:  # no weight decay on norms/bias
+            step = step + cfg.weight_decay * p.float()
+        return (p.float() - lr * step).to(p.dtype)
+
+    new_params = map_tree(upd, params, mu, nu)
+    return new_params, {"mu": mu, "nu": nu, "count": count}, {"grad_norm": gnorm}

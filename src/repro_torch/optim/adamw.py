@@ -6,6 +6,14 @@ gradients, decay on every leaf). Moments are fp32; ``grad_compress=
 "bf16"`` rounds the gradients to bf16 and back, as the reference does
 before its cross-replica reduction.
 
+``adamw_update`` routes by the device of the leaves, as every wrapper in
+``kernels.ops`` does (``ops.adamw_update``): CPU leaves take the plain
+version (``kernels.ref.adamw_update_ref``); CUDA leaves the hand-written
+kernels (``kernels/csrc/adamw.cu``: each gradient read once for the global
+norm, then one pass a leaf over p, g, mu and nu), or it raises; meta and
+fake leaves (a dry run's trace) the kernels' fake implementations; DTensors
+run the kernels on each device's shards.
+
 Functional: ``adamw_update`` returns new tensors and never writes into
 ``params``, ``state`` or ``grads``. The engine may run a step task twice
 on the same input (a retry, a speculative duplicate); an update in place
@@ -18,6 +26,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.tree import leaves, map_tree
 
 
@@ -51,28 +60,11 @@ def adamw_update(
 ) -> tuple[Any, dict[str, Any], dict[str, torch.Tensor]]:
     """(new params, new state, {"grad_norm"}): the clipped, bias-corrected
     AdamW step, in fp32, each new leaf cast back to its parameter's dtype."""
-    if cfg.grad_compress == "bf16":
-        grads = map_tree(lambda g: g.to(torch.bfloat16), grads)
-    grads = map_tree(lambda g: g.float(), grads)
+    return ops.adamw_update(grads, state, params, cfg, lr_scale)
 
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves(grads)))
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    grads = map_tree(lambda g: g * scale, grads)
 
-    count = state["count"] + 1
-    b1c = 1.0 - torch.pow(cfg.b1, count.float())
-    b2c = 1.0 - torch.pow(cfg.b2, count.float())
-    mu = map_tree(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state["mu"], grads)
-    nu = map_tree(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, state["nu"], grads)
-    lr = cfg.lr * lr_scale
-
-    def upd(p, m, v):
-        mhat = m / b1c
-        vhat = v / b2c
-        step = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.ndim >= 2:  # no weight decay on norms/bias
-            step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype)
-
-    new_params = map_tree(upd, params, mu, nu)
-    return new_params, {"mu": mu, "nu": nu, "count": count}, {"grad_norm": gnorm}
+def fused_leaves(params: Any) -> int:
+    """How many leaves ``adamw_update`` hands to the kernel: every leaf of a
+    tree off the CPU, none of a tree on it."""
+    ps = leaves(params)
+    return 0 if all(p.device.type == "cpu" for p in ps) else len(ps)

@@ -15,8 +15,9 @@ Under a profiler the step records ``tracing`` spans: ``train.step`` around
 it, per microbatch ``train.forward`` (the loss), ``train.backward``
 (``autograd.grad``) and, with microbatches, ``train.grad_accum`` (the fp32
 cast and sum, the last one also the ``/ n``), then ``train.optimizer`` (the
-schedule and ``adamw_update``); the step, the accumulation and the optimizer
-also on the device's timeline.
+schedule and ``adamw_update``, with ``fused``: the leaves the AdamW kernel
+updated); the step, the accumulation and the optimizer also on the device's
+timeline.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, resolve_device
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim.adamw import fused_leaves
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.runtime import sharding as sh
 from repro_torch.tree import leaves, map_tree, unflatten
@@ -80,9 +82,11 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig, n_microbatches: int = 1
                         loss = loss / n_microbatches
                         grads = map_tree(lambda g: g / n_microbatches, grads)
 
-        with tracing.span("train.optimizer", device=dev):
+        with tracing.span("train.optimizer", device=dev) as sp:
             lr_scale = cosine_schedule(opt_state["count"], warmup=opt.warmup)
             params, opt_state, om = adamw_update(grads, opt_state, params, opt, lr_scale)
+            if sp.recording:
+                sp.set(fused=fused_leaves(params))
         metrics = {"loss": loss, "grad_norm": om["grad_norm"], "lr_scale": lr_scale}
         return params, opt_state, metrics
 

@@ -44,7 +44,17 @@ flash forwards and backwards at Sq != Skv (cross-attention, no mask) and
 the encoder's 1500 frames (the backward held as above), decode over its
 1500-frame cross cache, the refusal of a mask at Sq != Skv by the
 wrappers and by the C entry points, and reduced whisper's forward and
-decode on the card against the CPU (rel 1e-5).
+decode on the card against the CPU (rel 1e-5). AdamW's kernels against its
+plain version on the same CUDA tensors, p and g each bf16 or fp32, with and
+without the gradients' bf16 round trip and the clip, over leaves of 37 ×
+129 (no multiple of 8), a 9.4 M stack (several grid strides), a 1-d leaf
+(no decay) and a view whose start is not 16-byte aligned: the grad norm rel
+1e-6 (the sums run in another order), fp32 outputs within
+``ADAMW_F32_ULPS`` ulps (the clip scale inherits the norm's last bit and
+the moments' squares double it), bf16 parameters within one bf16 ulp; the
+inputs left as they were, two calls equal to the bit, no synchronisation,
+2 op calls a leaf and 1 a step; and the sharded route's per-shard sums,
+added and finalized, give the unsharded route's bits.
 """
 import dataclasses
 
@@ -52,6 +62,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import adamw as adamw_kernel
 from repro_torch.kernels import decode_attention as dec_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops
@@ -78,6 +89,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 BWD_ELT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 LSE_TOL = 1e-4
 MLSTM_BWD_TOL = 1e-4
+ADAMW_F32_ULPS = 8
 
 
 @pytest.fixture
@@ -933,14 +945,14 @@ def _fake_and_real(op, args):
     real = op(*args)
     before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
               ops.decode_attention.launches, ops.mlstm_chunk.launches,
-              ops.mlstm_chunk.bwd_launches)
+              ops.mlstm_chunk.bwd_launches, ops.adamw_update.launches)
     mode = FakeTensorMode()
     fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
     with mode:
         fake = op(*fake_args)
     after = (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
              ops.decode_attention.launches, ops.mlstm_chunk.launches,
-             ops.mlstm_chunk.bwd_launches)
+             ops.mlstm_chunk.bwd_launches, ops.adamw_update.launches)
     return real, fake, after == before
 
 
@@ -978,6 +990,19 @@ def test_fake_kernels_match_the_kernels_on_card(cuda, dtype):
     real, fake, quiet = _fake_and_real(K.mlstm_chunk_bwd, [x, x, x, gate.log(), gate, y, y,
                                                            *saved, None, None, 64, False])
     assert quiet and _layout(fake) == _layout(real)
+    # AdamW's: the per-shard sum, the finalize, the update (p and g in this dtype)
+    p = torch.randn((3, 37), generator=g, device=cuda).to(dt)
+    m = torch.randn((3, 37), generator=g, device=cuda)
+    count, lr_scale = torch.tensor(1, dtype=torch.int32, device=cuda), torch.ones((), device=cuda)
+    real, fake, quiet = _fake_and_real(K.adamw_leaf_sumsq, [p, True])
+    assert quiet and _layout(fake) == _layout(real)
+    partials = torch.rand(2 * adamw_kernel.SLOTS, device=cuda)
+    real, fake, quiet = _fake_and_real(K.adamw_finalize, [partials, 2, count, lr_scale, 1e-3,
+                                                          0.9, 0.95, 1.0])
+    assert quiet and _layout(fake) == _layout(real)
+    real, fake, quiet = _fake_and_real(K.adamw_update, [p, p, m, m.abs(), real[1], False, True,
+                                                        0.9, 0.95, 1e-8, 0.1])
+    assert quiet and _layout(fake) == _layout(real)
 
 
 @pytest.mark.cuda
@@ -990,3 +1015,98 @@ def test_cuda_tensors_still_launch_through_the_ops_on_card(cuda):
         ops.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
                             q[..., :48].contiguous())
     assert ops.flash_attention.launches == n + 1
+
+
+def _adamw_inputs(dev, p_dtype, g_dtype, seed=0):
+    """(params, grads, state) whose leaves are a 37 x 129 matrix, a 3 x 1536 x
+    2048 stack, a 1-d leaf and a 5 x 33 view one element into its storage."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [((37, 129), 0), ((3, 1536, 2048), 0), ((7,), 0), ((5, 33), 1)]
+
+    def draw(dtype, scale, positive=False):
+        out = {}
+        for i, (shape, offset) in enumerate(shapes):
+            n = torch.Size(shape).numel()
+            flat = torch.randn(n + offset, generator=gen, device=dev) * scale
+            out[f"l{i}"] = (flat.abs() if positive else flat).to(dtype)[offset:].view(shape)
+        return out
+
+    params, grads = draw(p_dtype, 1.0), draw(g_dtype, 0.3)
+    state = {"mu": draw(torch.float32, 0.05), "nu": draw(torch.float32, 0.01, positive=True),
+             "count": torch.tensor(4, dtype=torch.int32, device=dev)}
+    return params, grads, state
+
+
+def _ulp_close(got, want, ulps):
+    """|got - want| within ``ulps`` units in the last place of want's type."""
+    rel = ulps * torch.finfo(want.dtype).eps
+    torch.testing.assert_close(got.float(), want.float(), rtol=rel, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compress", [None, "bf16"])
+@pytest.mark.parametrize("clip_norm", [0.5, 1e4])  # the clip scaling, and not
+def test_adamw_kernel_matches_plain_on_card(cuda, p_dtype, g_dtype, compress, clip_norm):
+    from repro_torch.kernels.ref import adamw_update_ref
+    from repro_torch.optim import adamw_update
+
+    params, grads, state = _adamw_inputs(cuda, TORCH_DT[p_dtype], TORCH_DT[g_dtype])
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, clip_norm=clip_norm, grad_compress=compress)
+    lr_scale = torch.tensor(0.7, device=cuda)
+    ops.adamw_update.launches = 0
+    got = adamw_update(grads, state, params, cfg, lr_scale)
+    want = adamw_update_ref(grads, state, params, cfg, lr_scale)
+    assert ops.adamw_update.launches == 2 * 4 + 1
+    torch.testing.assert_close(got[2]["grad_norm"], want[2]["grad_norm"], rtol=1e-6, atol=0)
+    assert bool(want[2]["grad_norm"] > clip_norm) == (clip_norm == 0.5)
+    assert torch.equal(got[1]["count"], want[1]["count"])
+    for key in params:
+        p_got, p_want = got[0][key], want[0][key]
+        assert p_got.dtype == p_want.dtype and p_got.shape == p_want.shape
+        _ulp_close(p_got, p_want, 1 if p_got.dtype == torch.bfloat16 else ADAMW_F32_ULPS)
+        for m in ("mu", "nu"):
+            _ulp_close(got[1][m][key], want[1][m][key], ADAMW_F32_ULPS)
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_is_pure_repeatable_and_sync_free_on_card(cuda):
+    from repro_torch.optim import adamw_update
+
+    params, grads, state = _adamw_inputs(cuda, torch.bfloat16, torch.bfloat16, seed=1)
+    cfg = AdamWConfig(clip_norm=0.5, grad_compress="bf16")
+    before = [t.clone() for t in leaves((params, grads, state))]
+    lr_scale = torch.tensor(0.3, device=cuda)
+    ops.adamw_update.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = adamw_update(grads, state, params, cfg, lr_scale)
+        second = adamw_update(grads, state, params, cfg, lr_scale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.adamw_update.launches == 2 * (2 * 4 + 1)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(first), leaves(second), strict=True))
+    assert all(torch.equal(a, b) for a, b in zip(leaves((params, grads, state)), before,
+                                                  strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_adamw_shard_sums_give_the_fused_norm_on_card(cuda, g_dtype):
+    """The sharded route on a mesh of one device: each leaf's own sum
+    (``adamw_leaf_sumsq``), added in fp32 in leaf order and finalized as
+    one slot, gives the unsharded route's norm and coefficients to the bit."""
+    K = torch.ops.repro_torch
+    _, grads, state = _adamw_inputs(cuda, torch.bfloat16, TORCH_DT[g_dtype], seed=2)
+    gs, count = leaves(grads), state["count"]
+    lr_scale = torch.tensor(0.9, device=cuda)
+    fin = (0.1, 0.9, 0.95, 0.5)  # lr, b1, b2, clip
+    partials = torch.empty(len(gs) * adamw_kernel.SLOTS, device=cuda)
+    for i, g in enumerate(gs):
+        K.adamw_sumsq(g, True, partials, i)
+    fused = K.adamw_finalize(partials, len(gs), count, lr_scale, *fin)
+    total = sum(K.adamw_leaf_sumsq(g, True) for g in gs)
+    sharded = K.adamw_finalize(total.reshape(1), 1, count, lr_scale, *fin)
+    assert all(torch.equal(a, b) for a, b in zip(fused, sharded, strict=True))

@@ -12,7 +12,9 @@
 - A trace's FLOPs equal ``FlopCounterMode`` over a real CPU run of the same
   step (reduced configs), where the plain versions run on the CPU and are
   counted by their kernels' FLOP formulas, as the trace counts the fake
-  kernels; its kernel calls equal the plain versions' calls.
+  kernels; its kernel calls equal the plain versions' calls (AdamW's plain
+  version standing for its kernels' calls: a sum and an update a leaf and
+  one finalize).
 - The probes' extrapolation in depth (and in sequence, xLSTM) against a
   full trace: FLOPs, bytes and kernel calls equal, the peak within 1 %.
 - Each kernel op's fake implementation on meta tensors gives the shapes
@@ -135,7 +137,8 @@ def test_cli_over_full_width_cells(cli):
     # smollm's 360 M bf16 parameters and fp32 moments at B=256, S=4096 never fit one card
     train = records["smollm_360m", "train_4k", "1x1"]
     assert not train["fits_one_h100"] and train["kernel_calls"] == {
-        "flash_attention_bwd": 32, "flash_attention_fwd": 64}  # remat replays each forward
+        "flash_attention_bwd": 32, "flash_attention_fwd": 64,  # remat replays each forward
+        "adamw_sumsq": 11, "adamw_finalize": 1, "adamw_update": 11}  # its 11 leaves
     assert train["argument_bytes"]["optimizer"] == 2 * 4 * 361821120 + 4
 
 
@@ -205,7 +208,9 @@ def test_argument_bytes_equal_a_real_allocation(arch, host_mesh):
 @contextlib.contextmanager
 def kernels_by_formula(fc):
     """The plain versions' own ops hidden from ``fc``; each call counted by
-    its kernel op's FLOP formula instead, and the calls tallied."""
+    its kernel op's FLOP formula instead, and the calls tallied. AdamW's
+    kernels count no FLOPs, as its plain version's elementwise ops count
+    none; its call is tallied as the kernels' calls on its leaves."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     K = torch.ops.repro_torch
@@ -239,6 +244,15 @@ def kernels_by_formula(fc):
 
     for name in formulas:
         setattr(ops, name, counted(name))
+    saved["adamw_update_ref"] = ops.adamw_update_ref
+
+    def adamw(grads, *args, **kw):
+        n = len(leaves(grads))
+        for op, k in (("adamw_sumsq", n), ("adamw_finalize", 1), ("adamw_update", n)):
+            calls[op] = calls.get(op, 0) + k
+        return saved["adamw_update_ref"](grads, *args, **kw)
+
+    ops.adamw_update_ref = adamw
     try:
         yield calls
     finally:

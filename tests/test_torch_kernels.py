@@ -14,7 +14,13 @@ held to a float64 numpy log-sum-exp of the masked scores (1e-5), and the
 backward's fp32 formulas fed it to the same formulas recomputing it
 (1e-5). The CUDA kernels run only on the card
 (``tests/test_torch_cuda.py``; ``python3 chip_smoke.py`` at full width).
+AdamW's wrapper on CPU leaves is its plain version to the bit and counts no
+call; on meta and fake CUDA leaves its ops' fake implementations give the
+shapes and dtypes of the plain version's outputs; a tree on two devices is
+refused.
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,12 +33,15 @@ from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.models.layers import sdpa as jax_sdpa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
+    adamw_update_ref,
     decode_attention_ref,
     flash_attention_bwd_fp32_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
 )
 from repro_torch.models.layers import resolve_device, sdpa
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.tree import leaves, map_tree
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -222,3 +231,59 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _adamw_tree(device="cpu", p_dtype=torch.bfloat16, g_dtype=torch.float32):
+    """(grads, state, params): a matrix (decayed), a 3-d stack and a 1-d leaf
+    (not decayed), none of a multiple of 8 elements."""
+    gen = torch.Generator().manual_seed(3)
+    shapes = {"w": (5, 7), "stack": (2, 3, 9), "norm": (7,)}
+    draw = lambda dt, s: {k: (torch.randn(v, generator=gen) * s).to(dt)  # noqa: E731
+                          for k, v in shapes.items()}
+    params, grads = draw(p_dtype, 1.0), draw(g_dtype, 0.3)
+    state = adamw_init(params)
+    state["mu"] = draw(torch.float32, 0.05)
+    state["count"] = torch.tensor(2, dtype=torch.int32)
+    if device != "cpu":  # shapes only (a CPU-only torch makes fake CUDA tensors, copies none)
+        to = lambda t: map_tree(  # noqa: E731
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device=device), t)
+        grads, state, params = to(grads), to(state), to(params)
+    return grads, state, params
+
+
+@pytest.mark.parametrize("compress", [None, "bf16"])
+def test_adamw_cpu_leaves_take_the_plain_version_and_count_nothing(compress):
+    grads, state, params = _adamw_tree()
+    cfg = AdamWConfig(clip_norm=0.5, grad_compress=compress)
+    before = ops.adamw_update.launches
+    got = ops.adamw_update(grads, state, params, cfg, 0.7)
+    want = adamw_update_ref(grads, state, params, cfg, 0.7)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want), strict=True))
+    assert ops.adamw_update.launches == before == 0
+
+
+@pytest.mark.parametrize("device", ["meta", "fake_cuda"])
+def test_adamw_fake_kernels_give_the_plain_versions_shapes(device):
+    """The whole route through the ops' fake implementations (the sum, the
+    finalize, the update), and the per-shard sum on its own."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    grads, state, params = _adamw_tree()
+    want = adamw_update_ref(grads, state, params, AdamWConfig(), torch.tensor(0.5))
+    mode = FakeTensorMode() if device == "fake_cuda" else contextlib.nullcontext()
+    dev = "cuda" if device == "fake_cuda" else "meta"
+    with mode:
+        g, st, p = _adamw_tree(dev)
+        got = ops.adamw_update(g, st, p, AdamWConfig(), torch.empty((), device=dev))
+        leaf_sum = torch.ops.repro_torch.adamw_leaf_sumsq(g["w"], False)
+    assert [(t.shape, t.dtype, t.device.type) for t in leaves(got)] == [
+        (t.shape, t.dtype, dev.split(":")[0]) for t in leaves(want)]
+    assert (leaf_sum.shape, leaf_sum.dtype) == ((), torch.float32)
+    assert ops.adamw_update.launches == 0
+
+
+def test_adamw_refuses_a_tree_on_two_devices():
+    grads, state, params = _adamw_tree()
+    params["w"] = params["w"].to("meta")
+    with pytest.raises(ValueError, match="meta"):
+        ops.adamw_update(grads, state, params, AdamWConfig())

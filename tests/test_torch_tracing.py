@@ -9,6 +9,9 @@ readers of them (``portbench/spans.py``, ``portbench/metrics/*``), on the CPU.
   around 8 × (forward, backward, accumulation) and then the optimizer.
 - ``moe.dispatch``'s counters equal a host recount of ``moe_route``'s
   ``keep``, with every expert held and with a slice of them.
+- ``train.optimizer``'s ``fused`` counts the leaves AdamW's kernel updated:
+  none on the CPU (the plain version), every leaf on meta tensors (the
+  kernels' route), and nothing is recorded without a profiler.
 - On a DAG of sleeping tasks the engine's self time is the job less the
   union of its task spans; ``gc.collect()`` gives a ``python.gc`` span.
 - Each reader returns None without spans and its value on a hand-built list.
@@ -33,6 +36,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime.orchestrator import build_training_workflow, run_training_workflow
 from repro_torch.runtime.train import build_train_step, synthetic_batch
+from repro_torch.tree import leaves, map_tree
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -158,6 +162,22 @@ def test_accumulated_step_phases(mixtral):
     for a, b in zip(kids, kids[1:]):
         assert a["end_ns"] <= b["start_ns"]
     assert step["start_ns"] <= kids[0]["start_ns"] and kids[-1]["end_ns"] <= step["end_ns"]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_optimizer_span_counts_the_leaves_the_kernel_updated(mixtral, device):
+    cfg, params = mixtral
+    if device == "meta":
+        params = map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+    step = build_train_step(cfg, AdamWConfig())
+    batch = synthetic_batch(cfg, 2, 16, seed=1, device=device)
+    state = adamw_init(params)
+    step(params, state, batch)
+    assert tracing.spans() == []
+    with recording():
+        step(params, state, batch)
+    (opt,) = PS.named(tracing.spans(), "train.optimizer")
+    assert opt["attrs"] == {"fused": 0 if device == "cpu" else len(leaves(params))}
 
 
 @pytest.mark.parametrize("held", ["all", "slice"])
