@@ -13,6 +13,7 @@ what it stores and must never hold a CUDA tensor.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any
 
@@ -25,7 +26,7 @@ from repro_torch.core import EngineConfig, FaultConfig, GraphBuilder, WukongEngi
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, resolve_device
-from repro_torch.runtime.serve import build_serve_step
+from repro_torch.runtime.serve import build_serve_step, decode_graph
 
 
 def request_prompts(seed: int, rid: int, batch: int, prompt_len: int,
@@ -64,14 +65,30 @@ def handle_request(cfg: ModelConfig, params: Params, rid: int, *, batch: int,
     ``serve.cache_init``, ``serve.prompt`` (the ``prompt_len - 1`` steps whose
     logits are discarded) and ``serve.generate`` (the ``gen_len`` steps that
     give tokens), these two also on the device's timeline, and
-    ``serve.readback``."""
-    with tracing.span("serve.request", rid=rid):
-        serve_step = build_serve_step(cfg)
+    ``serve.readback``.
+
+    Where the step can be graphed (``runtime.serve.decode_graph``: a
+    latent-attention model on a CUDA device) every step replays the graph
+    kept for this model, ``batch`` and ``prompt_len + gen_len``, on its
+    cache, which the request holds alone (under a profiler, the pair that
+    records the model's spans); the tokens are the eager steps'."""
+    with tracing.span("serve.request", rid=rid), contextlib.ExitStack() as held:
+        max_len = prompt_len + gen_len
+        graph = decode_graph(cfg, params, batch, max_len, device)
+        if graph is None:
+            serve_step = build_serve_step(cfg)
+        else:
+            held.enter_context(graph.lock)
+            if torch.autograd._profiler_enabled():
+                graph.capture_traced(params)
+
+            def serve_step(params, cache, inputs):
+                return graph.step(inputs["token"], inputs["pos"]), cache
         prompt = torch.as_tensor(request_prompts(seed, rid, batch, prompt_len, cfg.vocab),
                                  device=device)
-        max_len = prompt_len + gen_len
         with tracing.span("serve.cache_init"):
-            cache = M.init_cache(cfg, batch, max_len, device=device)
+            cache = (M.init_cache(cfg, batch, max_len, device=device) if graph is None
+                     else graph.begin())
         prefill_s = 0.0
         if cfg.enc_dec:
             frames = torch.as_tensor(

@@ -1,7 +1,9 @@
 """Transformer building blocks in PyTorch: RMSNorm, RoPE, GQA attention, MLP, MoE.
 
 Port of ``repro.models.layers`` for ``attn+dense`` and ``attn+moe``
-blocks, and the encoder-decoder's cross-attention. Parameters are plain
+blocks, and the encoder-decoder's cross-attention. Beyond the reference,
+the MoE MLP also runs DeepSeekMoE (a ``DeepSeekMoEConfig``): the grouped
+sigmoid router ``moe_route_grouped`` and a shared expert. Parameters are plain
 dictionaries of tensors with the reference's names and layouts: weights
 stored ``(in, out)`` and applied as ``x @ W``.
 ``init_*`` take an explicit ``torch.Generator`` and device. The reference's
@@ -27,6 +29,7 @@ the MoE MLP dispatches each device's tokens to its own experts or ff slice
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.deepseek_config import DeepSeekMoEConfig
 from repro_torch.runtime import sharding as sh
 
 Params = dict[str, Any]
@@ -135,10 +139,13 @@ def rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, n, hd); positions: broadcastable to (..., S)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (..., S, n, hd); positions: broadcastable to (..., S). ``freqs``
+    (hd/2,) replaces ``rope_freqs(hd, theta)`` (latent attention's YaRN)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
+    if freqs is None:
+        freqs = rope_freqs(hd, theta, x.device)
     angles = positions[..., None].float() * freqs          # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -368,21 +375,34 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """The reference's MoE leaves: an fp32 router (d, E) whatever the model
     dtype, and per expert ``w_gate``/``w_up`` (E, d, f) and ``w_down``
-    (E, f, d); ``w_gate`` exists for every activation, as in the reference."""
+    (E, f, d); ``w_gate`` exists for every activation, as in the reference.
+    DeepSeekMoE (``DeepSeekMoEConfig``) adds the fp32 correction bias
+    ``e_bias`` (E,), zero, after the router, takes f = ``d_expert``, and
+    ends with its shared expert ``shared``, a SwiGLU of width
+    ``n_shared``·f (``init_mlp``'s leaves)."""
     assert cfg.moe is not None
-    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    grouped = isinstance(cfg.moe, DeepSeekMoEConfig)
+    d, E = cfg.d_model, cfg.moe.n_experts
+    f = cfg.moe.d_expert if grouped else cfg.d_ff
     dt = dtype_of(cfg)
-    return {
-        "router": _init(gen, (d, E), d ** -0.5, torch.float32),
-        "w_gate": _init(gen, (E, d, f), d ** -0.5, dt),
-        "w_up": _init(gen, (E, d, f), d ** -0.5, dt),
-        "w_down": _init(gen, (E, f, d), f ** -0.5, dt),
-    }
+    p = {"router": _init(gen, (d, E), d ** -0.5, torch.float32)}
+    if grouped:
+        p["e_bias"] = torch.zeros((E,), dtype=torch.float32, device=gen.device)
+    p.update(w_gate=_init(gen, (E, d, f), d ** -0.5, dt), w_up=_init(gen, (E, d, f), d ** -0.5, dt),
+             w_down=_init(gen, (E, f, d), f ** -0.5, dt))
+    if grouped and cfg.moe.n_shared:
+        p["shared"] = init_mlp(gen, dataclasses.replace(cfg, d_ff=cfg.moe.n_shared * f))
+    return p
 
 
 def specs_moe(cfg: ModelConfig) -> Params:
-    return {"router": (EMBED, None), "w_gate": (EXPERTS, EMBED, FF),
-            "w_up": (EXPERTS, EMBED, FF), "w_down": (EXPERTS, FF, EMBED)}
+    s = {"router": (EMBED, None), "w_gate": (EXPERTS, EMBED, FF),
+         "w_up": (EXPERTS, EMBED, FF), "w_down": (EXPERTS, FF, EMBED)}
+    if isinstance(cfg.moe, DeepSeekMoEConfig):
+        s = {"router": s.pop("router"), "e_bias": (None,), **s}
+        if cfg.moe.n_shared:
+            s["shared"] = specs_mlp(cfg)
+    return s
 
 
 class MoeRoute(NamedTuple):
@@ -392,7 +412,7 @@ class MoeRoute(NamedTuple):
     expert: torch.Tensor     # int64 expert index
     slot: torch.Tensor       # int64 place in its expert's queue within the group
     keep: torch.Tensor       # bool: slot < cap
-    weights: torch.Tensor    # fp32 softmax over the k logits, 0 where dropped
+    weights: torch.Tensor    # fp32 combine weights (softmax of the k logits), 0 where dropped
     cap: int                 # queue places per expert and group
 
 
@@ -406,23 +426,66 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> MoeRou
     not renormalised). Reads nothing back to the host."""
     assert cfg.moe is not None
     E, k = cfg.moe.n_experts, cfg.moe.top_k
-    B, S, d = x.shape
-    g = min(cfg.moe_group, S)
-    if S % g:
-        raise ValueError(f"moe: sequence length {S} is not a multiple of the group {g}")
-    G = B * (S // g)
-    cap = max(1, int(k * g * cfg.moe_capacity_factor / E))
+    d = x.shape[-1]
+    G, g, cap = _groups(x, cfg)
     logits = x.reshape(G, g, d).float() @ router                    # (G, g, E)
     top, expert = torch.sort(logits, dim=-1, descending=True, stable=True)
     top, expert = top[..., :k], expert[..., :k]
     weights = torch.softmax(top, dim=-1)
+    return _queued(expert, weights, E, cap)
+
+
+def _groups(x: torch.Tensor, cfg: ModelConfig) -> tuple[int, int, int]:
+    """(G, g, cap): ``moe_route``'s groups of ``x`` (B, S, d) and capacity."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    B, S, _ = x.shape
+    g = min(cfg.moe_group, S)
+    if S % g:
+        raise ValueError(f"moe: sequence length {S} is not a multiple of the group {g}")
+    return B * (S // g), g, max(1, int(k * g * cfg.moe_capacity_factor / E))
+
+
+def _queued(expert: torch.Tensor, weights: torch.Tensor, E: int, cap: int) -> MoeRoute:
+    """The route of choices ``expert`` (G, g, k) with ``weights``: each
+    assignment's queue place among the earlier ones to its expert in the
+    group's token-major (token, slot) order, those from ``cap`` on dropped."""
+    G, g, k = expert.shape
     flat = expert.reshape(G, g * k, 1)
-    onehot = torch.zeros((G, g * k, E), dtype=torch.int32, device=x.device)
+    onehot = torch.zeros((G, g * k, E), dtype=torch.int32, device=expert.device)
     onehot.scatter_(-1, flat, 1)
     earlier = onehot.cumsum(dim=1) - onehot                         # exclusive count
     slot = earlier.gather(-1, flat).reshape(G, g, k).long()
     keep = slot < cap
     return MoeRoute(expert, slot, keep, weights * keep, cap)
+
+
+def moe_route_grouped(router: torch.Tensor, e_bias: torch.Tensor, x: torch.Tensor,
+                      cfg: ModelConfig) -> MoeRoute:
+    """DeepSeekMoE's routing (``DeepSeekMoEConfig``), in ``moe_route``'s groups
+    and capacity: fp32 logits ``x @ router``, sigmoid scores; the choice by
+    score + ``e_bias``, among the experts of the ``topk_groups`` groups (of
+    ``n_groups`` consecutive experts) whose two best biased scores sum
+    highest; the ``top_k`` best biased scores there, best first (``topk``:
+    ties, which fp32 scores all but never make, in no set order); weights the
+    chosen experts' unbiased scores over their sum, times ``routed_scale``.
+    A group of one token (a decode step) queues each of its k distinct
+    experts first, so the route keeps them all without ``_queued``'s count."""
+    m = cfg.moe
+    E, k, n_g = m.n_experts, m.top_k, m.n_groups
+    G, g, cap = _groups(x, cfg)
+    scores = torch.sigmoid(x.reshape(G, g, -1).float() @ router)   # (G, g, E)
+    biased = (scores + e_bias).view(G, g, n_g, E // n_g)
+    best = biased.topk(2, dim=-1).values.sum(-1).topk(m.topk_groups, dim=-1).indices
+    allowed = torch.zeros((G, g, n_g, 1), dtype=torch.bool, device=x.device).scatter_(
+        2, best[..., None], True)
+    choice = torch.where(allowed, biased, float("-inf")).view(G, g, E)
+    expert = choice.topk(k, dim=-1).indices
+    w = scores.gather(-1, expert)
+    w = w / w.sum(-1, keepdim=True) * m.routed_scale
+    if g == 1:
+        return MoeRoute(expert, torch.zeros_like(expert), torch.ones_like(expert, dtype=torch.bool),
+                        w, cap)
+    return _queued(expert, w, E, cap)
 
 
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -434,14 +497,26 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     is deterministic), empty rows point at one zero row, and indexing ``x``
     by the map gives the (E, G·cap, d) expert inputs. The experts run as
     one batched matmul over the expert axis. Each token's k outputs are
-    gathered back and added in slot order in fp32, weighted by the combine
+    gathered back and added in slot order in fp32 (for k > 2, DeepSeekMoE's,
+    by one sum over the slots), weighted by the combine
     weights rounded to ``x.dtype``, and the sum rounded to ``x.dtype``: the
     reference's roundings (bf16 expert products, SiLU on their bf16
     output). No atomics: two calls give the same bits. On DTensors each
-    device runs this on its own shards (``_moe_sharded``)."""
+    device runs this on its own shards (``_moe_sharded``).
+
+    DeepSeekMoE routes by ``moe_route_grouped`` and adds its shared expert
+    (``mlp`` of ``p["shared"]``, every token, once) to the fp32 sum before
+    the rounding; its placement on DTensors is not ported."""
+    grouped = isinstance(cfg.moe, DeepSeekMoEConfig)
     if sh.is_dtensor(x):
+        if grouped:
+            raise NotImplementedError("moe: the placement of DeepSeekMoE's router and shared "
+                                      "expert on DTensors is not ported")
         return _moe_sharded(p, x, cfg)
-    return _moe_local(p, x, cfg).to(x.dtype)
+    out = _moe_local(p, x, cfg)
+    if grouped and "shared" in p:
+        out = out + mlp(p["shared"], x, cfg).float()
+    return out.to(x.dtype)
 
 
 def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> torch.Tensor:
@@ -458,7 +533,10 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> 
     E_l = p["w_gate"].shape[0]
     B, S, d = x.shape
     with tracing.span("moe.dispatch") as sp:
-        r = moe_route(p["router"], x, cfg)
+        if isinstance(cfg.moe, DeepSeekMoEConfig):
+            r = moe_route_grouped(p["router"], p["e_bias"], x, cfg)
+        else:
+            r = moe_route(p["router"], x, cfg)
         G, g, _ = r.expert.shape
         rows = G * r.cap                                            # per expert
         group = torch.arange(G, device=x.device).reshape(G, 1, 1)
@@ -483,6 +561,11 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> 
     ye = (h @ p["w_down"]).reshape(E_l * rows, d)
     y = ye[torch.where(keep, dest, 0)].reshape(G, g, k, d)
     w = weights.to(x.dtype).float()
+    if k > 2:  # DeepSeekMoE's 8: one product and one sum, not 3·k launches
+        return (w[..., None] * y.float()).sum(-2).reshape(B, S, d)
+    # k ≤ 2 (mixtral, jamba) keeps the loop for one reason only: their steps
+    # then launch the kernels they did before latent attention was ported.
+    # The sum above gives the loop's values at k = 2 as well.
     out = w[..., 0, None] * y[..., 0, :].float()
     for j in range(1, k):
         out = out + w[..., j, None] * y[..., j, :].float()

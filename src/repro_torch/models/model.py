@@ -1,10 +1,14 @@
 """The LM in PyTorch: init / forward / cache / decode.
 
 Port of ``repro.models.model`` for blocks whose mixer is ``attn``,
-``mamba``, ``mlstm`` or ``slstm`` and whose MLP is ``dense``, ``moe`` or
-absent: the ``attn+dense`` decoders (smollm, llama3, qwen2, nemotron,
-chameleon), mixtral's ``attn+moe`` blocks (top-k experts with capacity, a
-sliding window whose decode cache rotates), jamba's interleave of
+``mamba``, ``mlstm`` or ``slstm`` (and ``mla``, which the JAX package
+lacks) and whose MLP is ``dense``, ``moe`` or absent: the ``attn+dense``
+decoders (smollm, llama3, qwen2, nemotron, chameleon), mixtral's ``attn+moe``
+blocks (top-k experts with capacity, a sliding window whose decode cache
+rotates), DeepSeek-V3's ``mla+dense`` and
+``mla+moe`` blocks (latent attention, ``models/mla.py``, and DeepSeekMoE's
+grouped sigmoid router with a shared expert; the block pattern spells out
+the leading dense layers, one repeat), jamba's interleave of
 ``mamba+dense`` / ``mamba+moe`` blocks with one ``attn+dense`` block per
 eight, xLSTM's alternating ``mlstm`` / ``slstm`` blocks, and whisper's
 encoder-decoder (``cfg.enc_dec``: a non-causal encoder over precomputed
@@ -39,8 +43,9 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import ssm
+from repro_torch.models import mla, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.deepseek_config import MLAConfig
 from repro_torch.models.layers import (
     EMBED,
     HEADS,
@@ -72,17 +77,21 @@ from repro_torch.models.layers import (
 from repro_torch.runtime import sharding as sh
 from repro_torch.tree import is_spec, map_tree
 
-_MIXERS = ("attn", "mamba", "mlstm", "slstm")
+_MIXERS = ("attn", "mamba", "mlstm", "slstm", "mla")
 _MLPS = ("dense", "moe", None)
 MAX_ABS_POS = 32768  # learned-position table of the encoder-decoder's decoder
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every block's mixer is ported
-    (``attn``, ``mamba``, ``mlstm``, ``slstm``) and its MLP is ``dense``,
-    ``moe`` or absent. Every such block serves and trains."""
+    (``attn``, ``mamba``, ``mlstm``, ``slstm``, and ``mla`` with an
+    ``MLAConfig``) and its MLP is ``dense``, ``moe`` or absent. Every such
+    block serves; all but ``mla`` train."""
     for entry in cfg.block_pattern:
         mixer, mlp_kind = cfg.mixer_of(entry), cfg.mlp_of(entry)
+        if mixer == "mla" and not isinstance(cfg, MLAConfig):
+            raise NotImplementedError(f"{cfg.name}: block {entry!r} needs an MLAConfig, "
+                                      "which carries latent attention's widths")
         for part, ported in ((mixer, _MIXERS), (mlp_kind, _MLPS)):
             if part not in ported:
                 raise NotImplementedError(
@@ -95,7 +104,7 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 _INIT_MIXER = {"attn": init_attention, "mamba": ssm.init_mamba, "mlstm": ssm.init_mlstm,
-               "slstm": ssm.init_slstm}
+               "slstm": ssm.init_slstm, "mla": mla.init_mla}
 
 
 def _init_block(gen: torch.Generator, entry: str, cfg: ModelConfig,
@@ -162,7 +171,7 @@ def abstract_params(cfg: ModelConfig) -> Params:
 
 
 _SPECS_MIXER = {"attn": specs_attention, "mamba": ssm.specs_mamba, "mlstm": ssm.specs_mlstm,
-                "slstm": ssm.specs_slstm}
+                "slstm": ssm.specs_slstm, "mla": mla.specs_mla}
 
 
 def _block_specs(entry: str, cfg: ModelConfig, cross: bool = False) -> Params:
@@ -231,6 +240,8 @@ def _block_fwd(bp: Params, x: torch.Tensor, entry: str, cfg: ModelConfig,
         y, _ = ssm.mamba(bp["mixer"], h, cfg)
     elif mixer == "mlstm":
         y, _ = ssm.mlstm(bp["mixer"], h, cfg)
+    elif mixer == "mla":
+        y = mla.mla(bp["mixer"], h, cfg)
     else:
         y, _ = ssm.slstm(bp["mixer"], h, cfg)
     x = x + sh.settle(y, x)
@@ -412,7 +423,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
     model dtype, S = min(seq_len, sliding_window); mamba: ``{"conv", "ssm"}``
     (R, batch, w-1, d_inner) in the model dtype and (R, batch, d_inner, N)
     fp32; mLSTM: ``{"C", "n"}`` (R, batch, H, hd, hd) and (R, batch, H, hd)
-    fp32; sLSTM: ``{"c", "h"}`` (R, batch, d) fp32. The encoder-decoder adds
+    fp32; sLSTM: ``{"c", "h"}`` (R, batch, d) fp32; latent attention:
+    ``{"ckv", "kpe"}`` (R, batch, seq_len, kv_lora_rank) and (R, batch,
+    seq_len, qk_rope_dim) in the model dtype. The encoder-decoder adds
     ``{"cross_k", "cross_v"}`` (R, batch, enc_frames, K, hd) in the model
     dtype to every entry, for ``prefill_cross`` to fill."""
     check_supported(cfg)
@@ -436,6 +449,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
         elif mixer == "mlstm":
             _, H, hd = ssm.mlstm_dims(cfg)
             cache.append({"C": zeros(R, batch, H, hd, hd), "n": zeros(R, batch, H, hd)})
+        elif mixer == "mla":
+            cache.append({"ckv": zeros(R, batch, seq_len, cfg.kv_lora_rank, dtype=dtype_of(cfg)),
+                          "kpe": zeros(R, batch, seq_len, cfg.qk_rope_dim, dtype=dtype_of(cfg))})
         else:
             cache.append({"c": zeros(R, batch, cfg.d_model), "h": zeros(R, batch, cfg.d_model)})
         if cfg.enc_dec:
@@ -458,6 +474,8 @@ def cache_specs(cfg: ModelConfig) -> list[dict[str, tuple]]:
             c = {"conv": (LAYERS, "batch", None, INNER), "ssm": (LAYERS, "batch", INNER, STATE)}
         elif mixer == "mlstm":
             c = {"C": (LAYERS, "batch", HEADS, None, None), "n": (LAYERS, "batch", HEADS, None)}
+        elif mixer == "mla":
+            c = {"ckv": (LAYERS, "batch", "kv_seq", None), "kpe": (LAYERS, "batch", "kv_seq", None)}
         else:
             c = {"c": (LAYERS, "batch", EMBED), "h": (LAYERS, "batch", EMBED)}
         if cfg.enc_dec:
@@ -499,6 +517,8 @@ def _block_decode(bp: Params, c: dict[str, torch.Tensor], r: int, x: torch.Tenso
         y, (C, n) = ssm.mlstm_decode_step(bp["mixer"], h, cfg, (c["C"][r], c["n"][r]))
         c["C"][r].copy_(C)
         c["n"][r].copy_(n)
+    elif mixer == "mla":
+        y = mla.mla_decode(bp["mixer"], h, c["ckv"][r], c["kpe"][r], pos, cfg)
     else:
         y, (cc, hh) = ssm.slstm(bp["mixer"], h, cfg, state=(c["c"][r], c["h"][r]))
         c["c"][r].copy_(cc)
@@ -516,14 +536,17 @@ def decode_step(
     cfg: ModelConfig,
     cache: list[dict[str, Any]],
     token: torch.Tensor,        # (B,) ints: the newest token
-    pos: int,                   # its position
+    pos: int | torch.Tensor,    # its position (a 0-d device tensor: latent attention only)
 ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
     """One serving step: append ``token`` at ``pos`` and return next-token
     logits (B, vocab) fp32 and the cache. The cache is updated in place:
     attention writes the new key and value into its slot, the recurrent
     mixers copy their new state over the old (the returned list is
     ``cache`` itself). The encoder-decoder adds ``dec_pos[pos]`` and reads
-    the cross cache that ``prefill_cross`` filled."""
+    the cross cache that ``prefill_cross`` filled. A model whose every mixer
+    is ``mla`` also takes ``pos`` as a 0-d int64 tensor on the device, read
+    there only, so one CUDA graph of the step serves every position
+    (``runtime.serve.DecodeGraph``)."""
     x = embed(p["embed"], token)[:, None, :].to(dtype_of(cfg))   # (B, 1, d)
     if cfg.enc_dec:
         x = x + p["dec_pos"][pos][None, None, :]

@@ -20,6 +20,12 @@ and allocates nothing: no entry, no event, no counter (callers test
 Host stamps are ``time.time_ns()``, the clock of the profiler's events, so a
 span and the device trace share one timeline.
 
+Inside a CUDA graph's capture (``capture()``, on the capturing thread) spans
+record whether or not a profiler records, into the ``Capture`` and not into
+``spans()``: a device span's two events become nodes of the graph, timed at
+every replay, and a tensor counter is the buffer the graph rewrites. Each
+replay under a profiler then records those spans anew (``Capture.replayed``).
+
 The parent of a span is the innermost open span on its thread, or, on a
 thread with none open (the autograd engine's, the engine's actor threads),
 the latest open span of any thread. The job of a span is the id of the
@@ -33,12 +39,14 @@ on the event substrate, frames interleave on one thread.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
 import threading
 import time
-from typing import Any, Callable
+from collections import defaultdict
+from typing import Any, Callable, Iterator
 
 import torch
 
@@ -92,15 +100,20 @@ class Span:
 
     recording = True
     __slots__ = ("name", "attrs", "device", "id", "parent", "job", "start_ns", "end_ns",
-                 "events", "_range", "_rec")
+                 "events", "device_ms", "_range", "_rec", "_cap")
 
-    def __init__(self, name: str, device: torch.device | None, attrs: dict[str, Any]):
+    def __init__(self, name: str, device: torch.device | None, attrs: dict[str, Any],
+                 cap: Capture | None = None):
         self.name, self.attrs = name, attrs
         self.device = device if device is not None and device.type == "cuda" else None
         self.end_ns = None
         self.events = None
+        self.device_ms = None
+        self._cap = cap
 
     def __enter__(self) -> Span:
+        if self._cap is not None:
+            return self._cap.enter(self)
         rec = self._rec = _REC
         if not rec.gc_hooked:
             rec.gc_hooked = True
@@ -125,6 +138,9 @@ class Span:
     def __exit__(self, *exc) -> bool:
         if self.events is not None:
             self.events[1].record(torch.cuda.current_stream(self.device))
+        if self._cap is not None:
+            self._cap.stack.remove(self)
+            return False
         self.end_ns = time.time_ns()  # lint: allow(REPRO001)
         self._range.__exit__(*exc)
         self._rec.stack().remove(self)
@@ -136,8 +152,8 @@ class Span:
         self.attrs.update(attrs)
 
     def record(self) -> dict[str, Any]:
-        device_ms = None
-        if self.events is not None:
+        device_ms = self.device_ms
+        if device_ms is None and self.events is not None:
             self.events[1].synchronize()
             device_ms = self.events[0].elapsed_time(self.events[1])
         attrs = {k: v.sum().item() if isinstance(v, torch.Tensor) else v
@@ -147,10 +163,95 @@ class Span:
                 "attrs": attrs}
 
 
+class Capture:
+    """The spans recorded while a CUDA graph was captured (``capture``), which
+    every replay of the graph under a profiler records anew (``replayed``).
+
+    A captured span of a CUDA device records its events as nodes of the graph
+    (``external``), so each replay times it again; its tensor counters are
+    the buffers the graph writes. A replay overwrites both: ``replayed``
+    copies the counters right after the replay is launched (one
+    concatenation per dtype, no synchronisation), and ``settle``, which must
+    run before the graph replays again, reads the events of the last replay
+    recorded."""
+
+    def __init__(self) -> None:
+        self.spans: list[Span] = []       # in the order they opened
+        self.stack: list[Span] = []
+        self.pending: list[Span] = []     # the last replay's spans, events unread
+
+    def enter(self, sp: Span) -> Span:
+        sp.parent = self.stack[-1] if self.stack else None
+        if sp.device is not None:
+            sp.events = (torch.cuda.Event(enable_timing=True, external=True),
+                         torch.cuda.Event(enable_timing=True, external=True))
+            sp.events[0].record(torch.cuda.current_stream(sp.device))
+        self.stack.append(sp)
+        self.spans.append(sp)
+        return sp
+
+    def replayed(self, start_ns: int, end_ns: int) -> None:
+        """Under a profiler, record every captured span for the replay just
+        launched between host stamps ``start_ns`` and ``end_ns``: nested as
+        captured, the outermost under the span open on this thread."""
+        if not torch.autograd._profiler_enabled():
+            return
+        rec = _REC
+        by_dtype: dict[torch.dtype, list[tuple[int, str, torch.Tensor]]] = defaultdict(list)
+        for i, sp in enumerate(self.spans):
+            for k, v in sp.attrs.items():
+                if isinstance(v, torch.Tensor):
+                    by_dtype[v.dtype].append((i, k, v))
+        copies = {}
+        for group in by_dtype.values():
+            flat, at = torch.cat([v.reshape(-1) for _, _, v in group]), 0
+            for i, k, v in group:
+                copies[i, k] = flat[at:at + v.numel()]
+                at += v.numel()
+        stack = rec.stack()
+        outer = stack[-1] if stack else (rec.open[-1] if rec.open else None)
+        made: dict[int, Span] = {}
+        for i, sp in enumerate(self.spans):
+            r = Span(sp.name, None, {k: copies.get((i, k), v) for k, v in sp.attrs.items()})
+            parent = made[id(sp.parent)] if sp.parent is not None else outer
+            r.id = next(rec.ids)
+            r.parent = parent.id if parent is not None else None
+            r.job = parent.job if parent is not None else None
+            r.start_ns, r.end_ns, r.events = start_ns, end_ns, sp.events
+            made[id(sp)] = r
+            rec.spans.append(r)
+        self.pending = [r for r in made.values() if r.events is not None]
+
+    def settle(self) -> None:
+        """Read the device ms of the last replay recorded, waiting for it."""
+        for r in self.pending:
+            r.events[1].synchronize()
+            r.device_ms = r.events[0].elapsed_time(r.events[1])
+            r.events = None
+        self.pending = []
+
+
+_CAPTURING = threading.local()
+
+
+@contextlib.contextmanager
+def capture() -> Iterator[Capture]:
+    """While a CUDA graph is captured on this thread: the spans recorded
+    meanwhile go into the ``Capture`` yielded."""
+    cap = _CAPTURING.cap = Capture()
+    try:
+        yield cap
+    finally:
+        _CAPTURING.cap = None
+
+
 def span(name: str, *, device: torch.device | None = None, **attrs: Any) -> Span | _Off:
     """A span named ``name`` with attributes ``attrs``; with a CUDA ``device``
     it also takes the span's time on that device's timeline. ``OFF`` unless a
-    profiler records."""
+    profiler records or a graph is captured on this thread (``capture``)."""
+    cap = getattr(_CAPTURING, "cap", None)
+    if cap is not None:
+        return Span(name, device, attrs, cap)
     if not torch.autograd._profiler_enabled():
         return OFF
     return Span(name, device, attrs)
