@@ -936,6 +936,7 @@ def rel_err(a, b) -> float:
 
 
 KERNELS = ("flash_attention", "decode_attention", "mlstm_chunk")
+MOE_OPS = ("moe_dispatch", "moe_combine")
 
 
 def reset(ops) -> None:
@@ -944,6 +945,25 @@ def reset(ops) -> None:
     ops.flash_attention.bwd_launches = 0
     ops.mlstm_chunk.bwd_launches = 0
     ops.adamw_update.launches = 0
+    for name in MOE_OPS:
+        getattr(ops, name).launches = getattr(ops, name).bwd_launches = 0
+
+
+def moe_counts(ops) -> dict:
+    """The MoE kernels' launches, each op's forward and backward."""
+    return {f"{name}{suffix}": getattr(getattr(ops, name), attr) for name in MOE_OPS
+            for suffix, attr in (("", "launches"), ("_bwd", "bwd_launches"))}
+
+
+def moe_train_launches(cfg, runs: int) -> dict:
+    """The MoE kernels' launches of ``runs`` train-step runs of ``cfg``: per MoE
+    layer one dispatch and one combine (two of each under ``remat``: the
+    recomputation runs the combine too, for the tensors it saves) and one
+    backward of each."""
+    n_moe = sum(cfg.mlp_of(e) == "moe" for e in cfg.block_pattern) * cfg.n_repeats
+    fwd, bwd = (2 if cfg.remat else 1) * n_moe * runs, n_moe * runs
+    return {"moe_dispatch": fwd, "moe_dispatch_bwd": bwd, "moe_combine": fwd,
+            "moe_combine_bwd": bwd}
 
 
 def counts(ops) -> dict:
@@ -1059,6 +1079,7 @@ def main() -> int:
     decode_cases += whisper_decode
     mlstm_cases, mlstm_bwd_cases = mlstm_checks(ops, ref, timer, dev)
     adamw_cases = adamw_checks(ops, ref, timer, dev, get_config)
+    moe_cases = moe_checks(ops, ref, timer, dev)
     # the flash backward at smollm's training shapes and qwen2-72b's width
     bwd_cases = [check_flash_bwd(ops, ref, timer, dev, dtype, B, S, True, window)
                  for dtype in (torch.bfloat16, torch.float32)
@@ -1086,7 +1107,7 @@ def main() -> int:
     bwd_cases.append(check_flash_bwd(ops, ref, timer, dev, torch.bfloat16, MIXTRAL_TRAIN_B,
                                      MIXTRAL_TRAIN_S, True, MIXTRAL_WINDOW, **mixtral))
     for rec in (decode_cases + flash_cases + mlstm_cases + mlstm_bwd_cases + bwd_cases
-                + adamw_cases):
+                + adamw_cases + moe_cases):
         emit({"phase": "kernel_check", **rec})
     del timer
     free_memory()
@@ -1206,6 +1227,17 @@ def main() -> int:
     mixtral_train = run_mixtral_train(get_config, reduced, ops, M, dev, smi)
     free_memory()
 
+    moe_kernels = []
+    for name in MOE_OPS:
+        cases = [c for c in moe_cases if c["kernel"] in (name, f"{name}_bwd")]
+        moe_kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu", "replaces": None,
+            "note": "no TPU kernel: XLA compiles the JAX package's MoE indexing; this replaces "
+                    "the port's gathers (kernels/ref.py moe_dispatch_ref, moe_combine_ref), "
+                    "whose autograd backwards sort thousands of duplicate indices",
+            "launches": mixtral_train["moe"][name], **_headline(cases[0]),
+            "mixtral_train_bwd_launches": mixtral_train["moe"][f"{name}_bwd"], "cases": cases})
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          # bf16 at hd 64/128/192 (the main path); the f32 cases run csrc/flash_attention.cu
@@ -1259,6 +1291,7 @@ def main() -> int:
          "mixtral_train_launches": mixtral_train["adamw"],
          "dryrun_launches": dryrun_launches["adamw"],
          "sharded_launches": dryrun_launches["sharded_adamw"], "cases": adamw_cases},
+        *moe_kernels,
     ]
     for kr in kernels:
         assert kr["launches"] > 0, kr["name"]
@@ -1476,6 +1509,141 @@ def adamw_checks(ops, ref, timer, dev, get_config) -> list:
         cases.append(check_adamw(ops, ref, timer, dev, shapes, g_dtype,
                                  "mixtral-8x7b, 1 layer, every leaf", False))
     return cases
+
+
+# Phase 3's MoE rows: (case, groups G, group size g, experts E, top k, queue
+# places cap, d_model, held (first, E_l)): mixtral-8x7b's training microbatch
+# (B=4 S=512 in groups of 512, capacity 1.25) and DeepSeek-V3's decode step
+# (256 one-token groups, top 8 of 256, the 8 experts 0-7 of the cell held).
+MOE_SHAPES = (("mixtral-8x7b train B=4 S=512", 4, 512, 8, 2, 160, 4096, (0, 8)),
+              ("deepseek-v3 decode B=256", 256, 1, 256, 8, 1, 7168, (0, 8)))
+
+
+def moe_inputs(L, dev, G, g, E, k, cap, d, held, seed=37):
+    """(x (G·g, d) bf16, slot_row, row_slot, w (G·g, k) fp32, ye, dout): a route
+    from random logits (top k, softmax weights, queues of ``cap``; the
+    router's balance before training), its maps over the ``held`` experts,
+    random expert outputs and an output gradient."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    top, expert = torch.sort(torch.randn((G, g, E), generator=gen, device=dev), dim=-1,
+                             descending=True, stable=True)
+    route = L._queued(expert[..., :k], torch.softmax(top[..., :k], dim=-1), E, cap)
+    slot_row, row_slot, _, weights = L.moe_maps(route, E, held[1], held[0])
+    x = torch.randn((G * g, d), generator=gen, device=dev).bfloat16()
+    ye = torch.randn((row_slot.numel(), d), generator=gen, device=dev).bfloat16()
+    dout = torch.randn((G * g, d), generator=gen, device=dev)
+    return x, slot_row, row_slot, weights.bfloat16().float().reshape(G * g, k), ye, dout
+
+
+def check_moe(ops, ref, timer, dev, case, G, g, E, k, cap, d, held) -> list:
+    """Phase 3's four MoE rows at one shape: each kernel op (the dispatch, its
+    backward, the combine, its backward) timed as the attention rows are,
+    beside its byte bound (each input row it must read once, each output row
+    written once, the maps) and its plain version on the same inputs
+    (``ref.moe_dispatch_ref`` / ``moe_combine_ref``, the backwards as autograd
+    runs them, timed without the forward), held to it as
+    ``tests/test_torch_cuda.py`` holds them: the forwards and dye equal to
+    the bit; dx equal to the bit to its rows added in fp32 in slot order and
+    rounded once, to the plain version's at k <= 2 (two fp32 addends from 0
+    commute), and at k > 2 within k·eps of the type times the sum of its rows'
+    magnitudes (``index_put_`` rounds each partial sum to the type); dw of a
+    kept assignment within 2·d·2^-24 times the sum of its d terms' magnitudes
+    (an fp32 sum in another order) and 0 for a dropped one. Each row records
+    its largest gap and its largest gap over its tolerance."""
+    from repro_torch.models import layers as L
+
+    K = torch.ops.repro_torch
+    x, slot_row, row_slot, w, ye, dout = moe_inputs(L, dev, G, g, E, k, cap, d, held)
+    T, R = x.shape[0], row_slot.numel()
+    kept = slot_row >= 0
+    n_kept, tokens_read = int(kept.sum()), int(kept.any(dim=1).sum())
+    es = x.element_size()
+    xr = x.detach().clone().requires_grad_()
+    xe_plain = ref.moe_dispatch_ref(xr, row_slot, k)
+    yr, wr = ye.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    out_plain = ref.moe_combine_ref(yr, wr, slot_row)
+    dxe = torch.randn_like(xe_plain)
+    dx_plain, = torch.autograd.grad(xe_plain, xr, dxe, retain_graph=True)
+    dye_plain, dw_plain = torch.autograd.grad(out_plain, (yr, wr), dout, retain_graph=True)
+    maps = {"row_slot": 8 * R, "slot_row": 8 * T * k, "w": 4 * T * k}
+    rows = [
+        ("moe_dispatch", lambda: K.moe_dispatch(x, row_slot, k),
+         lambda: ref.moe_dispatch_ref(x, row_slot, k),
+         tokens_read * d * es + maps["row_slot"] + R * d * es),
+        ("moe_dispatch_bwd", lambda: K.moe_dispatch_bwd(dxe, slot_row),
+         lambda: torch.autograd.grad(xe_plain, xr, dxe, retain_graph=True),
+         n_kept * d * es + maps["slot_row"] + T * d * es),
+        ("moe_combine", lambda: K.moe_combine(ye, w, slot_row),
+         lambda: ref.moe_combine_ref(ye, w, slot_row),
+         n_kept * d * es + maps["w"] + maps["slot_row"] + T * d * 4),
+        ("moe_combine_bwd", lambda: K.moe_combine_bwd(ye, w, dout, slot_row, row_slot),
+         lambda: torch.autograd.grad(out_plain, (yr, wr), dout, retain_graph=True),
+         n_kept * d * es + tokens_read * d * 4 + maps["w"] + maps["slot_row"]
+         + maps["row_slot"] + R * d * es + 4 * T * k),
+    ]
+    xe, out = K.moe_dispatch(x, row_slot, k), K.moe_combine(ye, w, slot_row)
+    dx = K.moe_dispatch_bwd(dxe, slot_row)
+    dye, dw = K.moe_combine_bwd(ye, w, dout, slot_row, row_slot)
+    assert torch.equal(xe, xe_plain) and torch.equal(out, out_plain), case
+    assert torch.equal(dye, dye_plain), case
+    assert k > 2 or torch.equal(dx, dx_plain), case
+    rows_dx = torch.where(kept[..., None], dxe[slot_row.clamp(min=0)].float(), 0.0)
+    assert torch.equal(dx, _slot_sum(rows_dx).to(dx.dtype)), case
+    dx_err = (dx.float() - dx_plain.float()).abs()
+    dx_tol = k * torch.finfo(dx.dtype).eps * rows_dx.abs().sum(1)
+    dw_err = (dw - dw_plain).abs()[kept]
+    dw_tol = (2 * d * 2.0 ** -24 * (dout[:, None, :] * ye[slot_row.clamp(min=0)].float()).abs()
+              .sum(-1))[kept]
+    assert bool((dw[~kept] == 0).all()), case
+    errs = {"moe_dispatch": (0.0, 0.0), "moe_combine": (0.0, 0.0),
+            "moe_dispatch_bwd": (dx_err.max().item(), _err_over_tol(dx_err, dx_tol, case)),
+            "moe_combine_bwd": (dw_err.max().item(), _err_over_tol(dw_err, dw_tol, case))}
+    tols = {"moe_dispatch": "equal", "moe_combine": "equal",
+            "moe_dispatch_bwd": "equal" if k <= 2 else "k eps sum|rows|; fp32 slot sum equal",
+            "moe_combine_bwd": "dye equal; dw 2d 2^-24 sum|terms|, 0 where dropped"}
+    shape = {"G": G, "g": g, "E": E, "k": k, "cap": cap, "d": d, "held": list(held),
+             "tokens": T, "rows": R, "kept": n_kept, "slot_use": n_kept / R}
+    recs = []
+    for name, run, plain, nbytes in rows:
+        again = run()
+        before = moe_counts(ops)
+        first = run()
+        assert sum(moe_counts(ops).values()) == sum(before.values()) + 1, (case, name)
+        same = all(torch.equal(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(first), torch.utils._pytree.tree_leaves(again)))
+        assert same, (case, name)
+        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+        rec = {"kernel": name, "case": case, "dtype": "bf16", **shape, "bytes": nbytes,
+               "repeatable": same, "launches_per_call": 1, "max_abs_err": errs[name][0],
+               "tol": tols[name], "err_over_tol": errs[name][1],
+               "ms": timer(run),
+               "kernel_ms": timer.kernels_ms(run), "bound_ms": bound_ms, "bound_by": bound_by,
+               "plain_ms": timer(plain), "library_ms": None}
+        rec["kernel_ms_over_bound"] = (rec["kernel_ms"] / bound_ms if rec["kernel_ms"]
+                                       else None)
+        recs.append(rec)
+    del xr, xe_plain, yr, wr, out_plain
+    return recs
+
+
+def _slot_sum(rows: torch.Tensor) -> torch.Tensor:
+    """(T, k, d) -> (T, d): the k rows added one after another in slot order."""
+    acc = rows[:, 0]
+    for j in range(1, rows.shape[1]):
+        acc = acc + rows[:, j]
+    return acc
+
+
+def _err_over_tol(err: torch.Tensor, tol: torch.Tensor, case: str) -> float:
+    """The largest of err / tol, asserting each err within its tol."""
+    assert bool((err <= tol).all()), case
+    return (err / tol.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+
+
+def moe_checks(ops, ref, timer, dev) -> list:
+    """Phase 3's MoE rows at ``MOE_SHAPES``: four a shape."""
+    return [rec for case, *shape in MOE_SHAPES
+            for rec in check_moe(ops, ref, timer, dev, case, *shape)]
 
 
 def run_xlstm(get_config, reduced, ops, serve_mod, M, dev, tokens) -> int:
@@ -2367,7 +2535,8 @@ def run_mixtral_train(get_config, reduced, ops, M, dev, smi) -> dict:
           "device_ms_over_bound": prof["device_ms_per_step"] / bound_ms,
           "step_ms_over_bound": prof["step_ms"] / bound_ms,
           "phase_s": time.perf_counter() - t_phase})
-    return {**mtrain["launches"], "adamw": mtrain["adamw_launches"]}
+    return {**mtrain["launches"], "adamw": mtrain["adamw_launches"],
+            "moe": mtrain["moe_launches"]}
 
 
 def profiled(fn) -> tuple[list, float]:
@@ -2659,6 +2828,7 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
     seconds = time.perf_counter() - t0
     launches = counts(ops)
     adamw_launches = ops.adamw_update.launches
+    moe_launches = moe_counts(ops)
     losses = [res.report.results[k]["loss"] for k in mk]
     _, final_opt = res.report.results[final_key]
     runs = len(step_s)
@@ -2670,13 +2840,14 @@ def run_train(M, ops, cfg, dev, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
     assert launches == train_launches(cfg, runs), (launches, runs)
     # AdamW's kernels: a sum of squares and an update a leaf, one finalize a step run
     assert adamw_launches == runs * (2 * len(leaves(params)) + 1), (adamw_launches, runs)
+    assert moe_launches == moe_train_launches(cfg, runs), (moe_launches, runs)
     per_step = statistics.median(step_s[1:])
     return {"arch": cfg.name, "shape": [batch, seq], "dtype": "bf16", "remat": cfg.remat,
             "steps": steps,
             "step_runs": runs, "losses": losses, "fault_stats": res.report.fault_stats,
             "injected_failures": res.report.fault_stats["injected_failures"],
             "launches": launches, "adamw_launches": adamw_launches,
-            "launches_per_step_run": {k: v / runs for k, v in launches.items()},
+            "moe_launches": moe_launches, "launches_per_step_run": {k: v / runs for k, v in launches.items()},
             "workflow_seconds": seconds, "step_run_seconds": step_s,
             "host_s_per_step": per_step, "tokens_per_s": batch * seq / per_step,
             "charged_ms": res.report.charged_ms,

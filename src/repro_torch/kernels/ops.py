@@ -8,8 +8,9 @@ its path went through the kernel.
 
 Each of the kernel entry points (flash forward with its log-sum-exp,
 flash backward, decode, ``mlstm_chunk`` forward with its saved states, its
-backward, and AdamW's sum of squares, per-shard sum, finalize and update)
-is a ``torch.library`` custom op, ``torch.ops.repro_torch.*``.
+backward, AdamW's sum of squares, per-shard sum, finalize and update, and
+the MoE dispatch and combine with their backwards) is a ``torch.library``
+custom op, ``torch.ops.repro_torch.*``.
 On real CUDA tensors the op launches the kernel and counts the launch. On
 a ``FakeTensor`` (``FakeTensorMode``) or a meta tensor it runs the op's
 fake implementation instead: the kernel's argument checks, then outputs
@@ -19,8 +20,8 @@ nothing and counting nothing. That is how a dry run
 and mLSTM op also has a FLOP formula (``torch.utils.flop_counter``), the
 operations ``chip_smoke.py`` reckons for the kernel's bound, so
 ``FlopCounterMode`` counts the kernels on the card and in a trace alike;
-AdamW's ops are bound by bytes and count none, as its plain version's
-elementwise ops count none.
+AdamW's and the MoE ops are bound by bytes and count none, as their plain
+versions' elementwise ops and gathers count none.
 
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward is
 ``flash_attention_bwd`` (the backward kernels on the card, counted in
@@ -36,10 +37,14 @@ forward, when it records a graph, also saves each chunk's entering state
 and each row's normaliser, and its backward is the ``mlstm_chunk``
 backward kernel (counted in ``mlstm_chunk.bwd_launches``); on the CPU the
 forward is ``mlstm_chunk_ref`` and the backward ``mlstm_chunk_bwd_ref``.
-Under ``torch.no_grad()`` the kernel saves nothing. ``decode_attention``
-has no backward: on the card it raises under grad rather than return a
-tensor that silently carries no gradient; with ``with_lse`` it also returns
-each row's log-sum-exp (-inf for a row that sees no key).
+Under ``torch.no_grad()`` the kernel saves nothing. ``moe_dispatch`` and
+``moe_combine`` on the card likewise apply autograd Functions whose
+backwards are kernels (counted in ``moe_dispatch.bwd_launches`` and
+``moe_combine.bwd_launches``); on the CPU they are their plain versions,
+differentiated by autograd. ``decode_attention`` has no backward: on the
+card it raises under grad rather than return a tensor that silently
+carries no gradient; with ``with_lse`` it also returns each row's
+log-sum-exp (-inf for a row that sees no key).
 
 On DTensors (a sharded step: the dry run's trace on a production mesh, or a
 real run over a process group) each entry states its placements once, at
@@ -70,6 +75,7 @@ from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm_chunk as _ml
+from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels.ref import (
     adamw_update_ref,
     decode_attention_ref,
@@ -77,6 +83,8 @@ from repro_torch.kernels.ref import (
     flash_attention_ref,
     mlstm_chunk_bwd_ref,
     mlstm_chunk_ref,
+    moe_combine_ref,
+    moe_dispatch_ref,
 )
 from repro_torch.runtime import sharding as sh
 from repro_torch.tree import leaves, unflatten
@@ -271,6 +279,63 @@ def _adamw_update(p: Tensor, g: Tensor, mu: Tensor, nu: Tensor, coef: Tensor, ro
 def _(p, g, mu, nu, coef, round_bf16, decay, b1, b2, eps, weight_decay):
     _aw.check_leaf(p, g, mu, nu)
     return torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)
+
+
+@torch.library.custom_op(_op("moe_dispatch"), mutates_args=())
+def _moe_dispatch(x: Tensor, row_slot: Tensor, k: int) -> Tensor:
+    """xe (R, d): the token of each expert row's assignment, zeros where empty."""
+    out = _md.dispatch(x, row_slot, k)
+    _count(moe_dispatch)
+    return out
+
+
+@_moe_dispatch.register_fake
+def _(x, row_slot, k):
+    _md.check_dispatch(x, row_slot, k)
+    return x.new_empty((row_slot.shape[0], x.shape[1]))
+
+
+@torch.library.custom_op(_op("moe_dispatch_bwd"), mutates_args=())
+def _moe_dispatch_bwd(dxe: Tensor, slot_row: Tensor) -> Tensor:
+    """dx (T, d): each token's kept rows of dxe, summed."""
+    out = _md.dispatch_bwd(dxe, slot_row)
+    _count(moe_dispatch, "bwd_launches")
+    return out
+
+
+@_moe_dispatch_bwd.register_fake
+def _(dxe, slot_row):
+    _md.check_dispatch_bwd(dxe, slot_row)
+    return dxe.new_empty((slot_row.shape[0], dxe.shape[1]))
+
+
+@torch.library.custom_op(_op("moe_combine"), mutates_args=())
+def _moe_combine(ye: Tensor, w: Tensor, slot_row: Tensor) -> Tensor:
+    """out (T, d) fp32: each token's kept rows weighted and summed."""
+    out = _md.combine(ye, w, slot_row)
+    _count(moe_combine)
+    return out
+
+
+@_moe_combine.register_fake
+def _(ye, w, slot_row):
+    _md.check_combine(ye, w, slot_row)
+    return ye.new_empty((slot_row.shape[0], ye.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op(_op("moe_combine_bwd"), mutates_args=())
+def _moe_combine_bwd(ye: Tensor, w: Tensor, dout: Tensor, slot_row: Tensor,
+                     row_slot: Tensor) -> tuple[Tensor, Tensor]:
+    """(dye (R, d), dw (T, k) fp32)."""
+    out = _md.combine_bwd(ye, w, dout, slot_row, row_slot)
+    _count(moe_combine, "bwd_launches")
+    return out
+
+
+@_moe_combine_bwd.register_fake
+def _(ye, w, dout, slot_row, row_slot):
+    _md.check_combine_bwd(ye, w, dout, slot_row, row_slot)
+    return torch.empty_like(ye), torch.empty_like(w)
 
 
 # ---------------------------------------------------------------------------
@@ -512,6 +577,62 @@ def adamw_update(grads, state: dict, params, cfg, lr_scale: Tensor | float = 1.0
             {"grad_norm": gnorm})
 
 
+class _MoeDispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, row_slot, slot_row):
+        ctx.save_for_backward(slot_row)
+        return _moe_dispatch(x, row_slot, slot_row.shape[1])
+
+    @staticmethod
+    def backward(ctx, dxe):
+        (slot_row,) = ctx.saved_tensors
+        return _moe_dispatch_bwd(dxe.contiguous(), slot_row), None, None
+
+
+def moe_fused(*ts: Tensor) -> bool:
+    """True where ``moe_dispatch`` and ``moe_combine`` launch the kernels on
+    ``ts`` (CUDA tensors, or meta ones in a dry run's trace), False where they
+    take the plain versions (CPU tensors)."""
+    return not _on_cpu(*ts)
+
+
+def moe_dispatch(x: Tensor, row_slot: Tensor, slot_row: Tensor) -> Tensor:
+    """x (T, d) -> the expert rows (R, d) in x.dtype: row r the token of
+    assignment ``row_slot[r]`` (token·k + slot; int64 (R,)), zeros where it
+    is -1. ``slot_row`` (int64 (T, k)) is its transpose, the row of each
+    assignment or -1: each kept assignment owns one row and each row holds
+    at most one. Differentiable in x: each token's gradient is the sum of
+    its kept rows' in fp32, in slot order. CPU tensors take
+    ``moe_dispatch_ref``."""
+    if not moe_fused(x, row_slot, slot_row):
+        return moe_dispatch_ref(x, row_slot, slot_row.shape[1])
+    return _MoeDispatch.apply(x.contiguous(), row_slot.contiguous(), slot_row.contiguous())
+
+
+class _MoeCombine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ye, w, row_slot, slot_row):
+        ctx.save_for_backward(ye, w, row_slot, slot_row)
+        return _moe_combine(ye, w, slot_row)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ye, w, row_slot, slot_row = ctx.saved_tensors
+        dye, dw = _moe_combine_bwd(ye, w, dout.contiguous(), slot_row, row_slot)
+        return dye, dw, None, None
+
+
+def moe_combine(ye: Tensor, w: Tensor, row_slot: Tensor, slot_row: Tensor) -> Tensor:
+    """ye (R, d), w (T, k) fp32 -> (T, d) fp32: each token's kept rows
+    ``ye[slot_row[t, j]]`` times ``w[t, j]``, added in slot order in fp32;
+    the maps as ``moe_dispatch``'s, w 0 where an assignment was dropped.
+    Differentiable in ye and w. CPU tensors take ``moe_combine_ref``."""
+    if not moe_fused(ye, w, row_slot, slot_row):
+        return moe_combine_ref(ye, w, slot_row)
+    return _MoeCombine.apply(ye.contiguous(), w.contiguous(), row_slot.contiguous(),
+                             slot_row.contiguous())
+
+
 def _lr(lr_scale: Tensor | float, lr: float, dev: torch.device) -> tuple[Tensor | None, float]:
     """The finalize's (lr_scale, lr_mul): a 0-d ``lr_scale`` on ``dev`` is read
     there (lr = lr_scale·lr); a Python number or a CPU tensor gives the
@@ -731,3 +852,7 @@ decode_attention.launches = 0
 mlstm_chunk.launches = 0
 mlstm_chunk.bwd_launches = 0
 adamw_update.launches = 0
+moe_dispatch.launches = 0
+moe_dispatch.bwd_launches = 0
+moe_combine.launches = 0
+moe_combine.bwd_launches = 0

@@ -16,6 +16,10 @@ rows' log-sum-exp (``flash_attention_lse_ref``, or the forward kernel's),
 it takes p = exp(s − lse) from it, as the kernels do.
 ``adamw_update_ref`` is the AdamW step of ``optim.adamw`` written out in
 fp32 passes over each leaf, the function ``csrc/adamw.cu`` computes.
+``moe_dispatch_ref`` and ``moe_combine_ref`` are the MoE layer's gathers
+as PyTorch indexing, differentiated by autograd on the CPU; their forward
+arithmetic and the gradients autograd gives them are what
+``csrc/moe_dispatch.cu`` computes.
 """
 from __future__ import annotations
 
@@ -371,3 +375,24 @@ def adamw_update_ref(
 
     new_params = map_tree(upd, params, mu, nu)
     return new_params, {"mu": mu, "nu": nu, "count": count}, {"grad_norm": gnorm}
+
+
+def moe_dispatch_ref(x: torch.Tensor, row_slot: torch.Tensor, k: int) -> torch.Tensor:
+    """x (T, d) -> (R, d): expert row r holds the token of assignment
+    ``row_slot[r]`` (token·k + slot), zeros where it is -1. Every empty row
+    gathers one appended zero row."""
+    T, d = x.shape
+    src = torch.where(row_slot >= 0, row_slot.div(k, rounding_mode="floor"), T)
+    return torch.cat([x, x.new_zeros((1, d))])[src]
+
+
+def moe_combine_ref(ye: torch.Tensor, w: torch.Tensor, slot_row: torch.Tensor) -> torch.Tensor:
+    """ye (R, d), w (T, k) fp32, slot_row (T, k) -> (T, d) fp32: each token's
+    k rows ``ye[slot_row]`` weighted by w and added in slot order in fp32.
+    A dropped assignment (-1) gathers row 0 at its weight, which the route
+    has made 0."""
+    y = ye[slot_row.clamp(min=0)]                                   # (T, k, d)
+    out = w[:, 0, None] * y[:, 0].float()
+    for j in range(1, slot_row.shape[1]):
+        out = out + w[:, j, None] * y[:, j].float()
+    return out

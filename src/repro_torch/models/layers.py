@@ -491,18 +491,20 @@ def moe_route_grouped(router: torch.Tensor, e_bias: torch.Tensor, x: torch.Tenso
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Top-k MoE MLP with capacity-based dispatch (``moe_route``).
 
-    The dispatch is a gather: each kept assignment writes its token's index
-    into its own entry of an int map of E·G·cap rows (expert, then group,
-    then queue place; no two kept assignments share an entry, so the map
-    is deterministic), empty rows point at one zero row, and indexing ``x``
-    by the map gives the (E, G·cap, d) expert inputs. The experts run as
-    one batched matmul over the expert axis. Each token's k outputs are
-    gathered back and added in slot order in fp32 (for k > 2, DeepSeekMoE's,
-    by one sum over the slots), weighted by the combine
-    weights rounded to ``x.dtype``, and the sum rounded to ``x.dtype``: the
-    reference's roundings (bf16 expert products, SiLU on their bf16
-    output). No atomics: two calls give the same bits. On DTensors each
-    device runs this on its own shards (``_moe_sharded``).
+    The dispatch is a gather: each kept assignment writes its own index
+    (token·k + slot) into its own entry of an int map of E·G·cap rows
+    (expert, then group, then queue place; no two kept assignments share an
+    entry, so the map is deterministic: ``moe_maps``), and
+    ``ops.moe_dispatch`` gathers the (E, G·cap, d) expert inputs through it,
+    empty rows zero. The experts run as one batched matmul over the expert
+    axis. ``ops.moe_combine``
+    gathers each token's k outputs back and adds them in slot order in
+    fp32, weighted by the combine weights rounded to ``x.dtype``, and the
+    sum is rounded to ``x.dtype``: the reference's roundings (bf16 expert
+    products, SiLU on their bf16 output). On the card both are kernels whose
+    backwards are gathers through the same maps; no atomics: two calls give
+    the same bits. On DTensors each device runs this on its own shards
+    (``_moe_sharded``).
 
     DeepSeekMoE routes by ``moe_route_grouped`` and adds its shared expert
     (``mlp`` of ``p["shared"]``, every token, once) to the fp32 sum before
@@ -528,8 +530,9 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> 
     Under a profiler the routing and dispatch are a ``moe.dispatch`` span
     counting the assignments ``kept`` and routed to a held expert (their
     mask, summed when the spans are read) and the E_l·G·cap expert ``rows``
-    the batched matmul computes."""
-    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    the batched matmul computes, with ``fused`` 1 where ``ops.moe_dispatch``
+    and ``ops.moe_combine`` launch their kernels, 0 where they take the plain
+    versions (the CPU)."""
     E_l = p["w_gate"].shape[0]
     B, S, d = x.shape
     with tracing.span("moe.dispatch") as sp:
@@ -537,39 +540,49 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, first: int = 0) -> 
             r = moe_route_grouped(p["router"], p["e_bias"], x, cfg)
         else:
             r = moe_route(p["router"], x, cfg)
-        G, g, _ = r.expert.shape
-        rows = G * r.cap                                            # per expert
-        group = torch.arange(G, device=x.device).reshape(G, 1, 1)
-        expert, keep, weights = r.expert, r.keep, r.weights
-        if E_l < E:  # expert parallelism: this device's experts only
-            mine = (expert >= first) & (expert < first + E_l)
-            expert, keep, weights = expert - first, keep & mine, weights * mine
+        slot_row, row_slot, keep, weights = moe_maps(r, cfg.moe.n_experts, E_l, first)
         if sp.recording and tracing.countable(x):
-            sp.set(kept=keep, rows=E_l * rows)   # summed when the spans are read
-        dest = (expert * rows + group * r.cap + r.slot).reshape(-1)  # (token, slot) order
-        keep = keep.reshape(-1)
-        # dropped assignments all write the spare entry past the end, never read
-        token = torch.arange(G * g, device=x.device).repeat_interleave(k)
-        src = torch.full((E_l * rows + 1,), G * g, dtype=torch.long, device=x.device)
-        src.scatter_(0, torch.where(keep, dest, E_l * rows), token)
-        xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(
-            E_l, rows, d)
+            # kept is summed when the spans are read
+            sp.set(kept=keep, rows=row_slot.numel(),
+                   fused=int(ops.moe_fused(x, row_slot, slot_row)))
+        xe = ops.moe_dispatch(x.reshape(-1, d), row_slot, slot_row).reshape(E_l, -1, d)
     if cfg.activation == "swiglu":
         h = F.silu(xe @ p["w_gate"]) * (xe @ p["w_up"])
     else:  # squared_relu, the reference's only other MoE activation
         h = torch.square(F.relu(xe @ p["w_up"]))
-    ye = (h @ p["w_down"]).reshape(E_l * rows, d)
-    y = ye[torch.where(keep, dest, 0)].reshape(G, g, k, d)
-    w = weights.to(x.dtype).float()
-    if k > 2:  # DeepSeekMoE's 8: one product and one sum, not 3·k launches
-        return (w[..., None] * y.float()).sum(-2).reshape(B, S, d)
-    # k ≤ 2 (mixtral, jamba) keeps the loop for one reason only: their steps
-    # then launch the kernels they did before latent attention was ported.
-    # The sum above gives the loop's values at k = 2 as well.
-    out = w[..., 0, None] * y[..., 0, :].float()
-    for j in range(1, k):
-        out = out + w[..., j, None] * y[..., j, :].float()
-    return out.reshape(B, S, d)
+    ye = (h @ p["w_down"]).reshape(-1, d)
+    w = weights.to(x.dtype).float().reshape(slot_row.shape)
+    return ops.moe_combine(ye, w, row_slot, slot_row).reshape(B, S, d)
+
+
+def moe_maps(r: MoeRoute, E: int, E_l: int, first: int = 0
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(slot_row, row_slot, keep, weights): the dispatch's maps of route
+    ``r`` over E experts, of which the E_l ``first .. first + E_l - 1`` are
+    held. Expert rows run expert by expert, then group, then queue place
+    (E_l·G·cap rows). ``slot_row`` (G·g, k) int64 is the row of each (token,
+    slot) assignment, -1 where it is dropped or its expert not held;
+    ``row_slot`` (E_l·G·cap,) int64 the assignment (token·k + slot) each row
+    holds, -1 where empty. Each kept assignment owns one row and no two
+    share one, so both maps are deterministic. ``keep`` and ``weights`` (G,
+    g, k) are the route's, assignments to experts not held dropped and
+    weighted 0."""
+    G, g, k = r.expert.shape
+    rows = G * r.cap                                                # per expert
+    dev = r.expert.device
+    group = torch.arange(G, device=dev).reshape(G, 1, 1)
+    expert, keep, weights = r.expert, r.keep, r.weights
+    if E_l < E:  # expert parallelism: this device's experts only
+        mine = (expert >= first) & (expert < first + E_l)
+        expert, keep, weights = expert - first, keep & mine, weights * mine
+    dest = (expert * rows + group * r.cap + r.slot).reshape(G * g, k)   # (token, slot)
+    kept = keep.reshape(G * g, k)
+    R = E_l * rows
+    # dropped assignments all write the spare entry past the end, never read
+    row_slot = torch.full((R + 1,), -1, dtype=torch.long, device=dev)
+    row_slot.scatter_(0, torch.where(kept, dest, R).reshape(-1),
+                      torch.arange(G * g * k, device=dev))
+    return torch.where(kept, dest, -1), row_slot[:R], keep, weights
 
 
 def _moe_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

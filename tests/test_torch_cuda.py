@@ -54,7 +54,14 @@ without the gradients' bf16 round trip and the clip, over leaves of 37 ×
 the moments' squares double it), bf16 parameters within one bf16 ulp; the
 inputs left as they were, two calls equal to the bit, no synchronisation,
 2 op calls a leaf and 1 a step; and the sharded route's per-shard sums,
-added and finalized, give the unsharded route's bits.
+added and finalized, give the unsharded route's bits. The MoE dispatch and
+combine kernels and their backwards against the plain gathers on the same
+CUDA tensors, at mixtral's training shape, DeepSeek-V3's decode shape (8 of
+256 experts held from the ninth on), capacity 1 with every token on one
+expert, a held slice in f32 and top 8 in f32: forwards and dye equal to the
+bit, dx equal at k <= 2, the rest within the bounds of fp32 sums in another
+order; two calls equal to the bit, each counted; and replayed in a CUDA
+graph, with no host sync, as the eager calls give.
 """
 import dataclasses
 
@@ -74,6 +81,8 @@ from repro_torch.kernels.ref import (
     flash_attention_ref,
     mlstm_chunk_bwd_ref,
     mlstm_chunk_ref,
+    moe_combine_ref,
+    moe_dispatch_ref,
 )
 from repro_torch.kernels import mlstm_chunk as mlstm_kernel
 from repro_torch.models import layers as L
@@ -943,17 +952,20 @@ def _fake_and_real(op, args):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     real = op(*args)
-    before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
-              ops.decode_attention.launches, ops.mlstm_chunk.launches,
-              ops.mlstm_chunk.bwd_launches, ops.adamw_update.launches)
+    before = _all_launches()
     mode = FakeTensorMode()
     fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
     with mode:
         fake = op(*fake_args)
-    after = (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
-             ops.decode_attention.launches, ops.mlstm_chunk.launches,
-             ops.mlstm_chunk.bwd_launches, ops.adamw_update.launches)
-    return real, fake, after == before
+    return real, fake, _all_launches() == before
+
+
+def _all_launches():
+    return (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
+            ops.decode_attention.launches, ops.mlstm_chunk.launches,
+            ops.mlstm_chunk.bwd_launches, ops.adamw_update.launches,
+            ops.moe_dispatch.launches, ops.moe_dispatch.bwd_launches,
+            ops.moe_combine.launches, ops.moe_combine.bwd_launches)
 
 
 def _layout(out):
@@ -1003,6 +1015,14 @@ def test_fake_kernels_match_the_kernels_on_card(cuda, dtype):
     real, fake, quiet = _fake_and_real(K.adamw_update, [p, p, m, m.abs(), real[1], False, True,
                                                         0.9, 0.95, 1e-8, 0.1])
     assert quiet and _layout(fake) == _layout(real)
+    # the MoE dispatch and combine, and their backwards
+    x, slot_row, row_slot, w = _moe_inputs(cuda, dt, 1, 40, 4, 2, 12, 64, seed=25)
+    ye = torch.randn((row_slot.numel(), 64), generator=g, device=cuda).to(dt)
+    for op, args in ((K.moe_dispatch, [x, row_slot, 2]), (K.moe_dispatch_bwd, [ye, slot_row]),
+                     (K.moe_combine, [ye, w, slot_row]),
+                     (K.moe_combine_bwd, [ye, w, x.float(), slot_row, row_slot])):
+        real, fake, quiet = _fake_and_real(op, args)
+        assert quiet and _layout(fake) == _layout(real)
 
 
 @pytest.mark.cuda
@@ -1110,3 +1130,158 @@ def test_adamw_shard_sums_give_the_fused_norm_on_card(cuda, g_dtype):
     total = sum(K.adamw_leaf_sumsq(g, True) for g in gs)
     sharded = K.adamw_finalize(total.reshape(1), 1, count, lr_scale, *fin)
     assert all(torch.equal(a, b) for a, b in zip(fused, sharded, strict=True))
+
+
+# ---------------------------------------------------------------------------
+# The MoE dispatch and combine (csrc/moe_dispatch.cu) against the plain gathers
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(dev, dt, G, g, E, k, cap, d, seed, held=None, skew=False):
+    """(x (G·g, d), slot_row, row_slot, w (G·g, k) fp32) of a route over G
+    groups of g tokens drawn from random logits (``skew``: every token picks
+    expert 0, then 1), its weights rounded to ``dt`` as the layer rounds
+    them, the maps of the experts ``held`` = (first, E_l) or all."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((G, g, E), generator=gen, device=dev)
+    if skew:
+        logits[..., 0] += 100.0
+        logits[..., 1] += 50.0
+    top, expert = torch.sort(logits, dim=-1, descending=True, stable=True)
+    route = L._queued(expert[..., :k], torch.softmax(top[..., :k], dim=-1), E, cap)
+    first, E_l = held or (0, E)
+    slot_row, row_slot, _, weights = L.moe_maps(route, E, E_l, first)
+    x = torch.randn((G * g, d), generator=gen, device=dev).to(dt)
+    return x, slot_row, row_slot, weights.to(dt).float().reshape(G * g, k)
+
+
+MOE_CASES = {
+    # G, g, E, k, cap, d, dtype, held, skew
+    "mixtral_train": (4, 512, 8, 2, 160, 4096, "bfloat16", None, False),
+    "deepseek_decode": (256, 1, 256, 8, 1, 7168, "bfloat16", (8, 8), False),
+    "one_expert_cap1": (2, 64, 8, 2, 1, 96, "bfloat16", None, True),
+    "held_slice_f32": (2, 48, 8, 2, 16, 64, "float32", (2, 4), False),
+    "k8_f32": (4, 32, 16, 8, 12, 40, "float32", None, False),
+}
+
+
+def _moe_grads(dispatch, combine, x, ye, w, slot_row, row_slot, dxe, dout):
+    """(xe, out, dx, dye, dw): the dispatch of x and the combine of ye, and
+    the gradients against dxe and dout, through ``dispatch`` and ``combine``
+    (the ops, or the plain gathers under autograd)."""
+    xg, yg, wg = (t.detach().clone().requires_grad_() for t in (x, ye, w))
+    xe, out = dispatch(xg, row_slot, slot_row), combine(yg, wg, row_slot, slot_row)
+    return (xe, out, *torch.autograd.grad((xe, out), (xg, yg, wg), (dxe, dout)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_kernels_match_the_plain_gathers_on_card(cuda, case):
+    """The four kernels against the plain gathers on the same CUDA tensors:
+    the dispatch and the combine equal to the bit at every k (the combine
+    adds in slot order in fp32 with no FMA, as the plain loop); dye equal to
+    the bit; dx equal to the bit to the token's kept rows added in fp32 in
+    slot order and rounded once, and to the plain version's at k <= 2
+    (index_put_ adds a token's rows in row order: two addends from 0
+    commute), and at k = 8 within k·eps of the type times the sum of the
+    rows' magnitudes of the plain version's (its ``index_put_`` reads and
+    writes the output row in the type once a duplicate, so it rounds each of
+    up to k - 1 partial sums); dw of a kept assignment within the
+    bound of an fp32 sum of d terms taken in another order, 2·d·2^-24 times
+    the sum of the terms' magnitudes, and 0 for a dropped one (the plain
+    version's is the row-0 product, which the route's weight 0 cancels).
+    Each call counted once; two calls give the same bits."""
+    G, g, E, k, cap, d, dtype, held, skew = MOE_CASES[case]
+    dt = TORCH_DT[dtype]
+    x, slot_row, row_slot, w = _moe_inputs(cuda, dt, G, g, E, k, cap, d, seed=31, held=held,
+                                           skew=skew)
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    R, T = row_slot.numel(), x.shape[0]
+    ye, dxe = (torch.randn((R, d), generator=gen, device=cuda).to(dt) for _ in range(2))
+    dout = torch.randn((T, d), generator=gen, device=cuda)
+    kept = slot_row >= 0
+    assert bool(kept.any()) and (case != "one_expert_cap1" or float(kept.float().mean()) < 0.1)
+    counters = [(ops.moe_dispatch, "launches"), (ops.moe_dispatch, "bwd_launches"),
+                (ops.moe_combine, "launches"), (ops.moe_combine, "bwd_launches")]
+    before = [getattr(o, a) for o, a in counters]
+    got = _moe_grads(ops.moe_dispatch, ops.moe_combine, x, ye, w, slot_row, row_slot, dxe, dout)
+    assert [getattr(o, a) for o, a in counters] == [n + 1 for n in before]
+    want = _moe_grads(lambda x_, rs, sr: moe_dispatch_ref(x_, rs, sr.shape[1]),
+                      lambda y_, w_, rs, sr: moe_combine_ref(y_, w_, sr),
+                      x, ye, w, slot_row, row_slot, dxe, dout)
+    xe, out, dx, dye, dw = got
+    assert torch.equal(xe, want[0]) and torch.equal(out, want[1]) and torch.equal(dye, want[3])
+    rows = torch.where(kept[..., None], dxe[slot_row.clamp(min=0)].float(), 0.0)
+    in_slot_order = rows[:, 0]
+    for j in range(1, k):
+        in_slot_order = in_slot_order + rows[:, j]
+    assert torch.equal(dx, in_slot_order.to(dt))
+    if k <= 2:
+        assert torch.equal(dx, want[2])
+    else:  # index_put_ rounds each of up to k - 1 partial sums to the type
+        bound = k * torch.finfo(dt).eps * rows.abs().sum(1)
+        assert bool(((dx.float() - want[2].float()).abs() <= bound).all())
+    terms = (dout[:, None, :] * ye[slot_row.clamp(min=0)].float()).abs().sum(-1)
+    bound = 2 * d * 2.0 ** -24 * terms
+    assert bool(((dw - want[4]).abs() <= bound)[kept].all())
+    assert bool((dw[~kept] == 0).all())
+    again = _moe_grads(ops.moe_dispatch, ops.moe_combine, x, ye, w, slot_row, row_slot, dxe,
+                       dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+@pytest.mark.cuda
+def test_moe_kernels_refuse_rows_they_cannot_chunk_on_card(cuda):
+    """The kernels move rows in 16-byte chunks: a width that is no multiple of
+    8, or rows that start off 16 bytes, raise before any launch."""
+    x, slot_row, row_slot, w = _moe_inputs(cuda, torch.bfloat16, 1, 16, 4, 2, 8, 64, seed=35)
+    n = ops.moe_dispatch.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.moe_dispatch(x[:, :60], row_slot, slot_row)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.moe_dispatch(shifted, row_slot, slot_row)
+    ye = torch.empty(row_slot.numel() * 64 + 1, dtype=x.dtype, device=cuda)[1:].view(-1, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.moe_combine(ye, w, row_slot, slot_row)
+    assert ops.moe_dispatch.launches == n
+
+
+@pytest.mark.cuda
+def test_moe_kernels_replay_in_a_cuda_graph_without_syncing_on_card(cuda):
+    """DeepSeek-V3's decode shape: the dispatch and the combine launch with
+    no host sync, and captured in a CUDA graph replay what the eager calls
+    give on new inputs copied into the captured ones."""
+    G, g, E, k, cap, d, dtype, held, skew = MOE_CASES["deepseek_decode"]
+    dt = TORCH_DT[dtype]
+    x, slot_row, row_slot, w = _moe_inputs(cuda, dt, G, g, E, k, cap, d, seed=33, held=held)
+    ye = torch.randn((row_slot.numel(), d), device=cuda).to(dt)
+
+    def step():
+        return ops.moe_dispatch(x, row_slot, slot_row), ops.moe_combine(ye, w, row_slot,
+                                                                         slot_row)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = ops.moe_dispatch.launches
+    with torch.cuda.graph(graph):
+        xe_g, out_g = step()
+    assert ops.moe_dispatch.launches == n + 1
+    x2, slot_row2, row_slot2, w2 = _moe_inputs(cuda, dt, G, g, E, k, cap, d, seed=34, held=held)
+    for t, new in ((x, x2), (slot_row, slot_row2), (row_slot, row_slot2), (w, w2)):
+        t.copy_(new)
+    ye.normal_()
+    graph.replay()
+    xe, out = step()
+    assert torch.equal(xe_g, xe) and torch.equal(out_g, out)
+    assert torch.equal(out, moe_combine_ref(ye, w, slot_row))

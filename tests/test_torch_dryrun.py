@@ -210,7 +210,10 @@ def kernels_by_formula(fc):
     """The plain versions' own ops hidden from ``fc``; each call counted by
     its kernel op's FLOP formula instead, and the calls tallied. AdamW's
     kernels count no FLOPs, as its plain version's elementwise ops count
-    none; its call is tallied as the kernels' calls on its leaves."""
+    none; its call is tallied as the kernels' calls on its leaves. The MoE
+    dispatch's and combine's plain gathers count none either; each call is
+    tallied as its kernel's, and its backward kernel's where autograd
+    reaches its output."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     K = torch.ops.repro_torch
@@ -253,6 +256,22 @@ def kernels_by_formula(fc):
         return saved["adamw_update_ref"](grads, *args, **kw)
 
     ops.adamw_update_ref = adamw
+
+    def moe(name, op):
+        def run(*args, **kw):
+            # counted first: remat's recomputation may stop inside the call once it
+            # has what the backward saved
+            calls[op] = calls.get(op, 0) + 1
+            out = saved[name](*args, **kw)
+            if out.requires_grad:  # the backward kernel runs where autograd reaches it
+                out.register_hook(lambda g: calls.update({f"{op}_bwd": calls.get(
+                    f"{op}_bwd", 0) + 1}))
+            return out
+        return run
+
+    for name, op in (("moe_dispatch_ref", "moe_dispatch"), ("moe_combine_ref", "moe_combine")):
+        saved[name] = getattr(ops, name)
+        setattr(ops, name, moe(name, op))
     try:
         yield calls
     finally:
@@ -391,3 +410,39 @@ def test_fake_mlstm_matches_plain_shapes(S, chunk, with_state):
         B * H * (4 * hd * n_pairs + 4 * hd * hd * S))
     with pytest.raises(ValueError, match="float32"):
         ops.mlstm_chunk(qm.bfloat16(), qm.bfloat16(), qm.bfloat16(), lm, lm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fake_moe_matches_plain_shapes(dtype):
+    """The MoE ops on meta tensors (a dry run's route): the dispatch, the
+    combine and both backwards give the shapes and dtypes of the plain
+    gathers and their gradients, and count no launch."""
+    from repro_torch.models import layers as L
+
+    T, d, k, E, cap = 12, 16, 2, 4, 5
+    logits = torch.randn((1, T, E), generator=torch.Generator().manual_seed(3))
+    top, expert = torch.sort(logits, dim=-1, descending=True, stable=True)
+    route = L._queued(expert[..., :k], torch.softmax(top[..., :k], -1), E, cap)
+    slot_row, row_slot, _, weights = L.moe_maps(route, E, E)
+    (xm, x), (yem, ye) = _pair(T, d, dtype=dtype), _pair(E * cap, d, dtype=dtype)
+    w = weights.reshape(T, k)
+    maps_m = [t.to("meta") for t in (row_slot, slot_row)]
+    xm.requires_grad_(), yem.requires_grad_()
+    counters = [(getattr(ops, n), a) for n in ("moe_dispatch", "moe_combine")
+                for a in ("launches", "bwd_launches")]
+    before = [getattr(o, a) for o, a in counters]
+    xe_m, xe = ops.moe_dispatch(xm, *maps_m), ops.moe_dispatch(x, row_slot, slot_row)
+    out_m, out = (ops.moe_combine(yem, w.to("meta"), *maps_m),
+                  ops.moe_combine(ye, w, row_slot, slot_row))
+    for m, c in ((xe_m, xe), (out_m, out)):
+        assert (m.shape, m.dtype) == (c.shape, c.dtype)
+    dx_m, dye_m = torch.autograd.grad((xe_m.float().sum() + out_m.sum()), (xm, yem))
+    assert (dx_m.shape, dx_m.dtype, dye_m.shape, dye_m.dtype) == (x.shape, dtype, ye.shape, dtype)
+    K = torch.ops.repro_torch
+    dye_k, dw_k = K.moe_combine_bwd(yem, w.to("meta"), out_m, maps_m[1], maps_m[0])
+    assert (dye_k.shape, dw_k.shape, dw_k.dtype) == (ye.shape, w.shape, torch.float32)
+    assert [getattr(o, a) for o, a in counters] == before
+    with pytest.raises(ValueError, match="int64"):
+        ops.moe_dispatch(xm, maps_m[0].int(), maps_m[1])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.moe_dispatch(xm[:, :12], *maps_m)

@@ -343,9 +343,10 @@ def test_spans_and_counters_under_a_profiler(tiny):
     dispatch = [s["attrs"] for s in spans if s["name"] == "moe.dispatch"]
     k = cfg.moe.top_k
     # decode: 2 tokens, each k distinct experts, all held, one row a group per expert
-    assert dispatch[:4] == [{"kept": 2 * k, "rows": 16 * 2}] * 4
+    # (fused 0: the CPU takes the plain gathers)
+    assert dispatch[:4] == [{"kept": 2 * k, "rows": 16 * 2, "fused": 0}] * 4
     # forward: 2 groups of 4 tokens, capacity E/k·k·4/E = 4 places an expert
-    assert dispatch[4:] == [{"kept": 8 * k, "rows": 16 * 2 * 4}] * 2
+    assert dispatch[4:] == [{"kept": 8 * k, "rows": 16 * 2 * 4, "fused": 0}] * 2
 
 
 def test_spans_captured_with_a_graph_record_at_each_replay(tiny):

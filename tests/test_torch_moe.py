@@ -21,7 +21,9 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.deepseek_config import DeepSeekMoEConfig
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -161,3 +163,100 @@ def test_params_from_jax_takes_moe_stacks(dtype):
     mine = L.init_moe(torch.Generator().manual_seed(0), tcfg)
     assert {k: (tuple(v.shape), v.dtype) for k, v in mine.items()} == {
         k: (s[1:], dt) for k, (s, dt) in want.items()}
+
+
+def _moe_local_by_indexing(p, x, cfg, first=0):
+    """``layers._moe_local`` as it gathered before the dispatch and combine
+    became ops: the tokens with one zero row appended, indexed by an int map
+    whose empty rows point at it; the outputs indexed back with dropped
+    assignments at row 0; a loop over the slots (one sum for k > 2). Kept
+    here as the bits the CPU route must still give."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    E_l = p["w_gate"].shape[0]
+    B, S, d = x.shape
+    if isinstance(cfg.moe, DeepSeekMoEConfig):
+        r = L.moe_route_grouped(p["router"], p["e_bias"], x, cfg)
+    else:
+        r = L.moe_route(p["router"], x, cfg)
+    G, g, _ = r.expert.shape
+    rows = G * r.cap
+    group = torch.arange(G).reshape(G, 1, 1)
+    expert, keep, weights = r.expert, r.keep, r.weights
+    if E_l < E:
+        mine = (expert >= first) & (expert < first + E_l)
+        expert, keep, weights = expert - first, keep & mine, weights * mine
+    dest = (expert * rows + group * r.cap + r.slot).reshape(-1)
+    keep = keep.reshape(-1)
+    token = torch.arange(G * g).repeat_interleave(k)
+    src = torch.full((E_l * rows + 1,), G * g, dtype=torch.long)
+    src.scatter_(0, torch.where(keep, dest, E_l * rows), token)
+    xe = torch.cat([x.reshape(G * g, d), x.new_zeros((1, d))])[src[:-1]].reshape(E_l, rows, d)
+    h = torch.nn.functional.silu(xe @ p["w_gate"]) * (xe @ p["w_up"])
+    ye = (h @ p["w_down"]).reshape(E_l * rows, d)
+    y = ye[torch.where(keep, dest, 0)].reshape(G, g, k, d)
+    w = weights.to(x.dtype).float()
+    if k > 2:
+        return (w[..., None] * y.float()).sum(-2).reshape(B, S, d)
+    out = w[..., 0, None] * y[..., 0, :].float()
+    for j in range(1, k):
+        out = out + w[..., j, None] * y[..., j, :].float()
+    return out.reshape(B, S, d)
+
+
+def _deepseek_moe(**kw):
+    """Reduced mixtral's widths with DeepSeekMoE's router: 16 experts top 8
+    among the best 2 of 4 groups, experts 32 wide, no shared expert."""
+    _, tcfg = configs(**kw)
+    return dataclasses.replace(tcfg, moe=DeepSeekMoEConfig(
+        n_experts=16, top_k=8, n_groups=4, topk_groups=2, routed_scale=2.5, n_shared=0,
+        d_expert=32))
+
+
+MOE_CPU_CASES = {
+    # (config, dtype, S, held experts (first, E_l) or None for all)
+    "mixtral_bf16_drops": (lambda: configs(moe_capacity_factor=1.0)[1], "bfloat16", 16, None),
+    "mixtral_f32_held_slice": (lambda: configs(moe_capacity_factor=1.25, moe_group=4)[1],
+                               "float32", 16, (1, 2)),
+    "deepseek_bf16_k8_drops": (lambda: _deepseek_moe(moe_capacity_factor=1.0), "bfloat16",
+                               16, None),
+    "deepseek_decode_held_slice": (lambda: _deepseek_moe(), "bfloat16", 1, (4, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CPU_CASES))
+def test_moe_cpu_route_gives_the_indexing_bits(case):
+    """The ops' CPU route (``ref.moe_dispatch_ref``, ``ref.moe_combine_ref``
+    under autograd) gives the output and every gradient of the gathers the
+    layer ran before, bit for bit, at k = 2 and k = 8, with drops and with a
+    slice of the experts held; it launches and counts nothing."""
+    make_cfg, dtype, S_, held = MOE_CPU_CASES[case]
+    cfg = dataclasses.replace(make_cfg(), dtype=dtype)
+    gen = torch.Generator().manual_seed(5)
+    p = L.init_moe(gen, cfg)
+    if "e_bias" in p:
+        p["e_bias"] = torch.randn(p["e_bias"].shape, generator=gen) * 0.1
+    first = 0
+    if held is not None:
+        first, E_l = held
+        p = {n: w[first:first + E_l] if n.startswith("w_") else w for n, w in p.items()}
+    x = torch.randn((B, S_, cfg.d_model), generator=gen).to(L.DTYPES[dtype])
+    cot = torch.randn((B, S_, cfg.d_model), generator=gen)
+    before = {n: getattr(getattr(ops, n), a) for n in ("moe_dispatch", "moe_combine")
+              for a in ("launches", "bwd_launches")}
+    got = []
+    for fn in (L._moe_local, _moe_local_by_indexing):
+        leaves_ = {n: w.clone().requires_grad_(w.is_floating_point()) for n, w in p.items()}
+        xg = x.clone().requires_grad_()
+        out = fn(leaves_, xg, cfg, first)
+        wrt = [xg] + [w for w in leaves_.values() if w.requires_grad]
+        grads = torch.autograd.grad((out * cot).sum(), wrt, allow_unused=True)
+        got.append((out, grads))
+    (out, grads), (want, want_grads) = got
+    route = (L.moe_route_grouped(p["router"], p["e_bias"], x, cfg) if "e_bias" in p
+             else L.moe_route(p["router"], x, cfg))
+    assert held is not None or S_ == 1 or bool((~route.keep).any())   # drops occur
+    assert torch.equal(out, want)
+    for a, b in zip(grads, want_grads, strict=True):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert before == {n: getattr(getattr(ops, n), a) for n in ("moe_dispatch", "moe_combine")
+                      for a in ("launches", "bwd_launches")}
