@@ -18,7 +18,8 @@ with the shapes, dtypes and strides the kernel allocates, computing
 nothing and counting nothing. That is how a dry run
 (``launch/dryrun.py``) traces the card's route without a card. Each attention
 and mLSTM op also has a FLOP formula (``torch.utils.flop_counter``), the
-operations ``chip_smoke.py`` reckons for the kernel's bound, so
+operations the kernel check (``chip_smoke.py``) counts for the kernel's
+bound (``tests/test_torch_cuda.py`` holds them equal), so
 ``FlopCounterMode`` counts the kernels on the card and in a trace alike;
 AdamW's and the MoE ops are bound by bytes and count none, as their plain
 versions' elementwise ops and gathers count none.
@@ -339,7 +340,8 @@ def _(ye, w, dout, slot_row, row_slot):
 
 
 # ---------------------------------------------------------------------------
-# FLOP formulas: the operations chip_smoke.py reckons for each kernel's bound
+# FLOP formulas: the operations the kernel check (chip_smoke.py) counts for
+# each kernel's bound
 # ---------------------------------------------------------------------------
 
 def attention_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:

@@ -3,8 +3,8 @@
 Same layouts and arithmetic as ``repro.kernels.ref``: attention logits in
 fp32 from the inputs' exact products, masked entries at -1e30; the mLSTM
 recurrence in fp32 chunk by chunk. On a CPU tensor the wrappers in
-``ops`` run these; on the card ``chip_smoke.py`` holds each CUDA kernel
-against them. ``flash_attention_bwd_ref`` is autograd of
+``ops`` run these; on the card ``tests/test_torch_cuda.py`` and the kernel
+check (``chip_smoke.py``) hold each CUDA kernel against them. ``flash_attention_bwd_ref`` is autograd of
 ``flash_attention_ref``: the gradient the backward kernel is held to.
 ``mlstm_chunk_bwd_ref`` is the backward of ``mlstm_chunk_ref`` written
 out in its formulas, chunk by chunk in reverse: the spec of the

@@ -24,7 +24,8 @@ each of the reference's meshes holds, does and communicates:
    times as much on the host. Meta tensors allocate as the CPU does where
    an op allocates by device (``log_sigmoid``'s buffer is empty on CUDA):
    on an H100 the two traces gave equal FLOPs, kernel calls and peaks, and
-   bytes within 1e-4 (``chip_smoke.py`` phase 19 runs both). It records:
+   bytes within 1e-4 (``tests/test_torch_cuda.py`` holds both at one cell
+   that fits the card). It records:
 
    - ``flops``: by ``FlopCounterMode``'s formulas, the kernels by theirs,
      ``torch.utils.checkpoint``'s replay under ``remat`` included;

@@ -15,8 +15,9 @@ zeros, full sequence) and decode (state threaded through steps).
   in fp32 by ``_mamba_scan_chunked``, a Python loop over chunks of 256 with
   a log-depth (Hillis–Steele) doubling scan inside each, 8 steps at 256 and
   none at a decode step's chunk of 1: no loop over time, no host sync.
-  Kernel launches per mamba layer on an H100 (``chip_smoke.py`` phase
-  ``jamba_forward``, jamba-1.5-large's width, bf16): 104 in the forward at
+  Kernel launches per mamba layer, read once from a ``torch.profiler``
+  trace on an H100 (jamba-1.5-large's width, bf16; no test holds the
+  count): 104 in the forward at
   B=2 S=512, 67 of them the scan's (per chunk 8 doubling steps of a
   product, an ``addcmul`` and two ``cat`` copies, and the ``addcmul`` that
   applies the carried state; one ``cat`` of the two chunks); 34 in one

@@ -6,8 +6,10 @@ the model and grows with depth: at ``reduced`` size (a few layers) the
 two models differ alike, but at full depth and a narrow width (d_model
 256, vocab 1024, otherwise ``reduced``) the JAX reference's xlstm-350m
 differs many times more than its smollm-360m, and by more than smollm's
-limit of 5e-2, so the excess is the model's and not the port's. ``chip_smoke.py`` holds the
-full-width models on the card to the limits in ``LIMIT``. Parameters come
+limit of 5e-2, so the excess is the model's and not the port's. The card
+test ``test_decode_matches_forward_at_full_width_on_card``
+(``tests/test_torch_cuda.py``) holds the full-width models to the limits
+in ``LIMIT``. Parameters come
 from JAX ``init_model`` through ``params_from_jax``; ``pytest -s`` prints
 the readings.
 
@@ -29,8 +31,8 @@ too: at the card's depth (one superblock of 8 layers, with the published
 state width N = 16 and the card's 8 experts, at d_model 256 and vocab
 1024: ``depth="superblock"``) the reference flips up to 2.3 % over five
 seeds and its agreeing positions differ by up to 0.089, so jamba's card
-limits are about twice those largest readings (``chip_smoke.py``'s
-``JAMBA_BF16_TOL`` and ``JAMBA_BF16_FLIP_SHARE``). At full depth (72
+limits are about twice those largest readings (``LIMIT`` and
+``FLIP_SHARE``, which the card test keeps). At full depth (72
 layers) the reference flips 8.0 % and differs by 0.13 where it agrees;
 there the port is held to twice the reference's own reading. The port's
 decode attention computed as ``sdpa`` flips almost none on the CPU, so
@@ -46,8 +48,6 @@ its cross cache, so its reading here fills it by hand from its own
 """
 import dataclasses
 import functools
-import importlib.util
-from pathlib import Path
 from typing import NamedTuple
 
 import jax
@@ -66,28 +66,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 
 from _jax_whisper import jax_cache_filled_by_hand
+from _moe_routes import routes_recorded, routing_flips
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, S = 2, 64
-# chip_smoke.py's bf16 limits: over the positions whose routing agrees (all
-# positions without MoE), and the share of (token, layer) routings that flip
+# The card's bf16 limits (tests/test_torch_cuda.py keeps the same): over the
+# positions whose routing agrees (all positions without MoE), and the share of
+# (token, layer) routings that flip
 LIMIT = {"smollm_360m": 5e-2, "xlstm_350m": 0.15, "mixtral_8x7b": 5e-2,
          "jamba_1_5_large_398b": 0.18, "whisper_large_v3": 5e-2}
 FLIP_SHARE = {"mixtral_8x7b": 0.05, "jamba_1_5_large_398b": 0.05}
 JAMBA = "jamba_1_5_large_398b"
 SEEDS = range(5)        # jamba's readings at the card's depth
-
-
-def _chip_smoke():
-    """``chip_smoke.py`` at the repo's root, for its route recorder."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-chip_smoke = _chip_smoke()
 
 
 class Reading(NamedTuple):
@@ -129,7 +119,7 @@ def setup(arch, depth, seed=0):
 
 
 def reading(arch, depth, who, dec, full, experts):
-    flips = (chip_smoke.routing_flips(experts, S) if experts
+    flips = (routing_flips(experts, S) if experts
              else torch.zeros((1, B, S), dtype=torch.bool))
     flipped = flips.any(dim=0).numpy()
     r = Reading(rel_err(dec, full), rel_err(np.where(flipped[..., None], full, dec), full),
@@ -188,7 +178,7 @@ def port_reading(arch, depth, sdpa_decode=False, seed=0):
     if sdpa_decode:
         ops.decode_attention = decode_as_sdpa
     try:
-        with chip_smoke.routes_recorded(L) as routes:
+        with routes_recorded(L) as routes:
             full = M.forward(tparams, tcfg, toks).float().numpy()
             cache, steps = M.init_cache(tcfg, B, S, device="cpu"), []
             for t in range(S):
@@ -315,7 +305,7 @@ def whisper_reading(depth, who):
 @pytest.mark.parametrize("depth", ["reduced", "full"])
 def test_whisper_bf16_decode_vs_forward_within_the_card_limit(depth):
     """The reference (its cross cache filled by hand) and the port both
-    within smollm's limit, which ``chip_smoke.py`` holds whisper to."""
+    within smollm's limit, which the card test holds whisper to."""
     for who in ("JAX", "port"):
         r = whisper_reading(depth, who)
         assert r.err < LIMIT[WHISPER] and r.flip_share == 0.0, (who, r)

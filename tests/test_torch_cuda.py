@@ -61,10 +61,27 @@ CUDA tensors, at mixtral's training shape, DeepSeek-V3's decode shape (8 of
 expert, a held slice in f32 and top 8 in f32: forwards and dye equal to the
 bit, dx equal at k <= 2, the rest within the bounds of fp32 sums in another
 order; two calls equal to the bit, each counted; and replayed in a CUDA
-graph, with no host sync, as the eager calls give.
+graph, with no host sync, as the eager calls give. The fake kernels' FLOP
+formulas equal the kernel check's bound operations (``chip_smoke.py``).
+
+The configurations on the card: decode against one forward at each
+configuration's full width, its depth cut (bf16 within
+``tests/test_torch_bf16.py``'s limits, MoE routings flipped within its
+share; f32 rel 1e-3), with one flash launch per attention layer and one
+decode launch per layer and step; reduced models served through the engine
+on the card and the CPU, the same greedy tokens; training through the
+engine's workflow at full width (injected failures, the loss falling, the
+kernels' launches per step run, mixtral's peak within 5 % of its
+reckoning); one mixtral step run twice on one state, equal to the bit; and
+a dry-run cell that fits one H100 run there against its traces (FLOPs,
+kernel calls, argument bytes, the peak) and as DTensors on the card's 1×1
+NCCL mesh, equal to the plain step to the bit.
 """
 import dataclasses
+import gc
+import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,6 +108,8 @@ from repro_torch.models import ssm
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime.train import build_train_step, synthetic_batch
 from repro_torch.tree import leaves, map_tree
+
+from _moe_routes import routes_recorded, routing_flips
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -783,7 +802,8 @@ def test_attention_gradients_reach_the_projections_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,remat", [("smollm_360m", False), ("xlstm_350m", False),
                                         ("xlstm_350m", True), ("whisper_large_v3", False),
-                                        ("whisper_large_v3", True)])
+                                        ("whisper_large_v3", True), ("mixtral_8x7b", False),
+                                        ("jamba_1_5_large_398b", False)])
 def test_train_step_on_card_equals_cpu(cuda, arch, remat):
     torch.backends.cuda.matmul.allow_tf32 = False
     if arch == "smollm_360m":
@@ -803,11 +823,9 @@ def test_train_step_on_card_equals_cpu(cuda, arch, remat):
         pg, og, mg = step(pg, og, map_tree(lambda t: t.to(cuda), batch))
         assert abs(mc["loss"].item() - mg["loss"].item()) < 1e-4
         states = {"cpu": (pc, oc), "cuda": (pg, og)}
-    kernel_layers = {"smollm_360m": cfg.n_layers, "xlstm_350m": cfg.n_layers // 2,
-                     # decoder self- and cross-attention, and the encoder's
-                     "whisper_large_v3": 2 * cfg.n_layers + cfg.n_enc_layers}[arch]
+    n_attn, n_mlstm, _ = _kernel_layers(cfg)
     assert (ops.flash_attention.bwd_launches + ops.mlstm_chunk.bwd_launches
-            == bwd + 2 * kernel_layers)
+            == bwd + 2 * (n_attn + n_mlstm))
     for a, b in zip(leaves(states["cpu"][0]), leaves(states["cuda"][0]), strict=True):
         torch.testing.assert_close(b.cpu(), a, atol=2e-3, rtol=0)
 
@@ -898,7 +916,9 @@ def test_app_on_card_holds_to_its_reference_and_cpu_price(cuda, app, size, ideal
     from repro_torch.launch import apps as launch_apps
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    before = _all_launches()
     card = launch_apps.run_app(app, size, cuda, ideal_storage=ideal)
+    assert _all_launches() == before  # library payloads: no kernel of the port
     assert card["check"]["ok"], card
     cpu = launch_apps.run_app(app, size, "cpu", ideal_storage=ideal)
     assert card["charged_ms"] == cpu["charged_ms"]
@@ -961,11 +981,28 @@ def _fake_and_real(op, args):
 
 
 def _all_launches():
-    return (ops.flash_attention.launches, ops.flash_attention.bwd_launches,
-            ops.decode_attention.launches, ops.mlstm_chunk.launches,
-            ops.mlstm_chunk.bwd_launches, ops.adamw_update.launches,
-            ops.moe_dispatch.launches, ops.moe_dispatch.bwd_launches,
-            ops.moe_combine.launches, ops.moe_combine.bwd_launches)
+    """Every kernel op's launch counter, by name (a backward's ``_bwd``)."""
+    counters = {"flash_attention": ops.flash_attention, "decode_attention": ops.decode_attention,
+                "mlstm_chunk": ops.mlstm_chunk, "adamw": ops.adamw_update,
+                "moe_dispatch": ops.moe_dispatch, "moe_combine": ops.moe_combine}
+    out = {name: op.launches for name, op in counters.items()}
+    out.update({f"{name}_bwd": op.bwd_launches for name, op in counters.items()
+                if hasattr(op, "bwd_launches")})
+    return out
+
+
+def _launched(before):
+    """The launches since ``before`` (``_all_launches()``), those not zero."""
+    return {k: n - before[k] for k, n in _all_launches().items() if n != before[k]}
+
+
+def _flops(op, args):
+    """The operations ``FlopCounterMode`` counts for one call of ``op``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        op(*args)
+    return fc.get_total_flops()
 
 
 def _layout(out):
@@ -981,27 +1018,40 @@ def test_fake_kernels_match_the_kernels_on_card(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(24)
     q = torch.randn((2, 100, 6, 64), generator=g, device=cuda).to(dt)
     k, v = (torch.randn((2, 100, 2, 64), generator=g, device=cuda).to(dt) for _ in range(2))
+    # the FLOP formulas (the dry run's count) are the kernel check's bound operations:
+    # attention 4·hd a visible pair and head, its backward 10·hd; the mLSTM 4·hd a
+    # causal pair of a chunk and 4·hd² a position, its backward 10·hd, 8·hd² and 2·hd²
+    # a (b, h, chunk)
+    pairs, chunk_pairs = sum(min(t + 1, 32) for t in range(100)), 64 * 65 // 2 + 36 * 37 // 2
     n = ops.flash_attention.launches
-    real, fake, quiet = _fake_and_real(K.flash_attention_fwd, [q, k, v, True, 32, True])
+    args = [q, k, v, True, 32, True]
+    real, fake, quiet = _fake_and_real(K.flash_attention_fwd, args)
     assert ops.flash_attention.launches == n + 1 and quiet
     assert _layout(fake) == _layout(real)
+    assert _flops(K.flash_attention_fwd, args) == 4 * 2 * 6 * 64 * pairs
     out, (lse,) = real
-    real, fake, quiet = _fake_and_real(K.flash_attention_bwd, [q, k, v, out, q, lse, True, 32])
+    args = [q, k, v, out, q, lse, True, 32]
+    real, fake, quiet = _fake_and_real(K.flash_attention_bwd, args)
     assert quiet and _layout(fake) == _layout(real)
+    assert _flops(K.flash_attention_bwd, args) == 10 * 2 * 6 * 64 * pairs
     lens = torch.tensor([1, 100], dtype=torch.int32, device=cuda)
     for with_lse in (False, True):
-        real, fake, quiet = _fake_and_real(K.decode_attention,
-                                           [q[:, 0].contiguous(), k, v, lens, with_lse])
+        args = [q[:, 0].contiguous(), k, v, lens, with_lse]
+        real, fake, quiet = _fake_and_real(K.decode_attention, args)
         assert quiet and _layout(fake) == _layout(real)
+        assert _flops(K.decode_attention, args) == 4 * 6 * 64 * (1 + 100)
     x = torch.randn((2, 100, 4, 64), generator=g, device=cuda)
     gate = torch.sigmoid(torch.randn((2, 100, 4), generator=g, device=cuda))
-    real, fake, quiet = _fake_and_real(K.mlstm_chunk_fwd, [x, x, x, gate.log(), gate, None, None,
-                                                           64, True])
+    args = [x, x, x, gate.log(), gate, None, None, 64, True]
+    real, fake, quiet = _fake_and_real(K.mlstm_chunk_fwd, args)
     assert quiet and _layout(fake) == _layout(real)
+    assert _flops(K.mlstm_chunk_fwd, args) == 2 * 4 * (4 * 64 * chunk_pairs + 4 * 64 * 64 * 100)
     y, _, _, saved = real
-    real, fake, quiet = _fake_and_real(K.mlstm_chunk_bwd, [x, x, x, gate.log(), gate, y, y,
-                                                           *saved, None, None, 64, False])
+    args = [x, x, x, gate.log(), gate, y, y, *saved, None, None, 64, False]
+    real, fake, quiet = _fake_and_real(K.mlstm_chunk_bwd, args)
     assert quiet and _layout(fake) == _layout(real)
+    assert _flops(K.mlstm_chunk_bwd, args) == 2 * 4 * (
+        10 * 64 * chunk_pairs + 8 * 64 * 64 * 100 + 2 * 64 * 64 * 2)
     # AdamW's: the per-shard sum, the finalize, the update (p and g in this dtype)
     p = torch.randn((3, 37), generator=g, device=cuda).to(dt)
     m = torch.randn((3, 37), generator=g, device=cuda)
@@ -1285,3 +1335,418 @@ def test_moe_kernels_replay_in_a_cuda_graph_without_syncing_on_card(cuda):
     xe, out = step()
     assert torch.equal(xe_g, xe) and torch.equal(out_g, out)
     assert torch.equal(out, moe_combine_ref(ye, w, slot_row))
+
+
+# ---------------------------------------------------------------------------
+# The configurations on the card: decode against forward at full width,
+# serving and training through the engine, a dry-run cell run as traced
+# ---------------------------------------------------------------------------
+
+def _kernel_layers(cfg):
+    """(attention layers, mLSTM layers, MoE layers) of ``cfg``; an
+    encoder-decoder's attention layers are the encoder's and the decoder's
+    self- and cross-attention."""
+    def count(of, kind):
+        return sum(of(e) == kind for e in cfg.block_pattern) * cfg.n_repeats
+
+    n_attn = count(cfg.mixer_of, "attn")
+    if cfg.enc_dec:
+        n_attn = cfg.n_enc_layers + 2 * n_attn
+    return n_attn, count(cfg.mixer_of, "mlstm"), count(cfg.mlp_of, "moe")
+
+
+def _free_card():
+    """Collect the reference cycles that hold tensors and give the cached
+    blocks back: the next test may fill the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Decode against one forward over the same 64 positions (B=2), at each
+# configuration's full width, its depth cut: (arch, dtype, layers or None for
+# all, experts or None for all, window or None for the config's, positions,
+# weight seed). bf16: within tests/test_torch_bf16.py's LIMIT over the
+# positions whose routing agrees in every layer (all positions without MoE),
+# with at most FLIP_SHARE of an MoE config's (token, layer) routings flipped
+# (mixtral-8x22b held as 8x7b); an MoE config at a drop-free capacity factor
+# (E/k). f32: rel < 1e-3 over every position (qwen2's bias and llama3's G = 16
+# on the 3xTF32 route; mixtral's window cut to 48 over 96 positions, so that
+# the decode cache's ring wraps).
+BF16_LIMIT = {"smollm_360m": 5e-2, "xlstm_350m": 0.15, "mixtral_8x7b": 5e-2,
+              "mixtral_8x22b": 5e-2, "jamba_1_5_large_398b": 0.18, "whisper_large_v3": 5e-2,
+              "nemotron_4_340b": 5e-2, "llama3_405b": 5e-2, "qwen2_72b": 5e-2,
+              "chameleon_34b": 5e-2}
+FLIP_SHARE = {"mixtral_8x7b": 0.05, "mixtral_8x22b": 0.05, "jamba_1_5_large_398b": 0.05}
+F32_LIMIT = 1e-3
+JAMBA = "jamba_1_5_large_398b"
+DECODE_CASES = {
+    "smollm-f32": ("smollm_360m", "float32", None, None, None, 64, 0),
+    "smollm-bf16": ("smollm_360m", "bfloat16", None, None, None, 64, 0),
+    "xlstm-f32": ("xlstm_350m", "float32", None, None, None, 64, 0),
+    **{f"xlstm-bf16-seed{s}": ("xlstm_350m", "bfloat16", None, None, None, 64, s)
+       for s in range(3)},
+    "nemotron-bf16": ("nemotron_4_340b", "bfloat16", 2, None, None, 64, 0),
+    "nemotron-f32": ("nemotron_4_340b", "float32", 1, None, None, 64, 0),
+    "llama3-bf16": ("llama3_405b", "bfloat16", 2, None, None, 64, 0),
+    "llama3-f32": ("llama3_405b", "float32", 1, None, None, 64, 0),
+    "qwen2-bf16": ("qwen2_72b", "bfloat16", 4, None, None, 64, 0),
+    "qwen2-f32": ("qwen2_72b", "float32", 1, None, None, 64, 0),
+    "chameleon-bf16": ("chameleon_34b", "bfloat16", 4, None, None, 64, 0),
+    "mixtral_8x22b-bf16": ("mixtral_8x22b", "bfloat16", 2, None, None, 64, 0),
+    "mixtral-bf16": ("mixtral_8x7b", "bfloat16", 4, None, None, 64, 0),
+    "mixtral-f32": ("mixtral_8x7b", "float32", 2, None, None, 64, 0),
+    "mixtral-f32-ring": ("mixtral_8x7b", "float32", 2, None, 48, 96, 0),
+    # one superblock (7 mamba layers, 1 attention, MoE on 4); 8 experts of 16 hold
+    # 51.8 GB in bf16, 4 hold 65.0 GB in f32
+    "jamba-bf16": (JAMBA, "bfloat16", 8, 8, None, 64, 0),
+    "jamba-f32": (JAMBA, "float32", 8, 4, None, 64, 0),
+    "whisper-bf16": ("whisper_large_v3", "bfloat16", None, None, None, 64, 0),
+    "whisper-f32": ("whisper_large_v3", "float32", None, None, None, 64, 0),
+}
+# the published widths these cases stand on (arXiv:2401.04088, 2403.19887; whisper-large-v3's
+# config.json)
+PUBLISHED = {
+    "mixtral_8x7b": {"d_model": 4096, "n_heads": 32, "n_kv_heads": 8, "hd": 128,
+                     "d_ff": 14336, "vocab": 32000, "n_experts": 8, "top_k": 2,
+                     "sliding_window": 4096, "rope_theta": 1e6, "tie_embeddings": False},
+    JAMBA: {"d_model": 8192, "d_inner": 16384, "ssm_state_dim": 16, "n_heads": 64,
+            "n_kv_heads": 8, "hd": 128, "d_ff": 24576, "vocab": 65536, "n_experts": 16,
+            "top_k": 2, "sliding_window": None, "tie_embeddings": False},
+    "whisper_large_v3": {"d_model": 1280, "n_heads": 20, "n_kv_heads": 20, "hd": 64,
+                         "d_ff": 5120, "activation": "gelu", "vocab": 51866, "n_layers": 32,
+                         "n_enc_layers": 32, "enc_frames": 1500, "tie_embeddings": False,
+                         "enc_dec": True},
+}
+
+
+# the configurations the bring-up's script drew its decode tokens for after a (1, 512)
+# forward batch; the others after a (2, 512) one
+ONE_ROW_FORWARD = ("nemotron_4_340b", "llama3_405b", "qwen2_72b", "chameleon_34b",
+                   "mixtral_8x22b")
+
+
+def _phase_tokens(arch, vocab, S):
+    """The (2, S) tokens the bring-up's script held this check on (numpy, seed
+    0): smollm's and xLSTM's the first S of a (2, 512) draw over smollm's
+    vocabulary; the others drawn after their forward's batch (and, for the
+    ring check's 96 positions, after the 64 of the decode check)."""
+    rng = np.random.default_rng(0)
+    if arch in ("smollm_360m", "xlstm_350m"):
+        return torch.as_tensor(rng.integers(0, get_config("smollm_360m").vocab, (2, 512))[:, :S])
+    rng.integers(0, vocab, (1 if arch in ONE_ROW_FORWARD else 2, 512))
+    if S != 64:
+        rng.integers(0, vocab, (2, 64))
+    return torch.as_tensor(rng.integers(0, vocab, (2, S)))
+
+
+def _decode_config(arch, dtype, layers, experts, window):
+    full = get_config(arch)
+    for name, value in PUBLISHED.get(arch, {}).items():
+        assert getattr(full.moe if name in ("n_experts", "top_k") else full, name) == value, name
+    cfg = dataclasses.replace(full, dtype=dtype, n_layers=layers or full.n_layers)
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=experts))
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    if cfg.moe is not None:  # drop-free: each expert's queue holds a whole group
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_matches_forward_at_full_width_on_card(cuda, case):
+    """Step-by-step decode logits against one forward's at the configuration's
+    full width (the width picks the kernels' route and instantiation), weights
+    made on the card from a seed; one flash launch per attention layer in the
+    forward (whisper: and the encoder's again to fill the cross cache) and one
+    decode launch per attention layer and step."""
+    from repro_torch.launch.serve import request_frames
+
+    arch, dtype, layers, experts, window, S, seed = DECODE_CASES[case]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _free_card()
+    cfg = _decode_config(arch, dtype, layers, experts, window)
+    params = M.init_model(cfg, seed=seed, device=cuda)
+    tokens = _phase_tokens(arch, cfg.vocab, S).to(cuda)
+    frames = (torch.from_numpy(request_frames(1, 0, 2, cfg.enc_frames, cfg.d_model)).to(cuda)
+              if cfg.enc_dec else None)  # a request's frames, as serving draws them
+    before = _all_launches()
+    with routes_recorded(L) as routes:
+        full = M.forward(params, cfg, tokens, frames)
+        cache = M.init_cache(cfg, 2, S, device=cuda)
+        if cfg.enc_dec:
+            M.prefill_cross(params, cfg, cache, frames)
+        steps = []
+        for t in range(S):
+            logits, cache = M.decode_step(params, cfg, cache, tokens[:, t], t)
+            steps.append(logits)
+    launches = _launched(before)
+    dec = torch.stack(steps, dim=1)
+    n_attn, n_mlstm, _ = _kernel_layers(cfg)
+    n_enc = cfg.n_enc_layers if cfg.enc_dec else 0
+    for name, n in (("flash_attention", n_attn + n_enc), ("decode_attention", S * (n_attn - n_enc)),
+                    ("mlstm_chunk", n_mlstm)):
+        assert launches.get(name, 0) == n, (name, launches)
+    assert not {"flash_attention_bwd", "mlstm_chunk_bwd"} & set(launches), launches
+    if dtype == "float32":
+        assert _rel(dec, full.cpu()) < F32_LIMIT
+        return
+    flips = (routing_flips([r.expert.reshape(2, -1, r.expert.shape[-1]) for r in routes], S)
+             if routes else torch.zeros((1, 2, S), dtype=torch.bool, device=cuda))
+    flipped = flips.any(dim=0)
+    err = _rel(torch.where(flipped[..., None], full, dec), full.cpu())
+    assert err < BF16_LIMIT[arch], err
+    assert flips.float().mean().item() <= FLIP_SHARE.get(arch, 0.0), flips.sum(dim=(1, 2))
+
+
+# Reduced f32 models served on the card and on the CPU from the same weights:
+# smollm at G = 3, xLSTM, mixtral with a window of 8 (the ring wraps), jamba and
+# whisper
+SERVE_CONFIGS = {
+    "smollm_360m": {"n_heads": 6, "n_kv_heads": 2},
+    "xlstm_350m": {},
+    "mixtral_8x7b": {"sliding_window": 8},
+    JAMBA: {},
+    "whisper_large_v3": {},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(SERVE_CONFIGS))
+def test_serving_on_card_gives_the_cpu_tokens(cuda, arch):
+    """``launch.serve.serve`` through the engine: the same greedy tokens on
+    the card as on the CPU, each in the vocabulary, and one decode launch per
+    attention layer (whisper: self and cross) and step of each request."""
+    from repro_torch.launch.serve import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config(arch)), **SERVE_CONFIGS[arch])
+    p_cpu = M.init_model(cfg, seed=1, device="cpu")
+    kw = dict(requests=2, batch=3, prompt_len=8, gen_len=12, seed=1)
+    before = _all_launches()
+    on_card = serve(cfg, map_tree(lambda t: t.to(cuda), p_cpu), device=cuda, **kw)
+    launches = _launched(before)
+    on_cpu = serve(cfg, p_cpu, device="cpu", **kw)
+    got, want = (r.results["summary"]["tokens"] for r in (on_card, on_cpu))
+    assert len(got) == kw["requests"]
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == (kw["batch"], kw["gen_len"]) and 0 <= a.min() and a.max() < cfg.vocab
+        assert (a == b).all(), (a, b)
+    n_attn = _kernel_layers(cfg)[0] - (cfg.n_enc_layers if cfg.enc_dec else 0)
+    steps = kw["prompt_len"] + kw["gen_len"] - 1
+    assert launches.get("decode_attention", 0) == kw["requests"] * n_attn * steps, launches
+
+
+# Training through the engine's workflow (``runtime.orchestrator``) on the card,
+# at full width, bf16 under ``remat``, its depth cut: (arch, layers, encoder layers,
+# B, S, steps, injected failures). The faults' seeds make step tasks fail at their
+# first attempt and no task of the DAG at its last (attempt 2), whatever order the
+# executors run in: at seed 6 the 8-step DAG's steps 3 and 7, at seed 7 one task of
+# the 4-step DAG.
+TRAIN_CASES = {
+    "smollm_360m": (2, 0, 4, 512, 8, {"task_failure_prob": 0.05, "max_retries": 2, "seed": 6}),
+    "xlstm_350m": (2, 0, 2, 512, 4, {"task_failure_prob": 0.05, "max_retries": 2, "seed": 7}),
+    "whisper_large_v3": (2, 2, 4, 448, 3, None),
+    "mixtral_8x7b": (1, 0, 4, 512, 2, None),
+}
+TRAIN_PEAK_TOL = 0.05
+
+
+def _workflow_peak_gib(cfg, steps):
+    """The training workflow's peak device memory, reckoned from the config's
+    shapes: the engine keeps every step run's state (the parameters and
+    AdamW's fp32 moments), so the last of ``steps`` runs starts with ``steps``
+    states held and peaks at the end of ``adamw_update``, holding the
+    gradients in the parameters' dtype and the new parameters and moments
+    (the AdamW kernels hold no temporary of a leaf's size, only the norm's
+    partial sums, ``SLOTS`` fp32 a leaf). The loss's activations are freed by
+    then."""
+    shapes = leaves(M.abstract_params(cfg))
+    params_b = sum(t.numel() * t.element_size() for t in shapes)
+    state_b = params_b + 8 * sum(t.numel() for t in shapes) + 4   # and the int32 count
+    step_b = params_b + state_b + 4 * adamw_kernel.SLOTS * len(shapes)
+    return (steps * state_b + step_b) / 2**30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(TRAIN_CASES))
+def test_training_workflow_on_card(cuda, arch):
+    """``steps`` AdamW steps on one fixed batch as tasks of the engine: the
+    loss finite and falling; the injected failures there when asked for and
+    every step task done; per step run each attention and mLSTM layer's
+    forward launched twice (the forward and its recomputation) and its
+    backward once, each MoE layer's dispatch and combine twice and their
+    backwards once, AdamW 2 a leaf and 1 a step; mixtral's peak within
+    ``TRAIN_PEAK_TOL`` of ``_workflow_peak_gib``."""
+    from repro_torch.core import EngineConfig, FaultConfig
+    from repro_torch.runtime.orchestrator import build_training_workflow, run_training_workflow
+
+    layers, enc_layers, B, S, steps, faults = TRAIN_CASES[arch]
+    _free_card()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, n_enc_layers=enc_layers)
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    params = M.init_model(cfg, seed=0, device=cuda)
+    data = synthetic_batch(cfg, B, S, seed=7, device=cuda)
+    step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
+    runs = []
+
+    def step_fn(state, i):
+        p, o, m = step(*state, data)
+        runs.append(i)
+        return (p, o), {"loss": float(m["loss"])}
+
+    dag, final_key, metric_keys = build_training_workflow(
+        n_steps=steps, step_fn=step_fn, init_fn=lambda: (params, adamw_init(params)))
+    before = _all_launches()
+    res = run_training_workflow(dag, final_key, metric_keys, EngineConfig(
+        faults=FaultConfig(**(faults or {})), job_timeout_s=3600.0))
+    launches = _launched(before)
+    peak_gib = (torch.cuda.max_memory_allocated(cuda) - base) / 2**30
+    losses = [res.report.results[k]["loss"] for k in metric_keys]
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], losses
+    assert int(res.report.results[final_key][1]["count"]) == steps
+    assert (res.report.fault_stats["injected_failures"] > 0) == (faults is not None)
+    n, (n_attn, n_mlstm, n_moe) = len(runs), _kernel_layers(cfg)
+    assert n >= steps
+    want = {"flash_attention": 2 * n_attn * n, "flash_attention_bwd": n_attn * n,
+            "mlstm_chunk": 2 * n_mlstm * n, "mlstm_chunk_bwd": n_mlstm * n,
+            "moe_dispatch": 2 * n_moe * n, "moe_dispatch_bwd": n_moe * n,
+            "moe_combine": 2 * n_moe * n, "moe_combine_bwd": n_moe * n,
+            "adamw": (2 * len(leaves(params)) + 1) * n}
+    assert launches == {k: v for k, v in want.items() if v}, (launches, n)
+    if arch == "mixtral_8x7b":
+        reckoned = _workflow_peak_gib(cfg, steps)
+        assert abs(peak_gib / reckoned - 1) <= TRAIN_PEAK_TOL, (peak_gib, reckoned)
+
+
+@pytest.mark.cuda
+def test_moe_train_step_on_card_is_bitwise_repeatable(cuda):
+    """mixtral-8x7b at full width, 1 layer, B=4 S=512, bf16 under ``remat``:
+    one train step run twice on one state (the engine's re-run of a step
+    task) gives the same parameters, moments and metrics to the bit and
+    leaves the state as it was; the recomputation routes every token as the
+    forward did (the route has no atomics), at the queue places the capacity
+    factor gives."""
+    _free_card()
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), n_layers=1)
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    B, S = 4, 512
+    params = M.init_model(cfg, seed=0, device=cuda)
+    state = (params, adamw_init(params))
+    data = synthetic_batch(cfg, B, S, seed=7, device=cuda)
+    kept = [t.cpu() for t in leaves(state)]
+    step = build_train_step(cfg, AdamWConfig(lr=5e-3, weight_decay=0.0, warmup=1))
+    with routes_recorded(L) as routes:
+        first = step(*state, data)
+    second = step(*state, data)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(first), leaves(second), strict=True))
+    assert first[2]["loss"].item() == second[2]["loss"].item()
+    del first, second
+    assert all(torch.equal(t, k.to(cuda)) for t, k in zip(leaves(state), kept, strict=True))
+    # the forward's routes, then the recomputation's, the layers in reverse
+    n = cfg.n_layers
+    assert len(routes) == 2 * n, len(routes)
+    g = min(cfg.moe_group, S)
+    cap = max(1, int(cfg.moe.top_k * g * cfg.moe_capacity_factor / cfg.moe.n_experts))
+    for a, b in zip(routes[:n], reversed(routes[n:]), strict=True):
+        assert a.cap == b.cap == cap
+        for name in ("expert", "slot", "keep"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+# smollm-360m's train cell of the dry run (B=256, S=4096), at 32 microbatches: it fits one
+# H100 (16 is the least power of two that does).
+DRYRUN_CELL = ("smollm_360m", "train_4k", 32)
+# the fake-CUDA trace's bytes and peak against the meta trace's (relative)
+META_GAP = 0.01
+# the CUDA caching allocator rounds each tensor up to 512 bytes, and hands a
+# large tensor a cached block whole when splitting it would leave 1 MB or less
+ALLOC_UNSPLIT = 1 << 20
+# The measured peak (max_memory_allocated over the step) against the traced
+# one. First readings (H100, 700 W): 1.0 exactly for both xLSTM decode cells,
+# 1.000001 for this cell at 16 microbatches (77 KB over 75.6 GB). The trace
+# counts the same allocations rounded as the allocator rounds them, so it can
+# over-count only by a tensor that a real run frees sooner (none seen); it
+# leaves out the kernels' scratch (flash backward's row sums, B·H·Sq fp32;
+# decode's partials; the mLSTM workspaces) and the cached blocks the
+# allocator hands out whole (up to 1 MB over a large tensor's request),
+# which a peak can hold: 1 % above covers that.
+PEAK_BAND = (0.999, 1.01)
+
+
+@pytest.mark.cuda
+def test_dryrun_cell_runs_on_card_as_traced_and_sharded(cuda):
+    """A dry-run cell that fits one H100, run on it. Its trace on fake CUDA
+    tensors (the card's route) gives the meta trace's FLOPs and kernel calls,
+    bytes and peak within ``META_GAP``. Its arguments allocated on the card
+    request the dry run's argument bytes exactly. One step there counts the
+    traced FLOPs (``FlopCounterMode``), launches the traced kernel calls, and
+    peaks within ``PEAK_BAND`` of the traced peak. The same step on DTensors
+    placed by the dry run's rules on the card's world-of-one NCCL 1×1 mesh
+    (the kernels through their sharded entries) gives every output to the
+    bit, the same launches and no collective. The test destroys its process
+    group."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_lib
+
+    arch, shape, n = DRYRUN_CELL
+    cfg, variant = get_config(arch), D.Variant(n_microbatches=n, tag=f"n_microbatches={n}")
+    meta = D.trace_cell(cfg, shape, variant)
+    traced = D.trace_cell(cfg, shape, variant, device="cuda")
+    for key in ("flops", "kernel_calls"):
+        assert traced[key] == meta[key], key
+    for key in ("bytes_accessed", "peak_bytes"):
+        assert abs(traced[key] / meta[key] - 1) <= META_GAP, (key, traced[key], meta[key])
+    cell = D.build_cell(cfg, shape, variant)
+    mesh = mesh_lib.make_host_mesh("cuda")
+    try:
+        arg_bytes = D.argument_bytes(cell, mesh)["total"]
+        _free_card()
+        base = torch.cuda.memory_allocated()
+        base_requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        args = D.materialize(cell, cuda)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - base
+        requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - base_requested
+        n_tensors = sum(isinstance(t, torch.Tensor) for t in leaves(args))
+        assert requested == arg_bytes, (requested, arg_bytes)
+        assert 0 <= allocated - requested <= n_tensors * ALLOC_UNSPLIT, (allocated, requested)
+        torch.cuda.reset_peak_memory_stats()
+        before = _all_launches()
+        with D.flop_counter() as fc:
+            out = cell.step()(args)
+            torch.cuda.synchronize()
+        plain_launches = _launched(before)
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        assert fc.get_total_flops() == traced["flops"]
+        calls = dict(traced["kernel_calls"])
+        # AdamW's ops share one counter: its sum of squares and update a leaf, its finalize
+        adamw = sum(calls.pop(k, 0) for k in ("adamw_sumsq", "adamw_finalize", "adamw_update"))
+        calls = {{"flash_attention_fwd": "flash_attention"}.get(k, k): v for k, v in calls.items()}
+        assert plain_launches == {**calls, "adamw": adamw}, (plain_launches, traced["kernel_calls"])
+        assert PEAK_BAND[0] <= peak / traced["peak_bytes"] <= PEAK_BAND[1], (
+            peak, traced["peak_bytes"])
+        # the sharded step's reference: the plain step outside the FLOP counter (a step
+        # under the counter gave other bits on an H100)
+        _free_card()
+        want = [t.cpu() for t in leaves(cell.step()(args))]
+        _free_card()
+        sargs = D.shard_args(cell, mesh, args)
+        before = _all_launches()
+        with implicit_replication(), D.CollectiveCounter() as cc:
+            out = cell.step(D.placements(cell, mesh))(sargs)
+        torch.cuda.synchronize()
+        assert _launched(before) == plain_launches, (_launched(before), plain_launches)
+        got = [t.to_local() if hasattr(t, "to_local") else t for t in leaves(out)]
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(want, got, strict=True))
+        assert cc.tally.record()["total"] == 0, cc.tally.record()
+    finally:
+        dist.destroy_process_group()

@@ -49,7 +49,7 @@ def split_then_combine(q, k_cache, v_cache, kv_len, n_split, split_len):
     (4, 5, 64, (1, 64)),        # smollm serving: one range, no scratch, no merge
     (32, 5, 64, (1, 64)),
     (4, 5, 256, (1, 256)),      # up to SPLIT_KEYS keys stay one range
-    (8, 5, 2048, (7, 320)),     # the chip_smoke case: 280 blocks
+    (8, 5, 2048, (7, 320)),     # the kernel check's ragged case: 280 blocks
     (1, 5, 8192, (32, 256)),    # one long request: 160 blocks
     (1, 8, 2048, (8, 256)),
 ])

@@ -12,8 +12,8 @@ in fp32 throughout. The rows' log-sum-exp that the flash forward writes
 for its backward has no JAX counterpart: ``flash_attention_lse_ref`` is
 held to a float64 numpy log-sum-exp of the masked scores (1e-5), and the
 backward's fp32 formulas fed it to the same formulas recomputing it
-(1e-5). The CUDA kernels run only on the card
-(``tests/test_torch_cuda.py``; ``python3 chip_smoke.py`` at full width).
+(1e-5). The CUDA kernels run only on the card (``tests/test_torch_cuda.py``;
+the kernel check, ``python3 chip_smoke.py``, at the configurations' widths).
 AdamW's wrapper on CPU leaves is its plain version to the bit and counts no
 call; on meta and fake CUDA leaves its ops' fake implementations give the
 shapes and dtypes of the plain version's outputs; a tree on two devices is

@@ -6,7 +6,8 @@ numpy), and both frameworks see the same values. Tolerances:
 ``mlstm_chunk`` atol 5e-5, rtol 5e-4 (tests/test_kernels.py); the mixers
 f32 relative max error 1e-4 on reduced xlstm-350m. On the CPU
 ``ops.mlstm_chunk`` runs its plain version; the CUDA kernel runs only on
-the card (``tests/test_torch_cuda.py``, ``python3 chip_smoke.py``).
+the card (``tests/test_torch_cuda.py``; the kernel check, ``python3
+chip_smoke.py``, at xlstm-350m's width).
 
 The backward: ``mlstm_chunk_bwd_ref`` against ``torch.autograd`` of
 ``mlstm_chunk_ref`` in float64, max abs error <= 1e-10 x max|autograd|

@@ -278,7 +278,7 @@ def test_collection_under_a_profiler_is_a_gc_span():
 
 
 def _chip_smoke():
-    """``chip_smoke.py`` at the repo's root, for its profile readers."""
+    """``chip_smoke.py`` at the repo's root, for its profile reader."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
@@ -297,14 +297,12 @@ def test_chip_smoke_profiles_leave_the_programs_spans_out():
                 ("ProfilerStep#1", cuda), (tracing.PREFIX + "train.step", cuda),
                 ("void gemm_kernel<bf16>", cuda), ("aten::mm", cpu))]
 
-    with recording() as prof:
+    with recording():
         with tracing.span("engine.job"):
             with tracing.span("engine.task"):
                 torch.ones(8).sum()
             torch.ones(8).mul(2)
     assert tracing.spans()
-    outer = sorted(e.name for e in prof.events() if smoke.outermost_torch_call(e))
-    assert outer == ["aten::mul", "aten::ones", "aten::ones", "aten::sum"]
     assert [e.key for e in smoke.kernel_rows(Prof())] == ["void gemm_kernel<bf16>"]
     assert tracing.spans() == [] and tracing._on_gc not in gc.callbacks
 
